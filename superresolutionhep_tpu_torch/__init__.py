@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of the JAX package beside it (stage-1 SR serving path first).
+
+The JAX package beside this one is the reference; this package imports torch,
+numpy and the standard library only.  See README.md ("PyTorch/CUDA port").
+"""
+
+__version__ = "0.1.0"

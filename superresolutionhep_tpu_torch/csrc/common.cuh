@@ -1,0 +1,291 @@
+// Shared device helpers for the hand-written Hopper kernels of the PyTorch
+// port: element conversion, the parameter-free LayerNorm of rows held across a
+// warp, the raw bf16 tensor-core instruction, asynchronous weight-slab copies
+// with a two-slab pipeline, and a 64x64 block-level tile product from shared
+// memory in two flavours:
+//   * bf16 : mma.sync.m16n8k16 with fp32 accumulation (tensor cores);
+//   * fp32 : register-tiled FMA loops (no tensor cores: TF32 would keep only
+//            ~3 decimal digits, and the fp32 build exists so that the kernels
+//            can be held tightly against their plain PyTorch versions).
+// Both keep 32 fp32 accumulators per thread; coord() says which (row, col) of
+// the 64x64 tile accumulator i of this thread belongs to, so epilogues are
+// written once.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace srhep {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 128;  // 4 warps per block, everywhere
+constexpr int kTileM = 64;     // rows of a block tile
+constexpr int kTileN = 64;     // output columns per pass
+constexpr int kSlabK = 128;    // depth of one weight slab in shared memory
+constexpr float kLnEps = 1e-5f;
+constexpr float kLreluSlope = 0.01f;
+
+// 16 bytes of padding per shared-memory row: consecutive rows then start 16
+// bytes apart modulo 128, so the 8 row reads of an ldmatrix hit distinct banks.
+template <typename T> struct Pad { static constexpr int value = 16 / (int)sizeof(T); };
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : kLreluSlope * x; }
+
+// Four consecutive elements at a time: 8-byte accesses for bf16, 16-byte for fp32.
+template <typename T> __device__ __forceinline__ void load4(const T* p, float (&o)[4]);
+template <> __device__ __forceinline__ void load4<float>(const float* p, float (&o)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+}
+template <> __device__ __forceinline__ void load4<bf16>(const bf16* p, float (&o)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+template <typename T> __device__ __forceinline__ void store4(T* p, const float (&v)[4]);
+template <> __device__ __forceinline__ void store4<float>(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <> __device__ __forceinline__ void store4<bf16>(bf16* p, const float (&v)[4]) {
+  uint2 raw;
+  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// Parameter-free LayerNorm of R rows of F values, each spread over the warp in
+// groups of four (lane holds elements 4*(lane + 32*i) .. +3, i < nch = F/128).
+// Two passes in fp32, as the plain version: mean, centred values, mean of
+// squares, rsqrt(var + eps).  The R rows are reduced in the same shuffle
+// rounds, so their latencies overlap.
+constexpr int kMaxChunks = 8;  // F <= 1024
+template <int R>
+__device__ __forceinline__ void warp_layernorm_rows(float (&v)[R][kMaxChunks][4], int nch, int F) {
+  float s[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    s[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i)
+      if (i < nch) s[r] += (v[r][i][0] + v[r][i][1]) + (v[r][i][2] + v[r][i][3]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], o);
+  float q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float mu = s[r] / (float)F;
+    q[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i)
+      if (i < nch) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[r][i][e] -= mu;
+          q[r] += v[r][i][e] * v[r][i][e];
+        }
+      }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) q[r] += __shfl_xor_sync(0xffffffffu, q[r], o);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float rs = rsqrtf(q[r] / (float)F + kLnEps);
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i)
+      if (i < nch) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[r][i][e] *= rs;
+      }
+  }
+}
+
+// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Four 8x8 bf16 matrices from shared memory in one instruction, delivered in
+// the mma fragment layout.  Lanes 8i..8i+7 give the addresses of the 8 rows
+// (16 bytes each) of matrix i; every lane gets, per matrix, the two elements
+// at row lane/4, columns 2*(lane%4) and +1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* smem_ptr) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem_ptr);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same with each 8x8 matrix transposed on the way: every lane gets, per
+// matrix, the elements at rows 2*(lane%4) and +1 of column lane/4.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* smem_ptr) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem_ptr);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Offsets (in elements) of this lane's row address for ldmatrix_x4:
+//  * A operand, a 16x16 row-major tile at (0, 0) with row stride ld:
+//    matrices = (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+//    (rows 8-15, k 8-15) = the a0..a3 registers of mma.m16n8k16;
+//    the same offsets with ldmatrix_x4_trans on a k-major buffer ([k][n]) give
+//    the B operand of two adjacent 8-wide n tiles over 16 k: (k 0-7, n 0-7),
+//    (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15), each transposed;
+__device__ __forceinline__ int ldsm_a_offset(int lane, int ld) { return (lane & 15) * ld + 8 * (lane >> 4); }
+//  * B operand from an n-major buffer ([n][k], row stride ld), two adjacent
+//    8-wide n tiles at (0, 0): matrices = (n 0-7, k 0-7), (n 0-7, k 8-15),
+//    (n 8-15, k 0-7), (n 8-15, k 8-15) = b0, b1 of the first tile, b0, b1 of
+//    the second.
+__device__ __forceinline__ int ldsm_b_offset(int lane, int ld) {
+  return ((lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
+}
+
+// acc(64x64) += As(64 x K, row stride lda) * Bs(64 x K, row stride ldb)^T,
+// both in shared memory; Bs is "n-major": row n holds the K weights of
+// output column n (the layout of a torch Linear weight).
+template <typename T> struct TileMma;
+
+template <> struct TileMma<bf16> {
+  // warp w owns rows 16w..16w+15; lane = 4*g + t.  Per 16-deep k-step: one
+  // ldmatrix for the A tile, one per pair of 8-wide column tiles of B.
+  static __device__ __forceinline__ void run(const bf16* As, int lda, const bf16* Bs, int ldb, int K,
+                                             float (&acc)[32]) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const bf16* ap = As + 16 * warp * lda + ldsm_a_offset(lane, lda);
+    const bf16* bp = Bs + ldsm_b_offset(lane, ldb);
+    for (int k = 0; k < K; k += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, ap + k);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, bp + 16 * jp * ldb + k);
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16_16816(*reinterpret_cast<float(*)[4]>(&acc[8 * jp]), a, b0);
+        mma_bf16_16816(*reinterpret_cast<float(*)[4]>(&acc[8 * jp + 4]), a, b1);
+      }
+    }
+  }
+  static __device__ __forceinline__ void coord(int i, int& r, int& c) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int j = i >> 2, e = i & 3;
+    r = 16 * warp + g + ((e & 2) ? 8 : 0);
+    c = 8 * j + 2 * t + (e & 1);
+  }
+};
+
+template <> struct TileMma<float> {
+  // thread (ty, tx) = (tid / 8, tid % 8) owns rows 4*ty + i, cols tx + 8*j
+  static __device__ __forceinline__ void run(const float* As, int lda, const float* Bs, int ldb, int K,
+                                             float (&acc)[32]) {
+    const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+    for (int k = 0; k < K; k += 4) {
+      float4 a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(As + (4 * ty + i) * lda + k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(Bs + (tx + 8 * j) * ldb + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float s = acc[8 * i + j];
+          s = fmaf(a[i].x, b[j].x, s);
+          s = fmaf(a[i].y, b[j].y, s);
+          s = fmaf(a[i].z, b[j].z, s);
+          s = fmaf(a[i].w, b[j].w, s);
+          acc[8 * i + j] = s;
+        }
+    }
+  }
+  static __device__ __forceinline__ void coord(int i, int& r, int& c) {
+    const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+    r = 4 * ty + (i >> 3);
+    c = tx + 8 * (i & 7);
+  }
+};
+
+// ---- asynchronous global -> shared copies (cp.async, 16 bytes each)
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gsrc));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying a 64 x kSlabK slab of an n-major weight W (row stride ldw_g
+// elements) at (n0, k0) into shared memory Ws (row stride kSlabK + pad).
+template <typename T>
+__device__ __forceinline__ void load_weight_slab_async(T* Ws, const T* __restrict__ W, int ldw_g, int n0, int k0) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int CPR = kSlabK / VEC;  // 16-byte pieces per row
+  constexpr int LDS = kSlabK + Pad<T>::value;
+  for (int c = threadIdx.x; c < kTileN * CPR; c += kThreads) {
+    const int r = c / CPR, cc = c % CPR;
+    cp_async16(Ws + r * LDS + cc * VEC, W + (size_t)(n0 + r) * ldw_g + k0 + cc * VEC);
+  }
+}
+
+// For every 64-column chunk nc in [nc_begin, nc_end): acc(64x64) = As(64 x K) *
+// W[64*nc .. 64*nc+63][0..K)^T, then epi(64*nc, acc).  W streams through two
+// slab buffers in shared memory (Ws holds both): the copy of the next slab is
+// in flight while the tensor cores work on the current one.  Every thread of
+// the block must call this; epi may synchronise the block.
+template <typename T, typename Epilogue>
+__device__ __forceinline__ void tile_gemm_chunks(const T* As, int lda, const T* __restrict__ W, int K,
+                                                 int nc_begin, int nc_end, T* Ws, Epilogue epi) {
+  constexpr int LDS = kSlabK + Pad<T>::value;
+  constexpr int SLAB = kTileN * LDS;
+  const int KS = K / kSlabK;
+  const int n_it = (nc_end - nc_begin) * KS;
+  if (n_it <= 0) return;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  load_weight_slab_async<T>(Ws, W, K, nc_begin * kTileN, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    const int nc = nc_begin + it / KS, ks = it % KS;
+    if (it + 1 < n_it) {
+      load_weight_slab_async<T>(Ws + ((it + 1) & 1) * SLAB, W, K, (nc_begin + (it + 1) / KS) * kTileN,
+                                ((it + 1) % KS) * kSlabK);
+      cp_async_commit();
+      cp_async_wait<1>();  // all but the copy just started have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slab `it` (and, first time, As) visible to every warp
+    TileMma<T>::run(As + ks * kSlabK, lda, Ws + (it & 1) * SLAB, LDS, kSlabK, acc);
+    __syncthreads();  // slab buffer free for the copy started next iteration
+    if (ks == KS - 1) {
+      epi(nc * kTileN, acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+  }
+}
+
+}  // namespace srhep

@@ -1,0 +1,169 @@
+"""Masked multi-head attention over padded variable-length sets.
+
+Counterpart of the JAX package's ``models/attention.py``, for now the
+padding-masked self-attention path only: edges, attention bias, adjacency
+masks, cross-attention inputs, sequence/tensor parallelism and segment
+packing raise ``NotImplementedError``.
+
+  * mask convention: True == valid (see ops/masked.py);
+  * ``impl``: 'flash' (running-max kernel) | 'flash_nomax' (inference-only
+    clipped-exp2 kernel) | 'einsum' (dense scores) | 'auto' (flash when the
+    tensor is on CUDA, einsum on the CPU);
+  * ``fused_ln=(eff_a, eff_b)``: the input arrives RAW (pre-norm) and
+    LayerNorm + adaLN modulate + the QKV projections run as one kernel
+    (ops/fused_qkv.py) straight into the flash kernel's layout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..ops.flash_attention import (
+    LOG2E,
+    flash_shapes_ok,
+    masked_flash_attention,
+    masked_flash_attention_T,
+)
+from ..ops.fused_qkv import _ln_noaffine, fused_ln_mod_proj, fused_qkv_ok
+from ..ops.masked import masked_softmax, merge_masks
+from .dense import Linear, xavier_uniform_
+
+IMPLS = ("flash", "flash_nomax", "einsum", "auto")
+
+
+class MultiheadAttention(nn.Module):
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        q_dim: Optional[int] = None,
+        out_proj: bool = True,
+        dropout: float = 0.0,
+        impl: str = "auto",
+    ):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
+        if impl not in IMPLS:
+            raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+        if dropout:
+            raise NotImplementedError("pre-softmax score dropout is not ported yet")
+        self.embed_dim, self.num_heads, self.impl = embed_dim, num_heads, impl
+        in_dim = q_dim or embed_dim
+        self.linear_q = xavier_uniform_(Linear(in_dim, embed_dim))
+        self.linear_k = xavier_uniform_(Linear(in_dim, embed_dim))
+        self.linear_v = xavier_uniform_(Linear(in_dim, embed_dim))
+        self.linear_out = xavier_uniform_(Linear(embed_dim, in_dim)) if out_proj else None
+        self._fold = None  # cached (version key, w (F, 3F) view, bias) of the fused path
+
+    # ------------------------------------------------------------------
+    def _use_flash(self, x) -> bool:
+        """'flash'/'flash_nomax' always; 'auto' when the tensor is on CUDA
+        (the counterpart of the JAX package's backend test)."""
+        return self.impl in ("flash", "flash_nomax") or (self.impl == "auto" and x.is_cuda)
+
+    @property
+    def _softmax(self) -> str:
+        return "nomax_clip" if self.impl == "flash_nomax" else "max"
+
+    def forward(
+        self,
+        q,
+        k=None,
+        v=None,
+        edges=None,
+        q_valid=None,
+        kv_valid=None,
+        attn_valid=None,
+        attn_bias=None,
+        segment_ids=None,
+        fused_ln=None,
+    ):
+        """q: (B, L, F). Masks are True==valid. Returns (B, L, q_dim or
+        embed_dim)."""
+        if k is not None or v is not None:
+            raise NotImplementedError("cross-attention is not ported yet")
+        if edges is not None or attn_bias is not None or attn_valid is not None:
+            raise NotImplementedError("edge features / attention bias / adjacency masks are not ported yet")
+        if segment_ids is not None:
+            raise NotImplementedError("segment-packed attention is not ported yet")
+        if fused_ln is not None:
+            return self._fused_self_attention(q, q_valid, fused_ln)
+        kv_valid = q_valid
+
+        B, L, _ = q.shape
+        H, HD = self.num_heads, self.embed_dim // self.num_heads
+
+        q_p = self.linear_q(q).reshape(B, L, H, HD)
+        k_p = self.linear_k(q).reshape(B, L, H, HD)
+        v_p = self.linear_v(q).reshape(B, L, H, HD)
+        return self._project_out(self._attend(q_p, k_p, v_p, q_valid, kv_valid))
+
+    def _attend(self, q_p, k_p, v_p, q_valid, kv_valid):
+        """(B, L, H, HD) projections -> (B, L, embed_dim)."""
+        B, L, H, HD = q_p.shape
+        scale = math.sqrt(HD)  # scores are DIVIDED by it
+        if self._use_flash(q_p) and flash_shapes_ok(L, L, HD):
+            out = masked_flash_attention(
+                q_p, k_p, v_p, q_valid, kv_valid, scale=1.0 / scale, softmax=self._softmax
+            )
+            return out.reshape(B, L, self.embed_dim)
+        mask = merge_masks(q_valid, kv_valid, None, L, L)  # (B, Lq, Lk) or None
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_p, k_p) / scale
+        weights = masked_softmax(scores, mask[:, None] if mask is not None else None, axis=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, v_p).reshape(B, L, self.embed_dim)
+
+    def _project_out(self, out):
+        return self.linear_out(out) if self.linear_out is not None else out
+
+    # ------------------------------------------------------------------
+    def _folded_qkv(self):
+        """(F, 3F) weight (as the transposed view of a (3F, F) buffer) and
+        (3F,) bias with the flash pre-scale scale*log2(e) folded into the Q
+        columns AND the Q bias, in the parameters' dtype.  Cached until a
+        parameter changes."""
+        ps = (self.linear_q.weight, self.linear_k.weight, self.linear_v.weight,
+              self.linear_q.bias, self.linear_k.bias, self.linear_v.bias)
+        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in ps)
+        if self._fold is None or self._fold[0] != key:
+            HD = self.embed_dim // self.num_heads
+            c = (1.0 / math.sqrt(HD)) * LOG2E
+            c = torch.tensor(c, dtype=ps[0].dtype, device=ps[0].device)
+            with torch.no_grad():
+                w_t = torch.cat([ps[0] * c, ps[1], ps[2]], dim=0)  # (3F, F)
+                bias = torch.cat([ps[3] * c, ps[4], ps[5]], dim=0)
+            self._fold = (key, w_t.t(), bias)
+        return self._fold[1], self._fold[2]
+
+    def _fused_self_attention(self, x, valid, fused_ln):
+        """Fused-prologue self-attention: LN + modulate + QKV in one kernel
+        straight into the flash kernel.  Takes an equivalent unfused
+        formulation when the shape gates fail or the impl is not a flash one,
+        so the caller never needs a second code path."""
+        eff_a, eff_b = fused_ln
+        B, L, F = x.shape
+        H, HD = self.num_heads, self.embed_dim // self.num_heads
+        dt = self.linear_q.weight.dtype
+
+        if self._use_flash(x) and fused_qkv_ok(L, F) and flash_shapes_ok(L, L, HD):
+            w, bias = self._folded_qkv()
+            qkvT = fused_ln_mod_proj(x.to(dt), eff_a, eff_b, w, bias)  # (B, 3F, L)
+            qkvT = qkvT.reshape(B, 3, H, HD, L)
+            outT = masked_flash_attention_T(
+                qkvT[:, 0], qkvT[:, 1], qkvT[:, 2], valid, valid, softmax=self._softmax
+            )
+            out = outT.permute(0, 3, 1, 2).reshape(B, L, self.embed_dim)
+        else:
+            xhat = _ln_noaffine(x.float())
+            a3 = eff_a if eff_a.ndim == 3 else eff_a[:, None, :]
+            b3 = eff_b if eff_b.ndim == 3 else eff_b[:, None, :]
+            y = (xhat * a3 + b3).to(dt)
+            q_p = self.linear_q(y).reshape(B, L, H, HD)
+            k_p = self.linear_k(y).reshape(B, L, H, HD)
+            v_p = self.linear_v(y).reshape(B, L, H, HD)
+            out = self._attend(q_p, k_p, v_p, valid, valid)
+        return self._project_out(out)

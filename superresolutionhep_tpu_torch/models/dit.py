@@ -1,0 +1,130 @@
+"""Diffusion Transformer (DiT) layers with adaLN conditioning.
+
+Counterpart of the JAX package's ``models/dit.py``: per-layer context ->
+SiLU -> Linear -> 6-way (shift/scale/gate for MSA and MLP) modulation; gated
+residual attention and FFN.  Self-attention with padding masks only for now
+(no cross-attention, tensor parallelism, segment packing, remat).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch.nn as nn
+
+from ..ops.fused_mlp import fused_dit_mlp, fused_mlp_ok, mlp_config_fusable
+from .attention import MultiheadAttention
+from .dense import Dense, LayerNorm, Linear, xavier_uniform_
+
+
+def modulate(x, shift, scale):
+    """x: (B, L, F); shift/scale: (B, F), or (B, L, F) per cell."""
+    if shift.ndim < x.ndim:
+        shift = shift[:, None, :]
+        scale = scale[:, None, :]
+    return x * (1 + scale) + shift
+
+
+def _gate(g, x):
+    """Broadcast a (B, F) or per-cell (B, L, F) residual gate onto x."""
+    return (g if g.ndim == x.ndim else g[:, None, :]) * x
+
+
+def adaln_modulation(context_size: int, out_features: int) -> nn.Sequential:
+    """Sequential(SiLU, Linear): the Linear sits in slot 1, as in the
+    reference checkpoint layout."""
+    return nn.Sequential(nn.SiLU(), xavier_uniform_(Linear(context_size, out_features)))
+
+
+class DiTLayer(nn.Module):
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        context_size: int,
+        dense_config: Optional[dict] = None,
+        attn_impl: str = "auto",
+        fused_prologue: bool = False,
+    ):
+        super().__init__()
+        self.embed_dim = embed_dim
+        # fuse norm1 + adaLN modulate + QKV projection (ops/fused_qkv.py) and
+        # the whole MLP half-layer (ops/fused_mlp.py) into one kernel each
+        self.fused_prologue = fused_prologue
+        self.adaLN_modulation = adaln_modulation(context_size, 6 * embed_dim)
+        self.norm1 = LayerNorm(embed_dim)
+        self.mha = MultiheadAttention(embed_dim, num_heads, impl=attn_impl)
+        self.mlp_cfg = dict(dense_config, output_size=embed_dim) if dense_config is not None else None
+        if self.mlp_cfg is not None:
+            self.norm2 = LayerNorm(embed_dim)
+            self.dense = Dense.from_config(self.mlp_cfg, input_size=embed_dim)
+
+    def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, attn_valid=None, attn_bias=None):
+        if k is not None:
+            raise NotImplementedError("cross-attention DiT layers are not ported yet")
+        mod = self.adaLN_modulation(context)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+
+        fuse = self.fused_prologue and attn_valid is None and attn_bias is None
+        if fuse:
+            # fold norm1's gamma/beta with the adaLN shift/scale, in fp32, into
+            # the two affine rows the fused kernel consumes
+            one_scale = 1.0 + scale_msa.float()
+            eff_a = self.norm1.weight.float() * one_scale
+            eff_b = self.norm1.bias.float() * one_scale + shift_msa.float()
+            q_attn = self.mha(q, q_valid=q_valid, fused_ln=(eff_a, eff_b))
+        else:
+            q_attn = self.mha(
+                modulate(self.norm1(q), shift_msa, scale_msa),
+                q_valid=q_valid, attn_valid=attn_valid, attn_bias=attn_bias,
+            )
+
+        if fuse and self.mlp_cfg is not None:
+            Fh = (self.mlp_cfg.get("hidden_layers") or [0])[0]
+            if mlp_config_fusable(self.mlp_cfg) and fused_mlp_ok(q.shape[1], self.embed_dim, Fh):
+                # both residuals, norm2 + modulate, the MLP's own LN and the
+                # two MLP products as ONE kernel (ops/fused_mlp.py)
+                lin0, lin1 = self.dense.linears
+                one_mlp = 1.0 + scale_mlp.float()
+                eff2_a = self.norm2.weight.float() * one_mlp
+                eff2_b = self.norm2.bias.float() * one_mlp + shift_mlp.float()
+                dt = lin0.weight.dtype
+                return fused_dit_mlp(
+                    q.to(dt), q_attn.to(dt), gate_msa.float(), eff2_a, eff2_b, gate_mlp.float(),
+                    lin0.weight.t(), lin0.bias, lin1.weight.t(), lin1.bias,
+                )
+
+        q = q + _gate(gate_msa, q_attn)
+        if self.mlp_cfg is not None:
+            q_mlp = self.dense(modulate(self.norm2(q), shift_mlp, scale_mlp), context=context)
+            q = q + _gate(gate_mlp, q_mlp)
+        return q
+
+
+class DiTEncoder(nn.Module):
+    def __init__(
+        self,
+        embed_dim: int,
+        num_layers: int,
+        num_heads: int,
+        context_size: int,
+        dense_config: Optional[dict] = None,
+        out_dim: int = 0,
+        attn_impl: str = "auto",
+        fused_prologue: bool = False,
+    ):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DiTLayer(embed_dim, num_heads, context_size, dense_config, attn_impl, fused_prologue)
+            for _ in range(num_layers)
+        )
+        self.final_norm = LayerNorm(embed_dim)
+        self.final_linear = xavier_uniform_(Linear(embed_dim, out_dim)) if out_dim else None
+
+    def forward(self, q, **kwargs):
+        for layer in self.layers:
+            q = layer(q, **kwargs)
+        q = self.final_norm(q)
+        if self.final_linear is not None:
+            q = self.final_linear(q)
+        return q

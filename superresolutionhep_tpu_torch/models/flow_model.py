@@ -1,0 +1,135 @@
+"""Conditional flow-matching super-resolution denoiser (stage 1).
+
+Counterpart of the JAX package's ``models/flow_model.py``: embeds cell
+geometry (eta/cosphi/sinphi), calorimeter layer, proxy energy and the noisy
+per-cell state, each conditioned on the timestep embedding; pools a
+masked-mean global conditioning vector; runs a DiT stack over the cell set;
+skip-concatenates the conditional features; optional final adaLN modulation;
+and predicts a per-cell scalar velocity.  ``type: DiT`` and non-packed
+batches only for now; no Fourier geometry features.
+
+Config layout is identical to the ``flow_model`` YAML block; parameter names
+are the reference checkpoint's (see tools/convert.py).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.masked import masked_mean
+from .dense import Dense, LayerNorm
+from .dit import DiTEncoder, adaln_modulation, modulate
+from .embed import TimestepEmbedder
+
+N_CALO_LAYERS = 3  # ECAL layers kept after the layer<3 cut
+
+
+class FlowModel(nn.Module):
+    def __init__(self, config: dict, attn_impl: str = "auto", fused_prologue: bool = False):
+        """config: the ``flow_model`` config block."""
+        super().__init__()
+        cfg = self.config = config
+        if int(cfg["etaphi_emb"].get("fourier_features", 0) or 0):
+            raise NotImplementedError("Fourier geometry features are not ported yet")
+        tcfg = cfg["transformer"]
+        if tcfg["type"] != "DiT":
+            raise NotImplementedError(f"transformer type {tcfg['type']!r} is not ported yet (DiT only)")
+        C = int(cfg["time_embedding_size"])
+        h_dim = int(cfg["h_dim"])
+
+        self.time_step_embedder = TimestepEmbedder(C)
+        emb_dim = int(cfg["layer_emb"]["emb_dim"])
+        self.layer_emb_table = nn.Embedding(N_CALO_LAYERS, emb_dim)
+        self.layer_emb_net = Dense.from_config(
+            dict(cfg["layer_emb"]["dense_config"], context_size=C), input_size=emb_dim
+        )
+        # geometry embedder: its weights stay fp32 under a bf16 model
+        # (models/precision.py) and it is fed fp32 inputs, so it computes in
+        # full fp32 — bf16 inputs would quantize normalized eta below the HR
+        # subcell half-pitch, the SR task's whole signal.
+        self.etaphi_emb_net = Dense.from_config(dict(cfg["etaphi_emb"], context_size=C), input_size=3)
+        self.proxy_emb_net = Dense.from_config(dict(cfg["e_proxy_emb"], context_size=C), input_size=1)
+        self.noisy_input_emb_net = Dense.from_config(dict(cfg["noisy_input_emb"], context_size=C), input_size=1)
+
+        cond_dim = (
+            cfg["etaphi_emb"]["output_size"]
+            + cfg["layer_emb"]["dense_config"]["output_size"]
+            + cfg["e_proxy_emb"]["output_size"]
+            + 1
+        )
+        ctx = C + cond_dim  # [time_emb ‖ pooled conditional features]
+        self.feat_0_mlp = Dense.from_config(
+            dict(cfg["feat_0_mlp"], context_size=ctx),
+            input_size=cond_dim + cfg["noisy_input_emb"]["output_size"],
+        )
+        if int(cfg["feat_0_mlp"]["output_size"]) != h_dim:
+            raise ValueError("feat_0_mlp.output_size must equal h_dim")
+        self.transformer = DiTEncoder(
+            embed_dim=h_dim,
+            num_layers=tcfg["num_transformer_layers"],
+            num_heads=tcfg["num_heads"],
+            context_size=ctx,
+            dense_config=dict(tcfg["dense_config"]),
+            attn_impl=attn_impl,
+            fused_prologue=fused_prologue,
+        )
+        feat_dim = h_dim + cond_dim
+        self.final_modulation = bool(cfg.get("final_modulation", False))
+        if self.final_modulation:
+            self.v_t_adaLN_modulation = adaln_modulation(ctx, 2 * feat_dim)
+            self.norm_v_t = LayerNorm(feat_dim)
+        self.v_t_pred_net = Dense.from_config(dict(cfg["v_t_pred"], context_size=ctx), input_size=feat_dim)
+
+    @property
+    def dtype(self):
+        """Compute dtype of the dense stack (the geometry embedder aside)."""
+        return self.feat_0_mlp.linears[0].weight.dtype
+
+    def load_reference_state_dict(self, state_dict, strict: bool = True):
+        """Load a reference-layout ``state_dict`` (keys ``net.*`` as in the
+        Lightning checkpoints and tools/convert.py, or already stripped);
+        tensors are cast to each parameter's current dtype."""
+        sd = {(k[4:] if k.startswith("net.") else k): v for k, v in state_dict.items()}
+        return self.load_state_dict(sd, strict=strict)
+
+    def forward(self, batch, noisy_input, time_step):
+        """batch: dict with (B,N,1) float features ``eta,cosphi,sinphi,e_proxy``,
+        (B,N,1) int ``layer`` and (B,N) bool ``q_mask`` (True==valid).
+        noisy_input: (B,N,1); time_step: (B,). Returns v_t (B,N,1)."""
+        time_emb = self.time_step_embedder(time_step)
+
+        eta, cosphi, sinphi = batch["eta"], batch["cosphi"], batch["sinphi"]
+        layer, e_proxy, q_mask = batch["layer"], batch["e_proxy"], batch["q_mask"]
+
+        table = self.layer_emb_table.weight
+        layer_tab = table[layer.squeeze(-1).long()]
+        layer_emb = self.layer_emb_net(layer_tab, context=time_emb)
+
+        geo = torch.cat([eta, cosphi, sinphi], dim=-1).float()
+        etaphi_emb = self.etaphi_emb_net(geo, context=time_emb.float()).to(self.dtype)
+
+        e_proxy_emb = self.proxy_emb_net(e_proxy, context=time_emb)
+
+        # mixed dtypes promote (fp32 e_proxy wins over bf16 embeddings)
+        cond_feat = torch.cat([etaphi_emb, layer_emb, e_proxy_emb, e_proxy], dim=-1)
+        cond_feat_global = masked_mean(cond_feat, q_mask, axis=1)
+
+        noisy_input_emb = self.noisy_input_emb_net(noisy_input, context=time_emb)
+
+        context = torch.cat([time_emb, cond_feat_global], dim=-1)
+
+        feat_0 = torch.cat([cond_feat, noisy_input_emb], dim=-1)
+        feat = self.feat_0_mlp(feat_0, context=context)
+
+        feat = self.transformer(feat, q_valid=q_mask, context=context)
+
+        # final skip connection with the conditional features
+        feat = torch.cat([feat, cond_feat], dim=-1)
+
+        if self.final_modulation:
+            mod = self.v_t_adaLN_modulation(context)
+            v_t_shift, v_t_scale = mod.chunk(2, dim=-1)
+            feat = modulate(self.norm_v_t(feat), v_t_shift, v_t_scale)
+
+        return self.v_t_pred_net(feat, context=context)

@@ -1,0 +1,77 @@
+"""Masked primitives for variable-length sets padded to static shapes.
+
+Convention (everywhere in this package, as in the JAX package):
+**mask == True means VALID**.  Denominators are guarded so fully padded rows
+(possible with bucketed batching) yield zeros rather than NaN.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # large-but-finite: keeps softmax well-defined for all-pad rows
+
+
+def masked_softmax(x, valid_mask, axis: int = -1):
+    """Softmax over ``axis`` that ignores padded entries and re-zeros them
+    afterwards.  valid_mask broadcasts against x (extra dims added after the
+    batch dim as needed)."""
+    if valid_mask is None:
+        return _softmax(x, axis)
+    mask = _broadcast_mask(valid_mask, x.ndim)
+    x = torch.where(mask, x, torch.full((), NEG_INF, dtype=x.dtype, device=x.device))
+    out = _softmax(x, axis)
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _softmax(x, axis):
+    x = x - x.amax(dim=axis, keepdim=True)
+    e = torch.exp(x)
+    return e / e.sum(dim=axis, keepdim=True).clamp_min(1e-30)
+
+
+def _broadcast_mask(mask, ndim):
+    """Left-pad mask shape after the batch dim until it has `ndim` dims."""
+    while mask.ndim < ndim:
+        mask = mask[:, None, ...]
+    return mask
+
+
+def merge_masks(q_valid, kv_valid, attn_valid, q_len: int, k_len: int):
+    """Combine padding masks and an optional adjacency mask into a single
+    (B, Lq, Lk) valid mask (True = attend).  Any input may be None; returns
+    None if all are None."""
+    merged = None
+    if q_valid is not None or kv_valid is not None:
+        if q_valid is None:
+            q_valid = torch.ones((kv_valid.shape[0], q_len), dtype=torch.bool, device=kv_valid.device)
+        if kv_valid is None:
+            kv_valid = torch.ones((q_valid.shape[0], k_len), dtype=torch.bool, device=q_valid.device)
+        merged = q_valid[..., :, None] & kv_valid[..., None, :]
+    if attn_valid is not None:
+        merged = attn_valid if merged is None else (attn_valid & merged)
+    return merged
+
+
+def masked_mean(x, valid_mask, axis: int = 1):
+    """Mean over ``axis`` counting only valid entries; guarded denominator
+    (fully padded filler events in a bucket batch divide by 1, not 0)."""
+    m = valid_mask.to(x.dtype)
+    while m.ndim < x.ndim:
+        m = m[..., None]
+    num = (x * m).sum(dim=axis)
+    den = m.sum(dim=axis)
+    return num / den.clamp_min(1.0)
+
+
+def attach_context(x, context):
+    """Broadcast-concatenate a lower-rank context onto x's feature axis.
+    Mixed dtypes promote as ``torch.cat`` promotes (fp32 wins over bf16)."""
+    if context is None:
+        raise ValueError("expected context is missing")
+    if x.ndim < context.ndim:
+        raise ValueError(f"context rank {context.ndim} exceeds input rank {x.ndim}")
+    while context.ndim < x.ndim:
+        context = context[:, None, ...]
+    context = context.expand(*x.shape[:-1], context.shape[-1])
+    return torch.cat([x, context], dim=-1)

@@ -1,0 +1,33 @@
+#!/bin/bash
+# Mutation check of the CUDA kernels: each deliberately broken kernel source
+# must make chip_smoke.py fail (a kernel that disagrees with its plain PyTorch
+# version, or does not build, never falls back to the plain version).
+#
+# Run from the repository root on a machine with the card and nvcc:
+#     bash superresolutionhep_tpu_torch/tools/mutation_check.sh
+# The broken copies are made in a fresh temporary directory, never in the
+# repository.  Prints one "MUTATION <name> exit=<code> ..." line per mutation;
+# every exit code must be non-zero and every ok_line count 0.
+ROOT=$(pwd)
+WORK=$(mktemp -d)
+trap 'rm -rf "$WORK"' EXIT
+status=0
+run() {  # name, sed expression, file
+  rm -rf "$WORK/mut" && mkdir -p "$WORK/mut" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$WORK/mut/" && cd "$WORK/mut" || exit 9
+  before=$(md5sum "$3" | cut -d' ' -f1)
+  sed -i "$2" "$3"
+  after=$(md5sum "$3" | cut -d' ' -f1)
+  if [ "$before" = "$after" ]; then echo "MUTATION $1 did not change $3"; exit 9; fi
+  SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --reps 2 > out.txt 2> err.txt
+  rc=$?
+  oks=$(grep -c '^{"ok": true' out.txt)
+  echo "MUTATION $1 exit=$rc ok_line=$oks failing_cases=$(grep -c '"ok": false' out.txt)"
+  tail -n 2 err.txt | cut -c 1-600
+  if [ "$rc" = "0" ] || [ "$oks" != "0" ]; then status=1; fi
+  cd "$ROOT" || exit 9
+}
+run nomax_drops_key_mask 's/kClipHi)) \* ka;/kClipHi));/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run lrelu_slope 's/kLreluSlope = 0.01f/kLreluSlope = 0.02f/' superresolutionhep_tpu_torch/csrc/common.cuh
+run qkv_forgets_bias 's/from_float<T>(acc\[i\] + bias\[n0 + c\])/from_float<T>(acc[i])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
+run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
+exit $status
