@@ -7,21 +7,27 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels from ``superresolutionhep_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card, then drives the port's main path — ``SRServer.predict_event`` at the
-full width of the multi-particle model (h=256, 6 DiT layers, 4 heads of 64,
-25-point grid, 10 ensemble members, bf16, no-max attention, fused prologue) —
-and checks from the launch counters that the requests really went through the
-kernels.  Weights are random (seeded); events are synthetic (seeded).
+card, then drives the port's two main paths at the full width of the
+multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
+  * serve: ``SRServer.predict_event`` (25-point grid, 10 ensemble members,
+    bf16, no-max attention, fused prologue);
+  * train: ``SRTrainer.fit`` (bf16 compute, fp32 parameters, per-layer remat,
+    unfused, dopri5 validation, checkpoints, resume), flash-vs-dense and
+    fused-vs-unfused gradients in fp32, train-step times;
+and checks from the launch counters, reset just before each path and read
+just after, that they really went through the kernels.  Weights are random
+(seeded); events are synthetic (seeded).
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
-``kernel_case`` lines, ``serve``), then the card's name and power limit as
+``kernel_case`` lines, ``serve``, ``train``), then the card's name and power limit as
 nvidia-smi gives them, then ``{"kernels": [...]}`` (one entry per kernel: its
 time on the card, the plain version's, the bound, the launches on the main
 path), then, last, ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero and prints no ``ok`` line.  Without a CUDA device it exits 2.
 
 Options (for development; the default run does everything):
-    --skip-serve      kernels only
+    --skip-serve      no serve phase (exits 1 by design)
+    --skip-train      no train phase (exits 1 by design)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
 """
@@ -55,20 +61,37 @@ TOL = {
     ("nomax_vs_robust", torch.bfloat16): 6e-2,
     ("lse", torch.float32): 1e-3,
     ("lse", torch.bfloat16): 2e-2,
+    # backward kernels, error relative to each output's max: fp32 — the same
+    # arithmetic in another summation order over up to 3584 keys; bf16 — P
+    # and dS rounded to 8 bits of mantissa before their products, as in the
+    # plain version, outputs rounded once more (the JAX package's bf16 bound)
+    ("flash_bwd", torch.float32): 2e-4,
+    ("flash_bwd", torch.bfloat16): 3e-2,
+    # autograd through K1+K5+K6 against autograd through the dense
+    # natural-base plain formulation, fp32, relative to each gradient's max
+    ("flash_grad", torch.float32): 2e-4,
 }
 
 REPLACES = {
     "flash_fwd": "superresolutionhep_tpu/ops/flash_attention.py:213",
     "flash_fwd_nomax": "superresolutionhep_tpu/ops/flash_attention.py:291",
+    "flash_bwd_dq": "superresolutionhep_tpu/ops/flash_attention.py:442",
+    "flash_bwd_dkv": "superresolutionhep_tpu/ops/flash_attention.py:464",
     "fused_qkv": "superresolutionhep_tpu/ops/fused_qkv.py:116",
     "fused_mlp": "superresolutionhep_tpu/ops/fused_mlp.py:141",
 }
 SOURCE = {
     "flash_fwd": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
     "flash_fwd_nomax": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_bwd_dkv": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
     "fused_qkv": "superresolutionhep_tpu_torch/csrc/fused_qkv.cu",
     "fused_mlp": "superresolutionhep_tpu_torch/csrc/fused_mlp.cu",
 }
+
+
+SERVE_KERNELS = ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def emit(obj):
@@ -277,6 +300,320 @@ def kernel_cases(reps):
     return cases
 
 
+def bwd_kernel_cases(reps):
+    """K5 (dq) and K6 (dk, dv) against ``_ref_flash_bwd_{dq,dkv}`` on the same
+    CUDA tensors, from the forward kernel's own LSE; then autograd through
+    ``masked_flash_attention`` (K1 + K5 + K6) against autograd through the
+    dense plain formulation."""
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    def rel_err(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12)).item()
+
+    cases = []
+    shapes = [(10, 4, 64, L) for L in (512, 2048, 3584)] + [(4, 4, 16, 256)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        isz = 2 if dtype == torch.bfloat16 else 4
+        peak = H100_FLOPS[dtype]
+        for B, H, D, L in shapes:
+            valid, lens = ragged_valid(B, L, dev)
+            qm = valid.float().contiguous()
+            # q/k/v as strided views of one (B, L, 3, H, D) projection, q pre-scaled
+            qkv = randn(B, L, 3, H, D)
+            qkv[:, :, 0] *= (1.0 / D**0.5) * fa.LOG2E * 2.0
+            qkv = qkv.to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            out, lse = fa._flash_fwd_cuda(q, k, v, qm, qm, nomax=False, with_lse=True)
+            gr = randn(B, L, H, D).to(dtype) * (qm[:, :, None, None] > 0).to(dtype)
+            dl = (out.float() * gr.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, gr, lse, dl, qm, qm)
+            qh, kh, vh, gh = fa._heads_first(q, k, v, gr)
+            ref_args = (qh, kh, vh, gh, lse, dl, qm[:, None])
+            before = dict(kernels.LAUNCHES)
+            dq = fa._flash_bwd_dq_cuda(*args)
+            dk, dv = fa._flash_bwd_dkv_cuda(*args)
+            torch.cuda.synchronize()
+            if (kernels.LAUNCHES["flash_bwd_dq"] != before["flash_bwd_dq"] + 1
+                    or kernels.LAUNCHES["flash_bwd_dkv"] != before["flash_bwd_dkv"] + 1):
+                fail("flash backward: a wrapper did not count its launch")
+            ref_dq = fa._ref_flash_bwd_dq(*ref_args).permute(0, 2, 1, 3)
+            ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fa._ref_flash_bwd_dkv(*ref_args))
+            tol = TOL[("flash_bwd", dtype)]
+            pairs = sum(n * n for n in lens)
+            nbytes_in = 4 * B * L * H * D * isz + 2 * B * H * L * 4 + 2 * B * L * 4
+            # yardstick only (the port never calls it): SDPA's memory-efficient
+            # backward for the same boolean key mask, read as (fwd+bwd) - fwd
+            library_ms = None
+            if D == 64:
+                from torch.nn.attention import SDPBackend, sdpa_kernel
+
+                qc, kc, vc = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(True) for t in (q, k, v))
+                gc = gr.permute(0, 2, 1, 3).contiguous()
+                amask = valid[:, None, None, :]
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    def lib_fwd():
+                        return torch.nn.functional.scaled_dot_product_attention(qc, kc, vc, attn_mask=amask,
+                                                                                scale=fa.LN2)
+
+                    def lib_fwd_bwd():
+                        return torch.autograd.grad(lib_fwd(), (qc, kc, vc), gc)
+
+                    library_ms = time_ms(lib_fwd_bwd, reps) - time_ms(lambda: lib_fwd().detach(), reps)
+            for name, got, ref, flops, nbytes in (
+                ("flash_bwd_dq", (dq,), (ref_dq,), 6.0 * H * D * pairs, nbytes_in + B * L * H * D * isz),
+                ("flash_bwd_dkv", (dk, dv), (ref_dk, ref_dv), 8.0 * H * D * pairs, nbytes_in + 2 * B * L * H * D * isz),
+            ):
+                errs = [rel_err(a, b) for a, b in zip(got, ref)]
+                rows_ok = all(float(t.float()[~valid].abs().max()) == 0.0 for t in got) if (~valid).any() else True
+                fn = fa._flash_bwd_dq_cuda if name == "flash_bwd_dq" else fa._flash_bwd_dkv_cuda
+                plain = fa._ref_flash_bwd_dq if name == "flash_bwd_dq" else fa._ref_flash_bwd_dkv
+                case = {"kernel": name, "dtype": dname, "B": B, "H": H, "L": L, "D": D,
+                        "max_abs_err": max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)),
+                        "max_rel_err": max(errs), "tol_rel": tol, "padded_rows_exactly_zero": rows_ok,
+                        "ms": time_ms(lambda: fn(*args), reps),
+                        "plain_ms": time_ms(lambda: plain(*ref_args), max(3, reps // 5)),
+                        "library_ms": library_ms, "library_covers": "dq+dk+dv",
+                        "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
+                        "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"}
+                case["ok"] = bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol and rows_ok
+                cases.append(case)
+                emit({"phase": "kernel_case", **case})
+
+    # autograd: masked_flash_attention (K1 forward with LSE, K5, K6) against the
+    # dense natural-base plain formulation, on the same CUDA tensors
+    B, L, H, D = 4, 512, 4, 64
+    valid, _ = ragged_valid(B, L, dev)
+    x = [randn(B, L, H, D).requires_grad_(True) for _ in range(3)]
+    w = randn(B, L, H, D)
+    before = dict(kernels.LAUNCHES)
+    out = fa.masked_flash_attention(*x, valid, valid, scale=D**-0.5)
+    got = torch.autograd.grad((out * w).sum(), x)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    ref_out, _ = fa._ref_attention(*(t.permute(0, 2, 1, 3) for t in x), valid.float()[:, None],
+                                   valid.float()[:, None], D**-0.5)
+    want = torch.autograd.grad((ref_out.permute(0, 2, 1, 3) * w).sum(), x)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    tol = TOL[("flash_grad", torch.float32)]
+    case = {"kernel": "flash_autograd", "dtype": "fp32", "B": B, "H": H, "L": L, "D": D,
+            "max_rel_err_dq_dk_dv": errs, "tol_rel": tol, "launches": launched,
+            "ok": max(errs) <= tol and all(n == 1 for n in launched.values())}
+    cases.append(case)
+    emit({"phase": "kernel_case", **case})
+
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} backward case(s) disagree with the plain version: "
+             + "; ".join(f"{c['kernel']}/{c['dtype']}/L={c['L']}" for c in bad))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase: train
+# ---------------------------------------------------------------------------
+
+
+def _grads_agree(ga, gb, tol):
+    """Each leaf within ``tol`` of max(its own max, 1e-3 of the largest leaf);
+    returns (ok, worst relative error, its leaf)."""
+    top = max(float(g.abs().max()) for g in gb.values())
+    worst, where = 0.0, None
+    for k, b in gb.items():
+        err = float((ga[k].float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-3 * top, 1e-30)
+        if err > worst:
+            worst, where = err, k
+    return worst <= tol, worst, where
+
+
+def profile_steps(step, n):
+    """Device time of ``n`` calls of ``step`` by ``torch.profiler`` (CUPTI):
+    the wall time, the summed kernel time, the busy share and the kernels
+    that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_kernels += 1
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": busy / n / 1e3,
+            "busy_share": busy / wall_us, "kernels_per_step": n_kernels / n,
+            "top": [{"name": k[:90], "ms_per_step": v / n / 1e3, "share_of_device": v / max(busy, 1e-9)}
+                    for k, v in top]}
+
+
+def train_phase(reps):
+    """SRTrainer at the full width of the multipart model (6 DiT layers,
+    h=256, 4 heads of 64), the production training settings (bf16 compute,
+    fp32 parameters, per-layer remat, unfused), seeded random init, synthetic
+    events in memory: ``fit`` for two epochs with dopri5 validation and
+    checkpoints, then a second trainer resumes for a third epoch.  Then one
+    fp32 step's gradients through the flash kernels against the dense path,
+    and the fused prologue against the unfused layer; then train-step times
+    at the two shapes the JAX package's bench times."""
+    import copy
+    import tempfile
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, MULTIPART_CONFIG_T
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS, SupResEvents, collate
+    from superresolutionhep_tpu_torch.data.synthetic import GeneratorConfig, generate_events
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+    from superresolutionhep_tpu_torch.train.checkpoint import CheckpointManager
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    dev = torch.device("cuda")
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    fm = cfg_mv["flow_model"]
+    n_layers = int(fm["transformer"]["num_transformer_layers"])
+    cfg_t = dict(copy.deepcopy(MULTIPART_CONFIG_T), n_event_displays=0, num_epochs=2, remat=True,
+                 fused_prologue=False, num_workers=2)
+
+    def dataset(n, seed, **kw):
+        trees = generate_events(n, seed=seed, config=GeneratorConfig(res_factor=4, **kw))
+        return SupResEvents.from_trees(trees["Low_Tree"], trees["High_Tree"], cfg_mv)
+
+    train_ds = dataset(48, 11, max_particles=4, window_lr_cells=2)
+    val_ds = dataset(8, 12, max_particles=4, window_lr_cells=2)
+    run = tempfile.mkdtemp(prefix="srhep_train_")
+    checks, line = {}, {"phase": "train", "run_dir": run, "n_train_events": len(train_ds),
+                        "n_val_events": len(val_ds), "cells": [min(train_ds.cell_count_high),
+                                                                max(train_ds.cell_count_high)]}
+
+    calls = {"train": 0, "val": 0}
+
+    def count_calls(_module, _inputs):
+        calls["train" if torch.is_grad_enabled() else "val"] += 1
+
+    # ---- the counted window: fit, every count to 0 just before, read just after
+    tr = SRTrainer(cfg_mv, cfg_t, run_dir=run, seed=0, dtype=torch.bfloat16, device="cuda")
+    hook = tr.model.register_forward_pre_hook(count_calls)
+    kernels.reset_launches()
+    t0 = time.time()
+    tr.fit(train_ds, val_ds)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    fit_s = time.time() - t0
+    # ---- end of the counted window
+    hook.remove()
+    expect = {"flash_fwd": n_layers * (2 * calls["train"] + calls["val"]),  # remat: forward + recompute
+              "flash_fwd_nomax": 0, "flash_bwd_dq": n_layers * calls["train"],
+              "flash_bwd_dkv": n_layers * calls["train"], "fused_qkv": 0, "fused_mlp": 0}
+    lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    checks["fit_epochs"] = tr.epoch == 2 and len(lines) == 2
+    checks["losses_finite"] = all(np.isfinite(x["train/loss"]) and x["train/nonfinite"] == 0.0
+                                  and np.isfinite(x["val/loss_raw"]) for x in lines)
+    checks["launch_counts"] = counts == expect
+    checks["validation_ran_dopri5_through_k1"] = calls["val"] > 0 and counts["flash_fwd"] > 2 * n_layers * calls["train"]
+    line.update({"fit_s": round(fit_s, 2), "train_steps": tr.global_step, "model_calls": dict(calls),
+                 "launches": counts, "launches_expected": expect,
+                 "epochs": [{k: x[k] for k in ("step", "lr", "train/loss", "train/grad_norm", "train/n_batches",
+                                               "train/epoch_s", "val/loss", "val/loss_raw")} for x in lines]})
+
+    # ---- resume: a new trainer restores the last checkpoint and trains epoch 2
+    final = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    ck = CheckpointManager(f"{run}/checkpoints")
+    restored = ck.restore(which="last", map_location=dev)["params"]
+    latest_before = ck.latest_step()
+    tr2 = SRTrainer(cfg_mv, dict(cfg_t, num_epochs=3), run_dir=run, seed=1, dtype=torch.bfloat16, device="cuda")
+    tr2.fit(train_ds, val_ds, resume=True)
+    lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    checks["resume_restored_last_epoch"] = (
+        latest_before == 1 and all(torch.equal(restored[k], final[k]) for k in final)
+        and tr2.epoch == 3 and lines[-1]["step"] == 2 and tr2.opt.count == tr.opt.count + tr2.global_step
+    )
+    checks["best3_kept"] = len(CheckpointManager(f"{run}/checkpoints").all_best_steps()) == 3
+    line["resume"] = {"latest_step_before": latest_before, "steps_after": tr2.global_step, "epoch_after": tr2.epoch,
+                      "val_loss_raw": lines[-1].get("val/loss_raw")}
+    del tr, tr2
+
+    # ---- one fp32 step at (B=2, L=512): flash kernels vs the dense path, fused vs unfused
+    small = dataset(2, 13, min_particles=1, max_particles=1, window_lr_cells=1)
+    hb = collate([small.get_event(i) for i in range(2)], 512)
+    batch = {k: torch.from_numpy(hb[k]).to(dev) for k in MODEL_BATCH_KEYS}
+    gcpu = torch.Generator().manual_seed(5)
+    x0 = torch.randn(batch["target"].shape, generator=gcpu).to(dev)
+    t = torch.rand((2,), generator=gcpu).to(dev)
+    params = params_from_jax(init_params_jax_layout(fm, seed=3), fm)  # Xavier adaLN: attention not gated off
+    grads = {}
+    for name, impl, fused in (("flash", "flash", False), ("einsum", "einsum", False), ("fused", "flash", True)):
+        trx = SRTrainer(cfg_mv, dict(cfg_t, fused_prologue=fused), run_dir=tempfile.mkdtemp(), seed=0,
+                        device="cuda", params=params, attn_impl=impl)
+        before = dict(kernels.LAUNCHES)
+        loss, _, g = trx.loss_and_grads(batch, t=t, x0=x0)
+        torch.cuda.synchronize()
+        grads[name] = ({n: gi for (n, _), gi in zip(trx.model.named_parameters(), g)}, float(loss.detach()),
+                       {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES})
+        del trx
+    tol = 1e-3
+    ok_fe, err_fe, leaf_fe = _grads_agree(grads["flash"][0], grads["einsum"][0], tol)
+    ok_fu, err_fu, leaf_fu = _grads_agree(grads["fused"][0], grads["flash"][0], tol)
+    checks["flash_vs_einsum_grads_fp32"] = ok_fe and grads["flash"][2]["flash_bwd_dq"] == n_layers
+    # remat: the fused kernels run in the forward and again in the recompute
+    checks["fused_vs_unfused_grads_fp32"] = ok_fu and grads["fused"][2]["fused_qkv"] == 2 * n_layers
+    line["grad_checks"] = {
+        "tol_rel": tol, "flash_vs_einsum": {"worst_rel_err": err_fe, "leaf": leaf_fe,
+                                            "loss": [grads["flash"][1], grads["einsum"][1]]},
+        "fused_vs_unfused": {"worst_rel_err": err_fu, "leaf": leaf_fu,
+                             "loss": [grads["fused"][1], grads["flash"][1]]},
+        "launches": {k: {n: c for n, c in v[2].items() if c} for k, v in grads.items()}}
+
+    # ---- train-step time at the JAX package's bench shapes (a reading, not a benchmark)
+    steps = []
+    for B, N in ((8, 2048), (6, 3584)):
+        trs = SRTrainer(cfg_mv, dict(cfg_t, lr_scheduler=None), run_dir=tempfile.mkdtemp(), seed=0,
+                        dtype=torch.bfloat16, device="cuda")
+        rng = np.random.default_rng(0)
+        host = {
+            "eta": rng.normal(size=(B, N, 1)).astype(np.float32),
+            "cosphi": rng.normal(size=(B, N, 1)).astype(np.float32),
+            "sinphi": rng.normal(size=(B, N, 1)).astype(np.float32),
+            "layer": rng.integers(0, 3, size=(B, N, 1)).astype(np.int32),
+            "e_proxy": rng.normal(size=(B, N, 1)).astype(np.float32),
+            "q_mask": np.ones((B, N), bool),
+            "target": rng.normal(size=(B, N, 1)).astype(np.float32),
+        }
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        for _ in range(2):
+            trs.train_step(b, lr=1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(max(5, reps // 4)):
+            t1 = time.time()
+            st = trs.train_step(b, lr=1e-3)
+            float(st["loss"])
+            ms.append((time.time() - t1) * 1e3)
+        steps.append({"B": B, "N": N, "median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms),
+                      "n": len(ms), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "finite": bool(np.isfinite(float(st["loss"]))),
+                      "profile": profile_steps(lambda: trs.train_step(b, lr=1e-3), 3)})
+        del trs, b
+    checks["step_times_finite"] = all(s["finite"] for s in steps)
+    line["train_step_ms"] = steps
+    line["checks"], line["ok"] = checks, all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("train checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase: serve
 # ---------------------------------------------------------------------------
@@ -383,6 +720,7 @@ def serve_phase():
     n_calls = len(results) - (1 if all(o["batched_with"] == 2 for o in pair_out) else 0)
     per_call = n_layers * evals
     expect = {"flash_fwd": n_layers, "flash_fwd_nomax": per_call * n_calls + n_layers,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0,  # serving runs no backward
               "fused_qkv": per_call * n_calls + n_layers, "fused_mlp": per_call * n_calls + n_layers}
 
     checks = {
@@ -394,7 +732,7 @@ def serve_phase():
             len(o["e_pred_raw"]) == o["n_cells"] == n and bool(np.isfinite(o["e_pred_raw"]).all())
             for _, n, o, _ in results),
         "launch_counts": counts == expect,
-        "every_kernel_launched": all(v > 0 for v in counts.values()),
+        "every_serve_kernel_launched": all(counts[k] > 0 for k in SERVE_KERNELS),
     }
 
     # ---- the same request, the same seed, through the robust (fast_softmax: false) server
@@ -436,6 +774,7 @@ def serve_phase():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true")
+    ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -463,26 +802,29 @@ def main():
     if args.ptxas:
         print((kernels.build_dir() / "nvcc_log.txt").read_text(), flush=True)
 
-    cases = kernel_cases(args.reps)
-    counts = {k: 0 for k in kernels.LAUNCHES}
-    if not args.skip_serve:
-        counts = serve_phase()
+    cases = kernel_cases(args.reps) + bwd_kernel_cases(args.reps)
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    by_phase = {"serve": serve_phase() if not args.skip_serve else zero,
+                "train": train_phase(args.reps) if not args.skip_train else zero}
 
-    # one entry per kernel: the main path's shape class (bf16, L=2048, per-batch rows)
+    # one entry per kernel: the main paths' shape class (bf16, L=2048, per-batch rows);
+    # launches: the serve phase's counted window plus the train phase's
     entries = []
-    for name in ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp"):
+    for name in ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp", "flash_bwd_dq", "flash_bwd_dkv"):
         c = next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["L"] == 2048)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": counts[name], "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "launches": sum(counts[name] for counts in by_phase.values()),
+            "launches_by_phase": {ph: counts[name] for ph, counts in by_phase.items()},
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": {k: c[k] for k in ("B", "H", "L", "D", "F", "O", "Fh") if k in c}, "dtype": "bf16",
         })
     emit({"phase": "total", "seconds": round(time.time() - t_start, 1)})
     print(smi, flush=True)
     emit({"kernels": entries})
-    if args.skip_serve:
-        fail("--skip-serve: the main path was not driven, so no ok line")
+    if args.skip_serve or args.skip_train:
+        fail("--skip-serve/--skip-train: a main path was not driven, so no ok line")
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the JAX package beside it (stage-1 SR serving path first).
+"""PyTorch/CUDA port of the JAX package beside it (stage-1 SR serving and training so far).
 
 The JAX package beside this one is the reference; this package imports torch,
 numpy and the standard library only.  See README.md ("PyTorch/CUDA port").

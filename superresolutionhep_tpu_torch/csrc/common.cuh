@@ -26,6 +26,13 @@ constexpr int kTileN = 64;     // output columns per pass
 constexpr int kSlabK = 128;    // depth of one weight slab in shared memory
 constexpr float kLnEps = 1e-5f;
 constexpr float kLreluSlope = 0.01f;
+constexpr float kNegInf = -1e30f;  // additive bias of a padded key, LSE of a dead query tile
+constexpr float kBig = 1e30f;
+
+// Element strides of a (B, L, H, D) attention operand whose head dim is contiguous.
+struct Strides {
+  long long b, l, h;
+};
 
 // 16 bytes of padding per shared-memory row: consecutive rows then start 16
 // bytes apart modulo 128, so the 8 row reads of an ldmatrix hit distinct banks.

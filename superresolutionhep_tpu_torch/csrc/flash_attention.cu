@@ -38,14 +38,8 @@
 
 namespace srhep {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kBig = 1e30f;
 constexpr float kClipLo = -126.0f;
 constexpr float kClipHi = 80.0f;
-
-struct Strides {
-  long long b, l, h;  // in elements; the head dim is contiguous
-};
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores.  Block = 4 warps = 64 query rows (16 per warp), key

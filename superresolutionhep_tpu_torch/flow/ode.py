@@ -1,11 +1,13 @@
 """ODE integrators for flow-matching sample generation.
 
 Counterpart of the JAX package's ``flow/ode.py``.  Ported so far: the
-fixed-step solvers ``euler`` and ``midpoint`` and the Adams-Bashforth-2
-multistep solver with both bootstraps (``ab2``: Heun, ``ab2e``: Euler).
-A Python loop over the time grid takes the place of ``lax.scan``: PyTorch
-runs eagerly and each step is a handful of kernel launches.  dopri5, heun,
-rk4 and ab3 are not ported yet and raise.
+fixed-step solvers ``euler`` and ``midpoint``, the Adams-Bashforth-2
+multistep solver with both bootstraps (``ab2``: Heun, ``ab2e``: Euler) and
+the adaptive Dormand-Prince 5(4) solver with dense output (``dopri5``, the
+trainer's validation sampler).  A Python loop over the time grid takes the
+place of ``lax.scan`` / ``lax.while_loop``: PyTorch runs eagerly and each step
+is a handful of kernel launches.  heun, rk4 and ab3 are not ported yet and
+raise.
 
 All integrators share the signature ``odeint(f, y0, ts)`` with
 ``f(t, y) -> dy/dt`` (t a 0-dim tensor) and return the trajectory at the
@@ -37,7 +39,7 @@ FIXED_STEP_METHODS = {
 # order).  "ab2e" is ab2 with an Euler bootstrap (one fewer eval in all).
 MULTISTEP_METHODS = ("ab2", "ab2e")
 
-NOT_PORTED = ("heun", "rk4", "ab3", "dopri5")
+NOT_PORTED = ("heun", "rk4", "ab3")
 
 
 def _store_list(store_idx):
@@ -114,7 +116,130 @@ def odeint_fixed_store(f: Callable, y0, ts, store_idx, method: str = "midpoint")
     return torch.stack(out, dim=0)
 
 
-def odeint(f, y0, ts, method: str = "ab2e"):
+# ----------------------------------------------------------------------------
+# Dormand-Prince 5(4) adaptive solver with dense output
+# ----------------------------------------------------------------------------
+
+_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0)
+_A = (
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+)
+_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84)
+# b - b* (5th-order minus embedded 4th-order weights), incl. the FSAL stage
+_E = (
+    35 / 384 - 5179 / 57600, 0.0, 500 / 1113 - 7571 / 16695, 125 / 192 - 393 / 640,
+    -2187 / 6784 + 92097 / 339200, 11 / 84 - 187 / 2100, -1 / 40,
+)
+# scipy RK45 dense-output interpolation matrix (7 stages x 4 powers of theta)
+_P = (
+    (1.0, -8048581381 / 2820520608, 8663915743 / 2820520608, -12715105075 / 11282082432),
+    (0.0, 0.0, 0.0, 0.0),
+    (0.0, 131558114200 / 32700410799, -68118460800 / 10900136933, 87487479700 / 32700410799),
+    (0.0, -1754552775 / 470086768, 14199869525 / 1410260304, -10690763975 / 1880347072),
+    (0.0, 127303824393 / 49829197408, -318862633887 / 49829197408, 701980252875 / 199316789632),
+    (0.0, -282668133 / 205662961, 2019193451 / 616988883, -1453857185 / 822651844),
+    (0.0, 40617522 / 29380423, -110615467 / 29380423, 69997945 / 29380423),
+)
+_SAFETY = 0.9
+_MIN_FACTOR = 0.2
+_MAX_FACTOR = 10.0
+_ORDER_EXP = -1.0 / 5.0
+
+
+def _rms_norm(x):
+    return torch.sqrt(torch.mean(x * x))
+
+
+def _tensordot0(w, K):
+    """sum_j w[..., j] * K[j] with w (..., S) and K (S, *y): the stage
+    combination, in fp32 (the JAX package asks for HIGHEST precision)."""
+    return torch.tensordot(w, K, dims=1)
+
+
+def _initial_step(f, t0, y0, f0, t1, atol, rtol):
+    """scipy ``_select_initial_step`` heuristic, as the JAX package."""
+    scale = atol + torch.abs(y0) * rtol
+    d0 = _rms_norm(y0 / scale)
+    d1 = _rms_norm(f0 / scale)
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
+    y1 = y0 + h0 * f0
+    f1 = f(t0 + h0, y1)
+    d2 = _rms_norm((f1 - f0) / scale) / h0
+    h1 = torch.where(
+        (d1 <= 1e-15) & (d2 <= 1e-15),
+        torch.clamp_min(h0 * 1e-3, 1e-6),
+        (0.01 / torch.maximum(d1, d2)) ** (1.0 / 5.0),
+    )
+    return torch.minimum(torch.minimum(100 * h0, h1), t1 - t0)
+
+
+def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 10_000):
+    """Adaptive DOPRI5 with dense output at the grid points ``ts``: the JAX
+    package's step-size control and quartic interpolation, step for step.
+    The solver's own arithmetic (times, step sizes, error norms, stage
+    combinations) runs in fp32 whatever the state's dtype; the accept/reject
+    decision and the loop condition are read on the host each step."""
+    dev = y0.device
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=dev)
+    C = torch.tensor(_C, dtype=torch.float32, device=dev)
+    Bw = torch.tensor(_B, dtype=torch.float32, device=dev)
+    Ew = torch.tensor(_E, dtype=torch.float32, device=dev)
+    Pm = torch.tensor(_P, dtype=torch.float32, device=dev)
+    A = [torch.tensor(a, dtype=torch.float32, device=dev) for a in _A]
+    t0, t1 = ts[0], ts[-1]
+    f0 = f(t0, y0)
+    h = _initial_step(f, t0, y0, f0, t1, atol, rtol)
+
+    n_out = ts.shape[0]
+    ys = torch.zeros((n_out, *y0.shape), dtype=y0.dtype, device=dev)
+    ys[0] = y0
+    t, y, k1 = t0, y0, f0
+    for _ in range(max_steps):
+        if not bool(t < t1):
+            break
+        h = torch.minimum(h, t1 - t)
+        ks = [k1]
+        for i in range(5):
+            yi = y + h * _tensordot0(A[i], torch.stack(ks))
+            ks.append(f(t + C[i + 1] * h, yi))
+        y_new = y + h * _tensordot0(Bw, torch.stack(ks))
+        ks.append(f(t + h, y_new))
+        K = torch.stack(ks)  # (7, *y.shape)
+        err = h * _tensordot0(Ew, K)
+        scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
+        err_norm = _rms_norm(err / scale)
+        accept = bool(err_norm <= 1.0)
+
+        if bool(err_norm == 0.0):
+            factor = torch.full_like(err_norm, _MAX_FACTOR)
+        else:
+            factor = torch.clamp(_SAFETY * err_norm**_ORDER_EXP, _MIN_FACTOR, _MAX_FACTOR)
+        if not accept:
+            factor = torch.clamp_max(factor, 1.0)
+        h_next = h * factor
+
+        if accept:
+            # dense output at every grid point inside (t, t + h]
+            t_new = t + h
+            theta = torch.clamp((ts - t) / torch.clamp_min(h, 1e-30), 0.0, 1.0)  # (T,)
+            powers = torch.stack([theta, theta**2, theta**3, theta**4], dim=-1)  # (T, 4)
+            w = powers @ Pm.T  # (T, 7)
+            dense = y[None] + h * _tensordot0(w, K)
+            in_window = (ts > t) & (ts <= t_new + 1e-12)
+            mask = in_window.reshape((n_out,) + (1,) * y.ndim)
+            ys = torch.where(mask, dense.to(ys.dtype), ys)
+            t, y, k1 = t_new, y_new, K[6]  # FSAL
+        h = h_next
+    return ys
+
+
+def odeint(f, y0, ts, method: str = "ab2e", rtol: float = 1e-4, atol: float = 1e-4):
+    if method == "dopri5":
+        return odeint_dopri5(f, y0, ts, rtol=rtol, atol=atol)
     if method in FIXED_STEP_METHODS:
         return odeint_fixed(f, y0, ts, method)
     if method == "ab2":

@@ -44,6 +44,7 @@ class MultiheadAttention(nn.Module):
         out_proj: bool = True,
         dropout: float = 0.0,
         impl: str = "auto",
+        dtype=None,
     ):
         super().__init__()
         if embed_dim % num_heads:
@@ -54,11 +55,11 @@ class MultiheadAttention(nn.Module):
             raise NotImplementedError("pre-softmax score dropout is not ported yet")
         self.embed_dim, self.num_heads, self.impl = embed_dim, num_heads, impl
         in_dim = q_dim or embed_dim
-        self.linear_q = xavier_uniform_(Linear(in_dim, embed_dim))
-        self.linear_k = xavier_uniform_(Linear(in_dim, embed_dim))
-        self.linear_v = xavier_uniform_(Linear(in_dim, embed_dim))
-        self.linear_out = xavier_uniform_(Linear(embed_dim, in_dim)) if out_proj else None
-        self._fold = None  # cached (version key, w (F, 3F) view, bias) of the fused path
+        self.linear_q = xavier_uniform_(Linear(in_dim, embed_dim, dtype=dtype))
+        self.linear_k = xavier_uniform_(Linear(in_dim, embed_dim, dtype=dtype))
+        self.linear_v = xavier_uniform_(Linear(in_dim, embed_dim, dtype=dtype))
+        self.linear_out = xavier_uniform_(Linear(embed_dim, in_dim, dtype=dtype)) if out_proj else None
+        self._fold = None  # cached (version key, w (F, 3F) view, bias) of the fused path, grad disabled
 
     # ------------------------------------------------------------------
     def _use_flash(self, x) -> bool:
@@ -122,21 +123,29 @@ class MultiheadAttention(nn.Module):
 
     # ------------------------------------------------------------------
     def _folded_qkv(self):
-        """(F, 3F) weight (as the transposed view of a (3F, F) buffer) and
-        (3F,) bias with the flash pre-scale scale*log2(e) folded into the Q
-        columns AND the Q bias, in the parameters' dtype.  Cached until a
+        """(F, 3F) weight (the transposed view of a (3F, F) buffer) in the
+        compute dtype and (3F,) bias in the parameters' dtype, with the flash
+        pre-scale scale*log2(e) folded into the Q columns AND the Q bias (the
+        fold in the parameters' dtype, then the cast, as in the JAX package).
+        Under grad the fold is built with autograd, so that gradients reach
+        linear_{q,k,v}.{weight,bias}; with grad disabled it is cached until a
         parameter changes."""
         ps = (self.linear_q.weight, self.linear_k.weight, self.linear_v.weight,
               self.linear_q.bias, self.linear_k.bias, self.linear_v.bias)
-        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in ps)
+        dt = self.linear_q.dtype
+        HD = self.embed_dim // self.num_heads
+        c = torch.tensor((1.0 / math.sqrt(HD)) * LOG2E, dtype=ps[0].dtype, device=ps[0].device)
+
+        def fold():
+            w_t = torch.cat([ps[0] * c, ps[1], ps[2]], dim=0).to(dt)  # (3F, F)
+            return w_t.t(), torch.cat([ps[3] * c, ps[4], ps[5]], dim=0)
+
+        if torch.is_grad_enabled() and any(p.requires_grad for p in ps):
+            self._fold = None
+            return fold()
+        key = (dt,) + tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in ps)
         if self._fold is None or self._fold[0] != key:
-            HD = self.embed_dim // self.num_heads
-            c = (1.0 / math.sqrt(HD)) * LOG2E
-            c = torch.tensor(c, dtype=ps[0].dtype, device=ps[0].device)
-            with torch.no_grad():
-                w_t = torch.cat([ps[0] * c, ps[1], ps[2]], dim=0)  # (3F, F)
-                bias = torch.cat([ps[3] * c, ps[4], ps[5]], dim=0)
-            self._fold = (key, w_t.t(), bias)
+            self._fold = (key, *fold())
         return self._fold[1], self._fold[2]
 
     def _fused_self_attention(self, x, valid, fused_ln):
@@ -147,7 +156,7 @@ class MultiheadAttention(nn.Module):
         eff_a, eff_b = fused_ln
         B, L, F = x.shape
         H, HD = self.num_heads, self.embed_dim // self.num_heads
-        dt = self.linear_q.weight.dtype
+        dt = self.linear_q.dtype
 
         if self._use_flash(x) and fused_qkv_ok(L, F) and flash_shapes_ok(L, L, HD):
             w, bias = self._folded_qkv()

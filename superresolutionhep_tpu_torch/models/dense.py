@@ -8,10 +8,13 @@ norm -> dropout -> linear -> activation.
 The modules sit in an ``nn.Sequential`` named ``net`` so that the
 ``state_dict`` keys are the reference checkpoint's (``net.{i}.weight``).
 
-Compute dtype: a module computes in the dtype of its own weights, as a Flax
-module built with ``dtype=`` does.  ``models/precision.py`` casts the
-weights once (bf16 everywhere but the geometry embedder); inputs are cast to
-the weight dtype on entry, LayerNorm statistics are always fp32.
+Compute dtype, the Flax ``dtype=`` of the JAX package: each module takes a
+``dtype``; the weights are cast to it at use, so the parameters stay in
+their own dtype (fp32 in training) and receive their gradients there.  With
+``dtype=None`` a module computes in the dtype of its own weights: the
+serving path casts the weights once (``models/precision.py``, bf16
+everywhere but the geometry embedder).  Inputs are cast to the compute
+dtype on entry; LayerNorm statistics are always fp32.
 """
 
 from __future__ import annotations
@@ -53,24 +56,40 @@ def layer_norm(x, weight=None, bias=None, out_dtype=None, eps: float = LN_EPS):
     return y.to(out_dtype or x.dtype)
 
 
+def cast(t, dtype):
+    """``t`` in ``dtype`` (None: unchanged); differentiable."""
+    return t if dtype is None or t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
-    """nn.Linear that casts its input to the weight dtype (Flax ``dtype=``)."""
+    """nn.Linear computing in ``dtype`` (default: the weight's dtype): input,
+    weight and bias are cast to it, as Flax ``nn.Dense(dtype=...)`` does."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    @property
+    def dtype(self):
+        return self.compute_dtype or self.weight.dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), cast(self.weight, dt), cast(self.bias, dt))
 
 
 class LayerNorm(nn.Module):
-    """Affine LayerNorm (eps 1e-5) with fp32 statistics; output in the dtype
-    of its parameters."""
+    """Affine LayerNorm (eps 1e-5) with fp32 statistics; output in ``dtype``
+    (default: the dtype of its parameters)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, out_dtype=self.weight.dtype)
+        return layer_norm(x, self.weight, self.bias, out_dtype=self.compute_dtype or self.weight.dtype)
 
 
 class _NormNoAffine(nn.Module):
@@ -101,6 +120,7 @@ class Dense(nn.Module):
         norm_final_layer: bool = False,
         dropout: float = 0.0,
         context_size: int = 0,
+        dtype=None,
     ):
         super().__init__()
         if norm_layer not in (None, "LayerNorm"):
@@ -115,7 +135,7 @@ class Dense(nn.Module):
                 mods.append(_NormNoAffine())
             if dropout and (norm_final_layer or not is_final):
                 mods.append(nn.Dropout(dropout))
-            mods.append(xavier_uniform_(Linear(n_in, size)))
+            mods.append(xavier_uniform_(Linear(n_in, size, dtype=dtype)))
             if not is_final:
                 mods.append(ACTIVATIONS[activation]())
             elif final_activation:
@@ -124,7 +144,7 @@ class Dense(nn.Module):
         self.net = nn.Sequential(*mods)
 
     @classmethod
-    def from_config(cls, cfg: dict, input_size: int) -> "Dense":
+    def from_config(cls, cfg: dict, input_size: int, dtype=None) -> "Dense":
         """Build from a reference-style dense config dict.  The config's own
         ``input_size`` is ignored (the caller knows the real width; the
         configs carry placeholders such as -1)."""
@@ -138,6 +158,7 @@ class Dense(nn.Module):
             norm_final_layer=bool(cfg.get("norm_final_layer", False)),
             dropout=float(cfg.get("dropout", 0.0) or 0.0),
             context_size=int(cfg.get("context_size", 0) or 0),
+            dtype=dtype,
         )
 
     @property
@@ -147,7 +168,7 @@ class Dense(nn.Module):
     def forward(self, x, context=None):
         if self.context_size:
             x = attach_context(x, context)
-        dtype = self.linears[0].weight.dtype
+        dtype = self.linears[0].dtype
         for m in self.net:
             x = m(x, out_dtype=dtype) if isinstance(m, _NormNoAffine) else m(x)
         return x

@@ -3,18 +3,22 @@
 Counterpart of the JAX package's ``models/dit.py``: per-layer context ->
 SiLU -> Linear -> 6-way (shift/scale/gate for MSA and MLP) modulation; gated
 residual attention and FFN.  Self-attention with padding masks only for now
-(no cross-attention, tensor parallelism, segment packing, remat).
+(no cross-attention, tensor parallelism, segment packing).  ``remat``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``, the
+counterpart of ``nn.remat(DiTLayer)``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_mlp import fused_dit_mlp, fused_mlp_ok, mlp_config_fusable
 from .attention import MultiheadAttention
-from .dense import Dense, LayerNorm, Linear, xavier_uniform_
+from .dense import Dense, LayerNorm, Linear, cast, xavier_uniform_
 
 
 def modulate(x, shift, scale):
@@ -30,10 +34,10 @@ def _gate(g, x):
     return (g if g.ndim == x.ndim else g[:, None, :]) * x
 
 
-def adaln_modulation(context_size: int, out_features: int) -> nn.Sequential:
+def adaln_modulation(context_size: int, out_features: int, dtype=None) -> nn.Sequential:
     """Sequential(SiLU, Linear): the Linear sits in slot 1, as in the
     reference checkpoint layout."""
-    return nn.Sequential(nn.SiLU(), xavier_uniform_(Linear(context_size, out_features)))
+    return nn.Sequential(nn.SiLU(), xavier_uniform_(Linear(context_size, out_features, dtype=dtype)))
 
 
 class DiTLayer(nn.Module):
@@ -45,19 +49,20 @@ class DiTLayer(nn.Module):
         dense_config: Optional[dict] = None,
         attn_impl: str = "auto",
         fused_prologue: bool = False,
+        dtype=None,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         # fuse norm1 + adaLN modulate + QKV projection (ops/fused_qkv.py) and
         # the whole MLP half-layer (ops/fused_mlp.py) into one kernel each
         self.fused_prologue = fused_prologue
-        self.adaLN_modulation = adaln_modulation(context_size, 6 * embed_dim)
-        self.norm1 = LayerNorm(embed_dim)
-        self.mha = MultiheadAttention(embed_dim, num_heads, impl=attn_impl)
+        self.adaLN_modulation = adaln_modulation(context_size, 6 * embed_dim, dtype=dtype)
+        self.norm1 = LayerNorm(embed_dim, dtype=dtype)
+        self.mha = MultiheadAttention(embed_dim, num_heads, impl=attn_impl, dtype=dtype)
         self.mlp_cfg = dict(dense_config, output_size=embed_dim) if dense_config is not None else None
         if self.mlp_cfg is not None:
-            self.norm2 = LayerNorm(embed_dim)
-            self.dense = Dense.from_config(self.mlp_cfg, input_size=embed_dim)
+            self.norm2 = LayerNorm(embed_dim, dtype=dtype)
+            self.dense = Dense.from_config(self.mlp_cfg, input_size=embed_dim, dtype=dtype)
 
     def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, attn_valid=None, attn_bias=None):
         if k is not None:
@@ -88,10 +93,10 @@ class DiTLayer(nn.Module):
                 one_mlp = 1.0 + scale_mlp.float()
                 eff2_a = self.norm2.weight.float() * one_mlp
                 eff2_b = self.norm2.bias.float() * one_mlp + shift_mlp.float()
-                dt = lin0.weight.dtype
+                dt = lin0.dtype
                 return fused_dit_mlp(
                     q.to(dt), q_attn.to(dt), gate_msa.float(), eff2_a, eff2_b, gate_mlp.float(),
-                    lin0.weight.t(), lin0.bias, lin1.weight.t(), lin1.bias,
+                    cast(lin0.weight, dt).t(), lin0.bias, cast(lin1.weight, dt).t(), lin1.bias,
                 )
 
         q = q + _gate(gate_msa, q_attn)
@@ -112,18 +117,26 @@ class DiTEncoder(nn.Module):
         out_dim: int = 0,
         attn_impl: str = "auto",
         fused_prologue: bool = False,
+        dtype=None,
+        remat: bool = False,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            DiTLayer(embed_dim, num_heads, context_size, dense_config, attn_impl, fused_prologue)
+            DiTLayer(embed_dim, num_heads, context_size, dense_config, attn_impl, fused_prologue, dtype)
             for _ in range(num_layers)
         )
-        self.final_norm = LayerNorm(embed_dim)
-        self.final_linear = xavier_uniform_(Linear(embed_dim, out_dim)) if out_dim else None
+        self.final_norm = LayerNorm(embed_dim, dtype=dtype)
+        self.final_linear = xavier_uniform_(Linear(embed_dim, out_dim, dtype=dtype)) if out_dim else None
+        # rematerialise each layer in the backward pass: trades compute for
+        # device memory, the lever for long cell sets in training
+        self.remat = remat
 
     def forward(self, q, **kwargs):
         for layer in self.layers:
-            q = layer(q, **kwargs)
+            if self.remat and torch.is_grad_enabled():
+                q = checkpoint(layer, q, use_reentrant=False, **kwargs)
+            else:
+                q = layer(q, **kwargs)
         q = self.final_norm(q)
         if self.final_linear is not None:
             q = self.final_linear(q)

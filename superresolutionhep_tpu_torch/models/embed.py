@@ -28,14 +28,14 @@ def timestep_embedding(t, dim: int, max_period: float = 10_000.0):
 
 
 class TimestepEmbedder(nn.Module):
-    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256, dtype=None):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
         # Sequential(Linear, SiLU, Linear): keys mlp.0 / mlp.2 as in the reference
         self.mlp = nn.Sequential(
-            xavier_uniform_(Linear(frequency_embedding_size, hidden_size)),
+            xavier_uniform_(Linear(frequency_embedding_size, hidden_size, dtype=dtype)),
             nn.SiLU(),
-            xavier_uniform_(Linear(hidden_size, hidden_size)),
+            xavier_uniform_(Linear(hidden_size, hidden_size, dtype=dtype)),
         )
 
     def forward(self, t):

@@ -8,6 +8,10 @@ skip-concatenates the conditional features; optional final adaLN modulation;
 and predicts a per-cell scalar velocity.  ``type: DiT`` and non-packed
 batches only for now; no Fourier geometry features.
 
+``dtype`` is the compute dtype (Flax ``dtype=``): every module but the
+geometry embedder casts its weights to it at use, so fp32 parameters train
+under bf16 compute.  ``remat`` recomputes each DiT layer in the backward.
+
 Config layout is identical to the ``flow_model`` YAML block; parameter names
 are the reference checkpoint's (see tools/convert.py).
 """
@@ -18,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.masked import masked_mean
-from .dense import Dense, LayerNorm
+from .dense import Dense, LayerNorm, cast
 from .dit import DiTEncoder, adaln_modulation, modulate
 from .embed import TimestepEmbedder
 
@@ -26,9 +30,11 @@ N_CALO_LAYERS = 3  # ECAL layers kept after the layer<3 cut
 
 
 class FlowModel(nn.Module):
-    def __init__(self, config: dict, attn_impl: str = "auto", fused_prologue: bool = False):
+    def __init__(self, config: dict, attn_impl: str = "auto", fused_prologue: bool = False, dtype=None,
+                 remat: bool = False):
         """config: the ``flow_model`` config block."""
         super().__init__()
+        self.compute_dtype = dtype
         cfg = self.config = config
         if int(cfg["etaphi_emb"].get("fourier_features", 0) or 0):
             raise NotImplementedError("Fourier geometry features are not ported yet")
@@ -38,19 +44,22 @@ class FlowModel(nn.Module):
         C = int(cfg["time_embedding_size"])
         h_dim = int(cfg["h_dim"])
 
-        self.time_step_embedder = TimestepEmbedder(C)
+        self.time_step_embedder = TimestepEmbedder(C, dtype=dtype)
         emb_dim = int(cfg["layer_emb"]["emb_dim"])
         self.layer_emb_table = nn.Embedding(N_CALO_LAYERS, emb_dim)
         self.layer_emb_net = Dense.from_config(
-            dict(cfg["layer_emb"]["dense_config"], context_size=C), input_size=emb_dim
+            dict(cfg["layer_emb"]["dense_config"], context_size=C), input_size=emb_dim, dtype=dtype
         )
-        # geometry embedder: its weights stay fp32 under a bf16 model
-        # (models/precision.py) and it is fed fp32 inputs, so it computes in
-        # full fp32 — bf16 inputs would quantize normalized eta below the HR
-        # subcell half-pitch, the SR task's whole signal.
+        # geometry embedder: no compute dtype, its weights stay fp32 under a
+        # bf16 model (models/precision.py) and it is fed fp32 inputs, so it
+        # computes in full fp32 (TF32 off) — bf16 inputs would quantize
+        # normalized eta below the HR subcell half-pitch, the SR task's whole
+        # signal.
         self.etaphi_emb_net = Dense.from_config(dict(cfg["etaphi_emb"], context_size=C), input_size=3)
-        self.proxy_emb_net = Dense.from_config(dict(cfg["e_proxy_emb"], context_size=C), input_size=1)
-        self.noisy_input_emb_net = Dense.from_config(dict(cfg["noisy_input_emb"], context_size=C), input_size=1)
+        self.proxy_emb_net = Dense.from_config(dict(cfg["e_proxy_emb"], context_size=C), input_size=1, dtype=dtype)
+        self.noisy_input_emb_net = Dense.from_config(
+            dict(cfg["noisy_input_emb"], context_size=C), input_size=1, dtype=dtype
+        )
 
         cond_dim = (
             cfg["etaphi_emb"]["output_size"]
@@ -62,6 +71,7 @@ class FlowModel(nn.Module):
         self.feat_0_mlp = Dense.from_config(
             dict(cfg["feat_0_mlp"], context_size=ctx),
             input_size=cond_dim + cfg["noisy_input_emb"]["output_size"],
+            dtype=dtype,
         )
         if int(cfg["feat_0_mlp"]["output_size"]) != h_dim:
             raise ValueError("feat_0_mlp.output_size must equal h_dim")
@@ -73,18 +83,22 @@ class FlowModel(nn.Module):
             dense_config=dict(tcfg["dense_config"]),
             attn_impl=attn_impl,
             fused_prologue=fused_prologue,
+            dtype=dtype,
+            remat=remat,
         )
         feat_dim = h_dim + cond_dim
         self.final_modulation = bool(cfg.get("final_modulation", False))
         if self.final_modulation:
-            self.v_t_adaLN_modulation = adaln_modulation(ctx, 2 * feat_dim)
-            self.norm_v_t = LayerNorm(feat_dim)
-        self.v_t_pred_net = Dense.from_config(dict(cfg["v_t_pred"], context_size=ctx), input_size=feat_dim)
+            self.v_t_adaLN_modulation = adaln_modulation(ctx, 2 * feat_dim, dtype=dtype)
+            self.norm_v_t = LayerNorm(feat_dim, dtype=dtype)
+        self.v_t_pred_net = Dense.from_config(
+            dict(cfg["v_t_pred"], context_size=ctx), input_size=feat_dim, dtype=dtype
+        )
 
     @property
     def dtype(self):
         """Compute dtype of the dense stack (the geometry embedder aside)."""
-        return self.feat_0_mlp.linears[0].weight.dtype
+        return self.feat_0_mlp.linears[0].dtype
 
     def load_reference_state_dict(self, state_dict, strict: bool = True):
         """Load a reference-layout ``state_dict`` (keys ``net.*`` as in the
@@ -102,8 +116,9 @@ class FlowModel(nn.Module):
         eta, cosphi, sinphi = batch["eta"], batch["cosphi"], batch["sinphi"]
         layer, e_proxy, q_mask = batch["layer"], batch["e_proxy"], batch["q_mask"]
 
-        table = self.layer_emb_table.weight
-        layer_tab = table[layer.squeeze(-1).long()]
+        # gather in the table's dtype, then cast: the backward then sums the
+        # per-cell cotangents into the table in fp32, not in bf16
+        layer_tab = cast(self.layer_emb_table.weight[layer.squeeze(-1).long()], self.compute_dtype)
         layer_emb = self.layer_emb_net(layer_tab, context=time_emb)
 
         geo = torch.cat([eta, cosphi, sinphi], dim=-1).float()

@@ -1,14 +1,22 @@
-"""Padding-masked flash attention forward: hand-written CUDA kernels for
-Hopper (``csrc/flash_attention.cu``) behind the JAX package's entry points.
+"""Padding-masked flash attention: hand-written CUDA kernels for Hopper
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) behind the
+JAX package's entry points.
 
-Two kernels from one source:
+Four kernels:
   * ``flash_fwd`` — online softmax with a running max on base-2 logits
     (scale * log2(e) folded into Q outside the kernel), additive -1e30 bias
     on padded keys, key tiles without a valid key skipped, padded query rows
     zeroed, optional base-2 log-sum-exp per query (the backward needs it);
   * ``flash_fwd_nomax`` — inference only: ``exp2(clip(s, CLIP_LO, CLIP_HI))``
     times the key mask, no running max.  Exact while every row's logits lie
-    inside the clip bounds, which ``nomax_selfcheck`` proves per checkpoint.
+    inside the clip bounds, which ``nomax_selfcheck`` proves per checkpoint;
+  * ``flash_bwd_dq`` and ``flash_bwd_dkv`` — the backward from the saved
+    LSE: p = exp2(min(s - lse, 0)), ds = p * (g v^T - dl).
+
+``_FlashAttention`` is the ``torch.autograd.Function`` around the pre-scaled
+kernels (the JAX package's ``_flash_attention`` custom VJP): forward with
+LSE, backward through ``_flash_bwd``.  The q pre-scale stays outside it, so
+autograd chains d/dq through the product as JAX does.
 
 Public layouts are the JAX package's: (B, L, H, D) into
 ``masked_flash_attention``, (B, H, D, L) into ``masked_flash_attention_T``;
@@ -73,7 +81,10 @@ def _ref_attention_base2(q_pre, k, v, qm, km, softmax: str = "max", with_lse: bo
     """Plain version of what the kernels compute, step for step: q_pre is
     already scaled by scale*log2(e); (B, H, L, D) layout.  The unnormalised
     probabilities are cast to v's dtype before the PV product (fp32
-    accumulate) and the sum is divided out afterwards."""
+    accumulate) and the sum is divided out afterwards.  p is zeroed on padded
+    keys: the kernels skip key tiles without a valid key, which matters only
+    for a row with no valid key at all (its output is then 0, not the mean
+    of v, and its LSE stays ~-1e30)."""
     s = torch.matmul(q_pre.float(), k.float().transpose(-1, -2))  # (B,H,Lq,Lk) fp32
     kmf = km[:, None, :, :].float()  # (B,1,1,Lk)
     if softmax == "nomax_clip":
@@ -82,7 +93,7 @@ def _ref_attention_base2(q_pre, k, v, qm, km, softmax: str = "max", with_lse: bo
     else:
         s = s + (kmf - 1.0) * BIG
         m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp2(s - m)
+        p = torch.exp2(s - m) * kmf
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     out = acc / l.clamp_min(1e-30)
@@ -92,6 +103,46 @@ def _ref_attention_base2(q_pre, k, v, qm, km, softmax: str = "max", with_lse: bo
         lse = (m + torch.log2(l.clamp_min(1e-30))).squeeze(-1)  # (B,H,Lq)
         return out, lse
     return out
+
+
+def _ref_bwd_p(q_pre, k, lse, km):
+    """Recomputed probabilities of the backward kernels, (B, H, Lq, Lk) fp32:
+    p = exp2(min(s - lse, 0)) on base-2 logits with the -1e30 bias on padded
+    keys, zeroed on padded keys (the kernels skip key tiles without a valid
+    key; that matters only for a row with no valid key, whose LSE is ~-1e30
+    and whose capped p would otherwise be 1)."""
+    kmf = km[:, None, :, :].float()  # (B,1,1,Lk)
+    s = torch.matmul(q_pre.float(), k.float().transpose(-1, -2)) + (kmf - 1.0) * BIG
+    return torch.exp2(torch.clamp_max(s - lse[..., None], 0.0)) * kmf
+
+
+def _ref_flash_bwd_dq(q_pre, k, v, g, lse, dl, km):
+    """Plain version of the dq kernel (no ln 2): (B, H, L, D) layout, g
+    already zeroed on padded queries, lse/dl (B, H, Lq) fp32.  ds is cast to
+    k's dtype before the product with k; fp32 accumulation; dq in q's dtype."""
+    p = _ref_bwd_p(q_pre, k, lse, km)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - dl[..., None])
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q_pre.dtype)
+
+
+def _ref_flash_bwd_dkv(q_pre, k, v, g, lse, dl, km):
+    """Plain version of the dk/dv kernel (dk without ln 2): ds cast to q's
+    dtype before the dk product, p cast to g's dtype before the dv product."""
+    p = _ref_bwd_p(q_pre, k, lse, km)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - dl[..., None])
+    dk = torch.matmul(ds.to(q_pre.dtype).float().transpose(-1, -2), q_pre.float()).to(k.dtype)
+    dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), g.float()).to(v.dtype)
+    return dk, dv
+
+
+def _ref_flash_bwd(q_pre, k, v, g, lse, dl, km):
+    """Plain version of both backward kernels, step for step and cast for
+    cast what ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` do.  Returns
+    (dq_pre, dk, dv) before the ln 2 of the base-2 parametrisation."""
+    dk, dv = _ref_flash_bwd_dkv(q_pre, k, v, g, lse, dl, km)
+    return _ref_flash_bwd_dq(q_pre, k, v, g, lse, dl, km), dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +165,10 @@ def _check_operand(name, t, B, L, H, D, dtype, device):
     return t
 
 
-def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
-    """q_pre, k, v: (B, L, H, D) views (D contiguous) on one CUDA device;
-    qm (B, Lq), km (B, Lk) float32.  Returns out (B, Lq, H, D) contiguous
-    and the base-2 LSE (B, H, Lq) fp32 or None."""
+def _cuda_operands(q_pre, k, v, qm, km):
+    """Checks shared by every attention kernel: dtype, head dim, shapes,
+    strides, masks.  Returns q_pre, k, v as (B, L, H, D) views the kernels
+    take (copied only when a stride does not fit)."""
     B, Lq, H, D = q_pre.shape
     Lk = k.shape[1]
     dev, dt = q_pre.device, q_pre.dtype
@@ -125,14 +176,29 @@ def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
         raise ValueError(f"flash attention kernel takes bfloat16 or float32, got {dt}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash attention kernel is built for head dims {KERNEL_HEAD_DIMS}, got {D}")
-    if nomax and with_lse:
-        raise ValueError("the no-max kernel emits no LSE (inference only)")
     q_pre = _check_operand("q", q_pre, B, Lq, H, D, dt, dev)
     k = _check_operand("k", k, B, Lk, H, D, dt, dev)
     v = _check_operand("v", v, B, Lk, H, D, dt, dev)
     for name, m, L in (("q mask", qm, Lq), ("k mask", km, Lk)):
         if m.device != dev or m.dtype != torch.float32 or tuple(m.shape) != (B, L) or not m.is_contiguous():
             raise ValueError(f"flash attention: {name} must be contiguous float32 {(B, L)} on {dev}")
+    return q_pre, k, v
+
+
+def _strides(*ts):
+    return [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
+    """q_pre, k, v: (B, L, H, D) views (D contiguous) on one CUDA device;
+    qm (B, Lq), km (B, Lk) float32.  Returns out (B, Lq, H, D) contiguous
+    and the base-2 LSE (B, H, Lq) fp32 or None."""
+    if nomax and with_lse:
+        raise ValueError("the no-max kernel emits no LSE (inference only)")
+    q_pre, k, v = _cuda_operands(q_pre, k, v, qm, km)
+    B, Lq, H, D = q_pre.shape
+    Lk = k.shape[1]
+    dev, dt = q_pre.device, q_pre.dtype
     out = torch.empty((B, Lq, H, D), dtype=dt, device=dev)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=dev) if with_lse else None
     lib = kernels.library()
@@ -140,10 +206,7 @@ def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
         rc = lib.srhep_flash_fwd(
             q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), qm.data_ptr(), km.data_ptr(),
             out.data_ptr(), lse.data_ptr() if with_lse else None,
-            B, H, Lq, Lk, D,
-            q_pre.stride(0), q_pre.stride(1), q_pre.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            B, H, Lq, Lk, D, *_strides(q_pre, k, v),
             int(dt == torch.bfloat16), int(nomax),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -151,6 +214,128 @@ def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return out, lse
+
+
+def _cuda_bwd_operands(q_pre, k, v, g, lse, dl, qm, km):
+    q_pre, k, v = _cuda_operands(q_pre, k, v, qm, km)
+    B, Lq, H, D = q_pre.shape
+    g = _check_operand("g", g, B, Lq, H, D, q_pre.dtype, q_pre.device)
+    for name, t in (("lse", lse), ("dl", dl)):
+        if t.device != q_pre.device or t.dtype != torch.float32 or tuple(t.shape) != (B, H, Lq) or not t.is_contiguous():
+            raise ValueError(f"flash attention backward: {name} must be contiguous float32 {(B, H, Lq)}")
+    return q_pre, k, v, g
+
+
+def _flash_bwd_dq_cuda(q_pre, k, v, g, lse, dl, qm, km):
+    """K5: dq (B, Lq, H, D) in q's dtype, without the ln 2 factor.
+    q_pre, k, v, g: (B, L, H, D) views (D contiguous), g zeroed on padded
+    queries; lse, dl (B, H, Lq) fp32; qm, km (B, L) fp32."""
+    q_pre, k, v, g = _cuda_bwd_operands(q_pre, k, v, g, lse, dl, qm, km)
+    B, Lq, H, D = q_pre.shape
+    dev, dt = q_pre.device, q_pre.dtype
+    dq = torch.empty((B, Lq, H, D), dtype=dt, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.srhep_flash_bwd_dq(
+            q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), dl.data_ptr(),
+            qm.data_ptr(), km.data_ptr(), dq.data_ptr(),
+            B, H, Lq, k.shape[1], D, *_strides(q_pre, k, v, g),
+            int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernels.check(rc, "flash_bwd_dq")
+    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, qm, km):
+    """K6: dk, dv (B, Lk, H, D) in k's dtype, dk without the ln 2 factor."""
+    q_pre, k, v, g = _cuda_bwd_operands(q_pre, k, v, g, lse, dl, qm, km)
+    B, Lq, H, D = q_pre.shape
+    Lk = k.shape[1]
+    dev, dt = q_pre.device, q_pre.dtype
+    dk = torch.empty((B, Lk, H, D), dtype=dt, device=dev)
+    dv = torch.empty((B, Lk, H, D), dtype=dt, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.srhep_flash_bwd_dkv(
+            q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), dl.data_ptr(),
+            qm.data_ptr(), km.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Lq, Lk, D, *_strides(q_pre, k, v, g),
+            int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernels.check(rc, "flash_bwd_dkv")
+    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _heads_first(*ts):
+    """(B, L, H, D) -> (B, H, L, D) views, the plain versions' layout."""
+    return tuple(t.permute(0, 2, 1, 3) for t in ts)
+
+
+def _flash_bwd(q_pre, k, v, qm, km, out, lse, g):
+    """Backward of the pre-scaled attention in (B, L, H, D) layout (the JAX
+    package's ``_flash_bwd``): zero the cotangent on padded queries, dl =
+    sum_d(out * g) in fp32, the dq and dk/dv kernels (plain versions on the
+    CPU), then the ln 2 of d(exp2 logits)/d(logits) in fp32 and the cast.
+    lse (B, H, Lq) fp32; qm (B, Lq), km (B, Lk) fp32.  Returns (dq_pre, dk, dv)."""
+    g = g * (qm[:, :, None, None] > 0).to(g.dtype)
+    dl = (out.float() * g.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Lq)
+    if q_pre.is_cuda:
+        dq = _flash_bwd_dq_cuda(q_pre, k, v, g, lse, dl, qm, km)
+        dk, dv = _flash_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, qm, km)
+    else:
+        qh, kh, vh, gh = _heads_first(q_pre, k, v, g)
+        dq, dk, dv = (t.permute(0, 2, 1, 3) for t in _ref_flash_bwd(qh, kh, vh, gh, lse, dl, km[:, None]))
+    dq = (dq.float() * LN2).to(q_pre.dtype)
+    dk = (dk.float() * LN2).to(k.dtype)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable pre-scaled attention (the JAX package's
+    ``_flash_attention`` with its custom VJP).  q_pre, k, v: (B, L, H, D);
+    qm (B, Lq), km (B, Lk) fp32 masks.  Forward: the running-max kernel with
+    LSE (plain base-2 version on the CPU); backward: ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q_pre, k, v, qm, km):
+        if q_pre.is_cuda:
+            out, lse = _flash_fwd_cuda(q_pre, k, v, qm, km, nomax=False, with_lse=True)
+        else:
+            out, lse = _ref_attention_base2(*_heads_first(q_pre, k, v), qm[:, None], km[:, None], "max", with_lse=True)
+            out = out.permute(0, 2, 1, 3)
+        ctx.save_for_backward(q_pre, k, v, qm, km, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_pre, k, v, qm, km, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q_pre, k, v, qm, km, out, lse, g)
+        return dq, dk, dv, None, None
+
+
+def _attend_pre(q_pre, k, v, qm, km, softmax: str, with_lse: bool = False):
+    """Attention on pre-scaled (B, L, H, D) views: the differentiable
+    Function when a gradient is needed, else one forward launch (or its
+    plain version on the CPU).  Returns (out (B, Lq, H, D), lse or None)."""
+    nomax = softmax == "nomax_clip"
+    if kernels.needs_grad(q_pre, k, v):
+        if nomax:
+            raise RuntimeError("the no-max attention kernel is inference-only and not differentiable")
+        if with_lse:
+            raise ValueError("with_lse is a forward-only option")
+        return _FlashAttention.apply(q_pre, k, v, qm, km), None
+    if q_pre.is_cuda:
+        return _flash_fwd_cuda(q_pre, k, v, qm, km, nomax=nomax, with_lse=with_lse)
+    res = _ref_attention_base2(*_heads_first(q_pre, k, v), qm[:, None], km[:, None], softmax, with_lse=with_lse)
+    out, lse = res if with_lse else (res, None)
+    return out.permute(0, 2, 1, 3), lse
 
 
 def _float_mask(valid, B, L, device):
@@ -168,57 +353,52 @@ def masked_flash_attention(q, k, v, q_valid, kv_valid, scale: float, softmax: st
     """q, k, v: (B, L, H, D) with True==valid padding masks (B, L) or None.
     Returns (B, Lq, H, D).
 
-    softmax='max': online softmax with a running max, exact for any logits.
+    softmax='max': online softmax with a running max, exact for any logits,
+    differentiable (``_FlashAttention``): the training path.
     softmax='nomax_clip': inference-only clipped exp2 without the max chain;
-    validate per checkpoint with ``nomax_selfcheck`` before trusting it.
+    validate per checkpoint with ``nomax_selfcheck`` before trusting it; a
+    gradient through it raises.
 
-    CUDA tensors go through the kernel and must pass ``flash_shapes_ok``
-    (callers gate on it, as in the JAX package); CPU tensors take the plain
-    versions at any shape.
+    CUDA tensors go through the kernels and must pass ``flash_shapes_ok``
+    (callers gate on it, as in the JAX package); on the CPU, shapes that pass
+    take the plain versions of the kernels and other shapes the dense
+    natural-base formulation (the JAX package's einsum fallback).
     """
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     qm = _float_mask(q_valid, B, Lq, q.device)
     km = _float_mask(kv_valid, B, Lk, q.device)
-    if q.is_cuda:
-        if not flash_shapes_ok(Lq, Lk, D):
+    if not flash_shapes_ok(Lq, Lk, D):
+        if q.is_cuda:
             raise ValueError(
                 f"masked_flash_attention: shape (Lq={Lq}, Lk={Lk}, D={D}) fails the flash-kernel "
                 f"gate (128-aligned L, D%8==0); gate on flash_shapes_ok and use the einsum path"
             )
-        q_pre = q * (scale * LOG2E)
-        out, _ = _flash_fwd_cuda(q_pre, k, v, qm, km, nomax=softmax == "nomax_clip", with_lse=False)
-        return out
-    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    if softmax == "nomax_clip":
-        out = _ref_attention_base2(qh * (scale * LOG2E), kh, vh, qm[:, None], km[:, None], softmax)
-    else:
-        out, _ = _ref_attention(qh, kh, vh, qm[:, None], km[:, None], scale)
-    return out.permute(0, 2, 1, 3)
+        out, _ = _ref_attention(*_heads_first(q, k, v), qm[:, None], km[:, None], scale)
+        return out.permute(0, 2, 1, 3)
+    # fold the softmax scale and the base-2 conversion into Q (a constant of
+    # q's dtype, as JAX casts it); autograd chains d/dq through the product
+    q_pre = q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
+    out, _ = _attend_pre(q_pre, k, v, qm, km, softmax)
+    return out
 
 
 def masked_flash_attention_T(qT_pre, kT, vT, q_valid, kv_valid, softmax: str = "max", with_lse: bool = False):
     """Transposed-layout entry: qT_pre/kT/vT (B, H, D, L) with the softmax
     scale and base-2 conversion ALREADY folded into qT_pre (the fused
     LN+modulate+QKV prologue emits exactly this).  Returns outT (B, H, D, Lq)
-    (a transposed view of a (B, Lq, H, D) buffer); with ``with_lse`` also the
-    base-2 log-sum-exp (B, H, 1, Lq) fp32."""
+    (a transposed view of a (B, Lq, H, D) buffer); with ``with_lse`` (no
+    gradient) also the base-2 log-sum-exp (B, H, 1, Lq) fp32.  Differentiable
+    with softmax='max'."""
     B, H, D, Lq = qT_pre.shape
     Lk = kT.shape[3]
     qm = _float_mask(q_valid, B, Lq, qT_pre.device)
     km = _float_mask(kv_valid, B, Lk, qT_pre.device)
-    nomax = softmax == "nomax_clip"
-    if qT_pre.is_cuda:
-        if not flash_shapes_ok(Lq, Lk, D):
-            raise ValueError(f"masked_flash_attention_T: shape (Lq={Lq}, Lk={Lk}, D={D}) fails flash_shapes_ok")
-        q, k, v = (t.permute(0, 3, 1, 2) for t in (qT_pre, kT, vT))  # (B, L, H, D) views
-        out, lse = _flash_fwd_cuda(q, k, v, qm, km, nomax=nomax, with_lse=with_lse)
-        outT = out.permute(0, 2, 3, 1)
-    else:
-        q, k, v = (t.permute(0, 1, 3, 2) for t in (qT_pre, kT, vT))  # (B, H, L, D)
-        res = _ref_attention_base2(q, k, v, qm[:, None], km[:, None], softmax, with_lse=with_lse)
-        out, lse = res if with_lse else (res, None)
-        outT = out.permute(0, 1, 3, 2)
+    if qT_pre.is_cuda and not flash_shapes_ok(Lq, Lk, D):
+        raise ValueError(f"masked_flash_attention_T: shape (Lq={Lq}, Lk={Lk}, D={D}) fails flash_shapes_ok")
+    q, k, v = (t.permute(0, 3, 1, 2) for t in (qT_pre, kT, vT))  # (B, L, H, D) views
+    out, lse = _attend_pre(q, k, v, qm, km, softmax, with_lse=with_lse)
+    outT = out.permute(0, 2, 3, 1)
     if with_lse:
         return outT, lse[:, :, None, :]
     return outT

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .fused_qkv import _ln_noaffine
+from .fused_qkv import _ln_noaffine, _recompute_vjp
 
 LRELU_SLOPE = 0.01  # torch default — models/dense.py ACTIVATIONS
 
@@ -116,14 +116,31 @@ def _cuda_dit_mlp(q, attn_out, gate_a, eff_a, eff_b, gate_m, w0, b0, w1, b1):
     return out
 
 
+class _FusedDitMlp(torch.autograd.Function):
+    """Forward: the K4 kernel (the plain version on the CPU).  Backward: a
+    recompute through ``_ref_dit_mlp``, as the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        if args[0].is_cuda:
+            return _cuda_dit_mlp(*args)
+        return _ref_dit_mlp(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_vjp(_ref_dit_mlp, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
 def fused_dit_mlp(q, attn_out, gate_a, eff_a, eff_b, gate_m, w0, b0, w1, b1):
     """One-pass DiT MLP half-layer (module docstring).  q/attn_out:
     (B, L, F); gate_a/eff_a/eff_b/gate_m: (B, F) folded rows — or per-cell
     (B, L, F); w0: (F, Fh); b0: (Fh,); w1: (Fh, F); b1: (F,).  Returns the
-    layer's new q.  No gradient (serving path)."""
-    if q.is_cuda:
-        return _cuda_dit_mlp(q, attn_out, gate_a, eff_a, eff_b, gate_m, w0, b0, w1, b1)
-    return _ref_dit_mlp(q, attn_out, gate_a, eff_a, eff_b, gate_m, w0, b0, w1, b1)
+    layer's new q.  Differentiable in every input (recompute backward)."""
+    args = (q, attn_out, gate_a, eff_a, eff_b, gate_m, w0, b0, w1, b1)
+    if kernels.needs_grad(*args):
+        return _FusedDitMlp.apply(*args)
+    return _cuda_dit_mlp(*args) if q.is_cuda else _ref_dit_mlp(*args)
 
 
 def mlp_config_fusable(dense_config: dict) -> bool:

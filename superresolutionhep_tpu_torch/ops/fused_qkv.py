@@ -91,14 +91,43 @@ def _cuda_ln_mod_proj(x, a, b, w, bias):
     return out.transpose(1, 2)
 
 
+def _recompute_vjp(ref_fn, saved, needs, g):
+    """Cotangents of ``ref_fn(*saved)`` for the inputs marked in ``needs``:
+    one recomputed plain forward under autograd (the JAX package's custom-VJP
+    backward of the fused kernels)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = ref_fn(*inputs)
+        wrt = [t for t, n in zip(inputs, needs) if n]
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True)) if wrt else iter(())
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _FusedLnModProj(torch.autograd.Function):
+    """Forward: the K3 kernel (the plain version on the CPU).  Backward: a
+    recompute through ``_ref_ln_mod_proj``; no backward kernel (the JAX
+    package has none either)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w, bias):
+        ctx.save_for_backward(x, a, b, w, bias)
+        if x.is_cuda:
+            return _cuda_ln_mod_proj(x, a, b, w, bias)
+        return _ref_ln_mod_proj(x, a, b, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_vjp(_ref_ln_mod_proj, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
 def fused_ln_mod_proj(x, a, b, w, bias):
     """modulate(LN(x), ...) @ w + bias with transposed (B, O, L) output.
 
     x: (B, L, F) activations; a/b: (B, F) folded affine coefficients (or
     (B, L, F) per cell); w: (F, O); bias: (O, 1) or (O,).  The LN is
-    parameter-free — fold gamma/beta into a/b.  No gradient: the port's
-    serving path runs under ``torch.no_grad()``.
+    parameter-free — fold gamma/beta into a/b.  Differentiable in every
+    input (recompute backward, ``_FusedLnModProj``).
     """
-    if x.is_cuda:
-        return _cuda_ln_mod_proj(x, a, b, w, bias)
-    return _ref_ln_mod_proj(x, a, b, w, bias)
+    if kernels.needs_grad(x, a, b, w, bias):
+        return _FusedLnModProj.apply(x, a, b, w, bias)
+    return _cuda_ln_mod_proj(x, a, b, w, bias) if x.is_cuda else _ref_ln_mod_proj(x, a, b, w, bias)

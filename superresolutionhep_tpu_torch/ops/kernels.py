@@ -31,15 +31,20 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "fused_qkv.cu", "fused_mlp.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "fused_qkv.cu", "fused_mlp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
 
 # launches of each hand-written kernel since the last reset_launches()
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_nomax": 0, "fused_qkv": 0, "fused_mlp": 0}
+LAUNCHES = {
+    "flash_fwd": 0, "flash_fwd_nomax": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "fused_qkv": 0, "fused_mlp": 0,
+}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -124,6 +129,11 @@ _SIGNATURES = {
     # q, k, v, qm, km, out, lse, B, H, Lq, Lk, D, strides (b, l, h) of q, k, v,
     # is_bf16, nomax, stream
     "srhep_flash_fwd": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _I, _P],
+    # q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, D, strides (b, l, h) of
+    # q, k, v, g, is_bf16, stream
+    "srhep_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, _P],
+    # the same with dk, dv in place of dq
+    "srhep_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I, _P],
     # x, a, b, w(O,F), bias, out, M, L, F, O, per_cell, is_bf16, stream
     "srhep_fused_qkv": [_P] * 6 + [_I] * 6 + [_P],
     # q, attn, ga, a, b, gm, w0(Fh,F), b0, w1(F,Fh), b1, out, M, L, F, Fh,
@@ -144,6 +154,13 @@ def library():
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will want a gradient of any of ``tensors``: a wrapper
+    then goes through its ``torch.autograd.Function``, else it launches
+    directly."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check(rc: int, name: str):

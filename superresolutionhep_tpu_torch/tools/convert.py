@@ -1,4 +1,4 @@
-"""JAX-package parameter tree -> the port's ``state_dict``.
+"""JAX-package parameter tree <-> the port's ``state_dict``.
 
 ``params_from_jax`` takes the JAX package's FlowModel parameters as nested
 dicts of numpy arrays (``transformer/layers_0/mha/linear_q/kernel`` ...) and
@@ -6,6 +6,7 @@ returns tensors under the reference checkpoint's key layout, the one the
 port's modules use: ``net.`` prefix, ``Dense.net.{i}`` Sequential slots,
 ``adaLN_modulation.1``, Flax ``kernel`` (in, out) transposed to
 ``nn.Linear.weight`` (out, in), LayerNorm ``scale`` -> ``weight``.
+``params_to_jax`` is the reverse map.
 """
 
 from __future__ import annotations
@@ -56,27 +57,88 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _linear_pairs(jpath, tkey):
+    return [(jpath + ("kernel",), f"{tkey}.weight", True), (jpath + ("bias",), f"{tkey}.bias", False)]
+
+
+def _dense_pairs(jpath, tkey, dense_cfg, n_hidden=None):
+    n_hidden = len(dense_cfg.get("hidden_layers") or []) if n_hidden is None else n_hidden
+    out = []
+    for j, slot in enumerate(dense_linear_indices(dense_cfg, n_hidden=n_hidden)):
+        out += _linear_pairs(jpath + (f"linear_{j}",), f"{tkey}.net.{slot}")
+    return out
+
+
+def _layernorm_pairs(jpath, tkey):
+    return [(jpath + ("scale",), f"{tkey}.weight", False), (jpath + ("bias",), f"{tkey}.bias", False)]
+
+
+def flow_key_pairs(flow_config: dict, n_layers: Optional[int] = None):
+    """Every FlowModel parameter as (JAX path, reference key without
+    ``net.``, transposed?) — Flax ``kernel`` (in, out) is the transpose of
+    ``nn.Linear.weight`` (out, in).  The counterpart of the JAX package's
+    ``tools/torch_export.py`` layout rules."""
+    cfg = flow_config
+    pairs = _linear_pairs(("time_step_embedder", "mlp_0"), "time_step_embedder.mlp.0")
+    pairs += _linear_pairs(("time_step_embedder", "mlp_2"), "time_step_embedder.mlp.2")
+    pairs.append((("layer_emb_table", "embedding"), "layer_emb_table.weight", False))
+    for name, dcfg in (
+        ("layer_emb_net", cfg["layer_emb"]["dense_config"]),
+        ("etaphi_emb_net", cfg["etaphi_emb"]),
+        ("proxy_emb_net", cfg["e_proxy_emb"]),
+        ("noisy_input_emb_net", cfg["noisy_input_emb"]),
+        ("feat_0_mlp", cfg["feat_0_mlp"]),
+        ("v_t_pred_net", cfg["v_t_pred"]),
+    ):
+        pairs += _dense_pairs((name,), name, dcfg)
+    mlp_cfg = cfg["transformer"]["dense_config"]
+    n_layers = int(cfg["transformer"]["num_transformer_layers"]) if n_layers is None else n_layers
+    for i in range(n_layers):
+        jp, tp = ("transformer", f"layers_{i}"), f"transformer.layers.{i}"
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            pairs += _linear_pairs(jp + ("mha", name), f"{tp}.mha.{name}")
+        pairs += _dense_pairs(jp + ("dense",), f"{tp}.dense", mlp_cfg)
+        pairs += _layernorm_pairs(jp + ("norm1",), f"{tp}.norm1")
+        pairs += _layernorm_pairs(jp + ("norm2",), f"{tp}.norm2")
+        pairs += _linear_pairs(jp + ("adaLN_modulation",), f"{tp}.adaLN_modulation.1")
+    pairs += _layernorm_pairs(("transformer", "final_norm"), "transformer.final_norm")
+    pairs += _linear_pairs(("transformer", "final_linear"), "transformer.final_linear")
+    pairs += _linear_pairs(("v_t_adaLN_modulation",), "v_t_adaLN_modulation.1")
+    pairs += _layernorm_pairs(("norm_v_t",), "norm_v_t")
+    return pairs
+
+
+def _fill(out, node, pairs):
+    """Convert the leaves of ``node`` named by ``pairs`` into ``out``."""
+    for jpath, key, transpose in pairs:
+        leaf = _get(node, *jpath)
+        if leaf is not None:
+            arr = np.asarray(leaf, np.float32)
+            out[key] = _t(arr.T if transpose else arr)
+
+
 def _linear(out, node, key):
-    if node is None or "kernel" not in node:
-        return
-    out[f"{key}.weight"] = _t(np.asarray(node["kernel"], np.float32).T)
-    if "bias" in node:
-        out[f"{key}.bias"] = _t(node["bias"])
+    if node is not None and "kernel" in node:
+        _fill(out, node, _linear_pairs((), key))
 
 
 def _dense(out, node, key, dense_cfg):
-    if node is None:
-        return
-    linears = sorted((int(k.split("_")[-1]), k) for k in node if k.startswith("linear_"))
-    for (_, name), slot in zip(linears, dense_linear_indices(dense_cfg, n_hidden=len(linears) - 1)):
-        _linear(out, node[name], f"{key}.net.{slot}")
+    if node is not None:
+        n_hidden = sum(k.startswith("linear_") for k in node) - 1
+        _fill(out, node, _dense_pairs((), key, dense_cfg, n_hidden))
 
 
 def _layernorm(out, node, key):
-    if node is None or "scale" not in node:
-        return
-    out[f"{key}.weight"] = _t(node["scale"])
-    out[f"{key}.bias"] = _t(node["bias"])
+    if node is not None and "scale" in node:
+        _fill(out, node, _layernorm_pairs((), key))
+
+
+def _n_layers_jax(tree) -> int:
+    stack = _get(tree, "transformer") or {}
+    n = 0
+    while f"layers_{n}" in stack:
+        n += 1
+    return n
 
 
 def unflatten(flat: Dict[str, Any], sep: str = "/") -> dict:
@@ -94,44 +156,32 @@ def unflatten(flat: Dict[str, Any], sep: str = "/") -> dict:
 def params_from_jax(params: Dict[str, Any], flow_config: dict) -> Dict[str, torch.Tensor]:
     """JAX-package FlowModel params (nested dicts of numpy arrays, with or
     without the top-level ``{"params": ...}``) -> ``net.*`` state dict for
-    ``FlowModel.load_reference_state_dict``."""
+    ``FlowModel.load_reference_state_dict``.  Leaves the tree does not hold
+    are left out."""
     tree = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
-
-    _linear(out, _get(tree, "time_step_embedder", "mlp_0"), "time_step_embedder.mlp.0")
-    _linear(out, _get(tree, "time_step_embedder", "mlp_2"), "time_step_embedder.mlp.2")
-    emb = _get(tree, "layer_emb_table", "embedding")
-    if emb is not None:
-        out["layer_emb_table.weight"] = _t(emb)
-
-    for name, cfg in (
-        ("layer_emb_net", flow_config["layer_emb"]["dense_config"]),
-        ("etaphi_emb_net", flow_config["etaphi_emb"]),
-        ("proxy_emb_net", flow_config["e_proxy_emb"]),
-        ("noisy_input_emb_net", flow_config["noisy_input_emb"]),
-        ("feat_0_mlp", flow_config["feat_0_mlp"]),
-        ("v_t_pred_net", flow_config["v_t_pred"]),
-    ):
-        _dense(out, _get(tree, name), name, cfg)
-
-    stack = _get(tree, "transformer") or {}
-    mlp_cfg = flow_config["transformer"]["dense_config"]
-    n = 0
-    while f"layers_{n}" in stack:
-        layer, lp = stack[f"layers_{n}"], f"transformer.layers.{n}"
-        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            _linear(out, _get(layer, "mha", name), f"{lp}.mha.{name}")
-        _dense(out, layer.get("dense"), f"{lp}.dense", mlp_cfg)
-        _layernorm(out, layer.get("norm1"), f"{lp}.norm1")
-        _layernorm(out, layer.get("norm2"), f"{lp}.norm2")
-        _linear(out, layer.get("adaLN_modulation"), f"{lp}.adaLN_modulation.1")
-        n += 1
-    _layernorm(out, stack.get("final_norm"), "transformer.final_norm")
-    _linear(out, stack.get("final_linear"), "transformer.final_linear")
-
-    _linear(out, _get(tree, "v_t_adaLN_modulation"), "v_t_adaLN_modulation.1")
-    _layernorm(out, _get(tree, "norm_v_t"), "norm_v_t")
+    _fill(out, tree, flow_key_pairs(flow_config, _n_layers_jax(tree)))
     return {f"net.{k}": v for k, v in out.items()}
+
+
+def params_to_jax(state_dict: Dict[str, Any], flow_config: dict) -> dict:
+    """The reverse of ``params_from_jax``: a FlowModel ``state_dict`` (keys
+    with or without ``net.``) -> the JAX package's parameter tree of fp32
+    numpy arrays (the layout ``FlowModel.init`` gives).  Counterpart of the
+    JAX package's ``tools/torch_export.py::export_flow_params``."""
+    sd = {(k[4:] if k.startswith("net.") else k): v for k, v in state_dict.items()}
+    n_layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.layers.")})
+    tree: dict = {}
+    for jpath, key, transpose in flow_key_pairs(flow_config, n_layers):
+        if key not in sd:
+            continue
+        v = sd[key]
+        arr = (v.detach().float().cpu().numpy() if torch.is_tensor(v) else np.asarray(v, np.float32))
+        node = tree
+        for p in jpath[:-1]:
+            node = node.setdefault(p, {})
+        node[jpath[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+    return tree
 
 
 def init_params_jax_layout(flow_config: dict, seed: int = 0) -> dict:

@@ -18,7 +18,7 @@ run() {  # name, sed expression, file
   sed -i "$2" "$3"
   after=$(md5sum "$3" | cut -d' ' -f1)
   if [ "$before" = "$after" ]; then echo "MUTATION $1 did not change $3"; exit 9; fi
-  SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --reps 2 > out.txt 2> err.txt
+  SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --skip-train --reps 2 > out.txt 2> err.txt
   rc=$?
   oks=$(grep -c '^{"ok": true' out.txt)
   echo "MUTATION $1 exit=$rc ok_line=$oks failing_cases=$(grep -c '"ok": false' out.txt)"
@@ -29,5 +29,7 @@ run() {  # name, sed expression, file
 run nomax_drops_key_mask 's/kClipHi)) \* ka;/kClipHi));/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run lrelu_slope 's/kLreluSlope = 0.01f/kLreluSlope = 0.02f/' superresolutionhep_tpu_torch/csrc/common.cuh
 run qkv_forgets_bias 's/from_float<T>(acc\[i\] + bias\[n0 + c\])/from_float<T>(acc[i])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
-run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
+run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/common.cuh
+run bwd_dq_sign_of_dl 's/\* (dp\[j\]\[0\] - dl0);/* (dp[j][0] + dl0);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + bias0) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 exit $status

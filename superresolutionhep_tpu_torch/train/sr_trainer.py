@@ -1,0 +1,398 @@
+"""Stage-1 (super-resolution) training harness.
+
+Counterpart of the JAX package's ``train/sr_trainer.py``: AdamW with the
+warmup-cosine epoch schedule, the masked flow-matching loss with its
+per-step statistics, full generative validation (dopri5 by default) with
+NN-space and raw-energy MSE, best-3 + last checkpointing keyed on
+``val/loss_raw``, resume, the non-finite-loss abort with per-layer
+diagnostics, a JSONL metrics sink.
+
+Differences a caller sees:
+  * ``device`` is explicit and defaults to ``cuda``; asking for ``cuda`` on a
+    machine without one raises.  Only ``device="cpu"`` runs on the CPU.
+  * ``dtype`` is the compute dtype (``torch.bfloat16`` for the production
+    setting); parameters, gradients and optimizer state stay fp32.
+  * noise and times come from a ``torch.Generator`` seeded from ``seed``, or
+    are passed to ``train_step`` (the tests feed the JAX package's draws).
+  * ``packed: true`` and ``n_event_displays > 0`` raise
+    ``NotImplementedError``: they need modules that are not ported yet.
+
+The optimizer mirrors the JAX package's optax chain exactly
+(``clip_by_global_norm`` -> ``scale_by_adam`` -> ``add_decayed_weights`` ->
+``scale(-1)``, times the epoch's learning rate, inside ``MultiSteps`` when
+``grad_accum_steps > 1``), in fp32, with the bias corrections computed in
+fp32 as optax computes them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import resolve_threshold
+from ..data.bucketing import BucketBatcher
+from ..data.prefetch import BatchPrefetcher
+from ..data.sr_dataset import MODEL_BATCH_KEYS, SupResEvents, collate
+from ..flow.cfm import flow_matching_loss, sample_location_and_conditional_flow
+from ..flow.sampling import generate_samples
+from ..inference.sr import batch_to_device, resolve_device
+from ..models.flow_model import FlowModel
+from ..models.init_policies import apply_init_policies
+from ..tools.convert import init_params_jax_layout, params_from_jax
+from ..transforms import TargetTransform
+from .checkpoint import CheckpointManager
+from .metrics import MetricsLogger
+from .schedule import schedule_from_config
+
+VAL_BATCH_KEYS = MODEL_BATCH_KEYS + ("e_proxy_raw", "e_truth_raw")
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to fp32 (what a JAX fp32 scalar holds)."""
+    return float(np.float32(x))
+
+
+class AdamW:
+    """The JAX trainer's optax chain over a list of fp32 parameters.
+
+    Per applied step: optional ``clip_by_global_norm`` (``g / norm * max``
+    unless ``norm < max``; no epsilon, unlike ``clip_grad_norm_``), Adam
+    moments with the bias corrections of optax (b1 0.9, b2 0.999, eps 1e-8
+    added to the corrected square root), decoupled weight decay on every
+    parameter, then ``p -= lr * update``.  With ``accum_steps > 1`` the
+    gradients of ``accum_steps`` calls are averaged (optax ``MultiSteps``'s
+    running mean) and the update is applied on the last of them.
+    """
+
+    def __init__(self, params: List[torch.Tensor], weight_decay: float = 0.01, clip_norm: Optional[float] = None,
+                 accum_steps: int = 0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = params
+        self.wd, self.clip = float(weight_decay), (float(clip_norm) if clip_norm else None)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.accum_steps = int(accum_steps or 0)
+        self.count = 0
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in params] if self.accum_steps > 1 else None
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor], lr: float) -> bool:
+        """One call per train step; returns whether the parameters moved."""
+        grads = [g.float() for g in grads]
+        if self.acc is not None:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            self.mini_step = (n + 1) % self.accum_steps
+            if self.mini_step:
+                return False
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+        if self.clip is not None:
+            norm = global_norm(grads)
+            if not bool(norm < self.clip):
+                grads = [g / norm * self.clip for g in grads]
+        self.count += 1
+        bc1 = _f32(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
+        bc2 = _f32(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - self.b1))
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - self.b2))
+        den = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
+        torch._foreach_add_(upd, torch._foreach_mul(self.params, self.wd))
+        torch._foreach_mul_(upd, _f32(lr))
+        torch._foreach_sub_(self.params, upd)
+        return True
+
+    def state_dict(self) -> dict:
+        out = {"count": torch.tensor(self.count), "mini_step": torch.tensor(self.mini_step),
+               "mu": list(self.mu), "nu": list(self.nu)}
+        if self.acc is not None:
+            out["acc"] = list(self.acc)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict):
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        for dst, src in ((self.mu, sd["mu"]), (self.nu, sd["nu"]), (self.acc, sd.get("acc"))):
+            if dst is not None:
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+
+
+def global_norm(ts: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax ``global_norm``)."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in ts))
+
+
+class SRTrainer:
+    def __init__(
+        self,
+        config_mv: dict,
+        config_t: dict,
+        run_dir: str = "runs/sr",
+        seed: int = 0,
+        dtype=None,
+        device="cuda",
+        params: Optional[Dict[str, torch.Tensor]] = None,
+        attn_impl: str = "auto",
+    ):
+        """``params``: a reference-layout state dict (``tools/convert.py``) to
+        start from; default a seeded random init with the config's init
+        policies.  ``attn_impl``: the attention path ('auto' = the flash
+        kernels on CUDA, the dense formulation on the CPU; 'flash';
+        'einsum')."""
+        ct = config_t
+        if ct.get("packed", False):
+            raise NotImplementedError(
+                "packed training (`packed: true`) needs the segment-packed attention kernels K7-K9 "
+                "(ops/flash_packed.py: _packed_fwd_kernel, _packed_bwd_dq_kernel, _packed_bwd_dkv_kernel), "
+                "which are not ported yet; train bucketed (`packed: false`)"
+            )
+        if int(ct.get("n_event_displays", 0) or 0) > 0:
+            raise NotImplementedError(
+                "n_event_displays > 0 needs the live validation plots (analysis/live.py), which are not "
+                "ported yet; set n_event_displays: 0"
+            )
+        self.config_mv, self.config_t, self.run_dir = config_mv, config_t, run_dir
+        self.device = resolve_device(device)
+        # the geometry embedder and every plain fp32 product run in full fp32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+        fm_cfg = config_mv["flow_model"]
+        self.model = FlowModel(
+            fm_cfg, attn_impl=attn_impl, dtype=dtype, remat=bool(ct.get("remat", False)),
+            # training opt-in for the fused DiT layer kernels (differentiable
+            # through a plain recompute backward)
+            fused_prologue=bool(ct.get("fused_prologue", False)),
+        )
+        if params is None:
+            self.model.load_reference_state_dict(params_from_jax(init_params_jax_layout(fm_cfg, seed=seed), fm_cfg))
+            policies = fm_cfg.get("init_weights", {}) or {}
+            sd = apply_init_policies(self.model.state_dict(), policies, torch.Generator().manual_seed(seed + 1))
+            self.model.load_state_dict(sd)
+        else:
+            self.model.load_reference_state_dict(params)
+        self.model.to(self.device).float()
+        # eval mode throughout: the deterministic forward of the JAX loss
+        # (dropout off; every shipped config has dropout 0)
+        self.model.eval()
+        self._params = [p for _, p in self.model.named_parameters()]
+
+        self.sigma_min = float(fm_cfg["sigma_min"])
+        self.n_steps = int(fm_cfg["n_steps"])
+        self.target_transform = TargetTransform.from_config(config_mv["target_transform"])
+        self.opt = AdamW(
+            self._params, weight_decay=float(ct.get("weight_decay", 0.01)), clip_norm=ct.get("grad_clip_norm"),
+            accum_steps=int(ct.get("grad_accum_steps", 0) or 0),
+        )
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.epoch = 0
+        self.global_step = 0
+
+        self.lr_fn = schedule_from_config(ct)
+        self.metrics = MetricsLogger(run_dir)
+        self.metrics.snapshot_source({"model_and_var": config_mv, "train": config_t})
+        self.ckpt: Optional[CheckpointManager] = None
+
+    # ------------------------------------------------------------------
+    def _device_batch(self, host_batch, keys=MODEL_BATCH_KEYS) -> dict:
+        return batch_to_device(host_batch, self.device, keys)
+
+    def _batcher(self, ds: SupResEvents, split: str, seed: int) -> BucketBatcher:
+        ct = self.config_t
+        budget = None
+        if ct.get("use_sampler", False):
+            budget = resolve_threshold(ct.get(f"n_sq_sum_threshold_{split}"))
+        return BucketBatcher(
+            ds.cell_count_high,
+            quantum=int(ct.get("bucket_quantum", 128)),
+            cost_budget=budget,
+            max_batch_size=int(ct.get(f"batch_size_{split}", 32)),
+            shuffle=(split == "train"),
+            seed=seed,
+        )
+
+    # ------------------------------------------------------------------
+    def loss_and_grads(self, batch: dict, t=None, x0=None):
+        """Forward (deterministic), loss and its gradients w.r.t. every
+        parameter, in ``named_parameters`` order.  Returns (loss, stats,
+        grads); nothing is read back to the host."""
+        t, xt, ut = sample_location_and_conditional_flow(
+            batch["target"], self.sigma_min, t=t, x0=x0, generator=self.generator
+        )
+        vt = self.model(batch, xt, t)
+        loss, stats = flow_matching_loss(vt, ut, batch["q_mask"])
+        grads = torch.autograd.grad(loss, self._params)
+        return loss, stats, grads
+
+    def train_step(self, batch: dict, t=None, x0=None, lr: Optional[float] = None) -> dict:
+        """One optimizer step on a device batch (``MODEL_BATCH_KEYS``).
+        ``t`` (B,) and ``x0`` (the target's shape) default to draws from the
+        trainer's generator; ``lr`` to the current epoch's.  Returns the
+        step's statistics as 0-dim tensors: the loss, ``grad_norm`` (before
+        clipping), the finite-loss flag ``nonfinite`` and the flow-matching
+        statistics."""
+        lr = self.lr_fn(self.epoch) if lr is None else lr
+        loss, stats, grads = self.loss_and_grads(batch, t=t, x0=x0)
+        grad_norm = global_norm(grads)
+        self.opt.step(list(grads), lr)
+        self.global_step += 1
+        # the reference aborts on a non-finite loss; the flag is read once
+        # per epoch, so no step waits for the device
+        stats["nonfinite"] = (~torch.isfinite(loss)).float()
+        stats["loss"] = loss
+        stats["grad_norm"] = grad_norm
+        return {k: v.detach() for k, v in stats.items()}
+
+    def state(self) -> dict:
+        return {"params": self.model.state_dict(), "opt_state": self.opt.state_dict()}
+
+    def load_state(self, state: dict):
+        self.model.load_state_dict(state["params"])
+        self.opt.load_state_dict(state["opt_state"])
+
+    # ------------------------------------------------------------------
+    def fit(
+        self,
+        train_ds: Optional[SupResEvents] = None,
+        val_ds: Optional[SupResEvents] = None,
+        num_epochs: Optional[int] = None,
+        resume: bool = False,
+    ):
+        ct = self.config_t
+        if train_ds is None:
+            train_ds = SupResEvents(
+                ct["train_path"], self.config_mv, reduce_ds=ct.get("reduce_ds_train", -1),
+                one_event_train=ct.get("one_event_train", False), one_event_idx=ct.get("one_event_idx", 0),
+            )
+        if val_ds is None and ct.get("val_path"):
+            val_ds = SupResEvents(
+                ct["val_path"], self.config_mv, make_low=True, reduce_ds=ct.get("reduce_ds_val", -1),
+                one_event_train=ct.get("one_event_train", False), one_event_idx=ct.get("one_event_idx", 0),
+            )
+
+        self.ckpt = CheckpointManager(
+            os.path.join(self.run_dir, "checkpoints"), monitor="val/loss_raw",
+            configs={"config_mv": self.config_mv, "config_t": self.config_t},
+        )
+        if resume:
+            try:
+                self.load_state(self.ckpt.restore(which="last", map_location=self.device))
+                self.epoch = (self.ckpt.latest_step() or 0) + 1
+            except FileNotFoundError:
+                pass  # nothing to resume from: a fresh start
+
+        num_epochs = num_epochs or int(ct["num_epochs"])
+        eval_every = int(ct.get("eval_every_n_epoch", 1))
+        num_workers = int(ct.get("num_workers", 2))
+        # preprocessed-event cache: host RAM for per-epoch CPU; off for
+        # datasets that do not fit
+        cache_events = bool(ct.get("cache_events", True))
+        train_cache: Dict[int, object] = {}
+
+        def prepare(item):
+            """Host-side batch prep, in the prefetch thread pool."""
+            idxs, bucket = item
+            if cache_events:
+                events = [(train_cache.setdefault(i, train_ds.get_event(i)) if i >= 0 else None) for i in idxs]
+            else:
+                events = [train_ds.get_event(i) if i >= 0 else None for i in idxs]
+            return collate(events, bucket.pad_n)
+
+        profile_epoch = self.epoch if ct.get("profile") else None
+
+        for epoch in range(self.epoch, num_epochs):
+            self.epoch = epoch
+            lr = self.lr_fn(epoch)
+            t_ep = time.time()
+            ep_stats: Dict[str, torch.Tensor] = {}
+            n_batches, last_hb = 0, None
+            if epoch == profile_epoch:
+                self.metrics.start_profile()
+            batches = BatchPrefetcher(self._batcher(train_ds, "train", seed=epoch), prepare, num_workers=num_workers)
+            for hb in batches:
+                stats = self.train_step(self._device_batch(hb), lr=lr)
+                n_batches += 1
+                last_hb = hb
+                for k, v in stats.items():
+                    ep_stats[k] = ep_stats.get(k, 0.0) + v
+            ep = {f"train/{k}": float(v) / max(n_batches, 1) for k, v in ep_stats.items()}
+            ep["lr"] = lr
+            ep["train/epoch_s"] = time.time() - t_ep
+            ep["train/n_batches"] = n_batches
+            if epoch == profile_epoch:
+                self.metrics.stop_profile()
+
+            if ep.get("train/nonfinite", 0) > 0:
+                # the reference's non-finite abort: re-run the last batch's
+                # forward with per-layer statistics before stopping
+                diag = self._dump_nonfinite_diagnostics(last_hb, epoch)
+                self.metrics.log_scalars({"fatal_nonfinite_loss": 1.0}, step=epoch)
+                raise FloatingPointError(f"non-finite training loss at epoch {epoch}; diagnostics at {diag}")
+
+            if val_ds is not None and (epoch % eval_every == 0 or epoch == num_epochs - 1):
+                ep.update(self.evaluate(val_ds, epoch=epoch))
+
+            self.metrics.log_scalars(ep, step=epoch)
+            self.ckpt.save(epoch, self.state(), ep)
+            self.epoch = epoch + 1
+        return self
+
+    # ------------------------------------------------------------------
+    def _dump_nonfinite_diagnostics(self, host_batch, epoch: int) -> str:
+        """Per-layer statistics on the non-finite-loss trip: parameter
+        statistics and, from one forward of the last batch with forward
+        hooks, the activations of every module (non-finite parameters
+        persist, so the last batch localises the first offending module)."""
+        from ..models.summary import activation_summary, param_summary
+
+        report = {"epoch": epoch, "params": param_summary(self.model.state_dict())}
+        try:
+            batch = self._device_batch(host_batch)
+            t, xt, _ = sample_location_and_conditional_flow(batch["target"], self.sigma_min, generator=self.generator)
+            report["activations"] = activation_summary(self.model, lambda: self.model(batch, xt, t))
+        except Exception as e:  # the report must never mask the abort that follows
+            report["activation_capture_error"] = f"{type(e).__name__}: {str(e)[:500]}"
+        path = os.path.join(self.run_dir, "nonfinite_diagnostics.json")
+        with open(path, "w") as fp:
+            json.dump(report, fp, indent=2, default=str)
+        return path
+
+    # ------------------------------------------------------------------
+    def evaluate(self, val_ds: SupResEvents, n_steps: Optional[int] = None, epoch: int = 0) -> Dict[str, float]:
+        """Full generative validation: sample every validation event with
+        ``val_ode_method`` (default dopri5) and report the node-count
+        weighted mean squared error in NN space and in raw energy."""
+        method = self.config_t.get("val_ode_method", "dopri5")
+        n_steps = n_steps or self.n_steps
+        tot_nn = tot_raw = tot_n = 0.0
+        for idxs, bucket in self._batcher(val_ds, "val", seed=0):
+            events = [val_ds.get_event(i) if i >= 0 else None for i in idxs]
+            batch = self._device_batch(collate(events, bucket.pad_n), VAL_BATCH_KEYS)
+            pred = generate_samples(
+                lambda b, x, t: self.model(b, x, t), batch, n_steps=n_steps, method=method,
+                generator=self.generator,
+            )
+            with torch.no_grad():
+                m = batch["q_mask"][..., None].float()
+                se_nn = ((pred - batch["target"]) ** 2 * m).sum()
+                e_pred_raw = self.target_transform.inverse(pred, batch["e_proxy_raw"])
+                se_raw = ((e_pred_raw - batch["e_truth_raw"]) ** 2 * m).sum()
+            tot_nn += float(se_nn)
+            tot_raw += float(se_raw)
+            tot_n += float(m.sum().clamp_min(1.0))
+        n = max(tot_n, 1.0)
+        return {"val/loss": tot_nn / n, "val/loss_raw": tot_raw / n}
