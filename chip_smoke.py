@@ -7,27 +7,35 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels from ``superresolutionhep_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card, then drives the port's two main paths at the full width of the
+card, then drives the port's main paths at the full width of the
 multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
   * serve: ``SRServer.predict_event`` (25-point grid, 10 ensemble members,
     bf16, no-max attention, fused prologue);
+  * packed inference: ``SRInference.predict`` with ``packed: true`` (rows of
+    5120 cells, 8 a batch; the fast and the robust model; the bucketed
+    mop-up of events longer than a row; a packed row against the same events
+    unpacked);
   * train: ``SRTrainer.fit`` (bf16 compute, fp32 parameters, per-layer remat,
     unfused, dopri5 validation, checkpoints, resume), flash-vs-dense and
     fused-vs-unfused gradients in fp32, train-step times;
+  * packed train: ``SRTrainer.fit`` with ``packed: true``, resumed; fp32
+    gradients of a packed row against the same events unpacked; the step time
+    at (8, 5120);
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
 (seeded); events are synthetic (seeded).
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
-``kernel_case`` lines, ``serve``, ``train``), then the card's name and power limit as
+``kernel_case`` lines, ``serve``, ``packed_inference``, ``train``,
+``packed_train``), then the card's name and power limit as
 nvidia-smi gives them, then ``{"kernels": [...]}`` (one entry per kernel: its
 time on the card, the plain version's, the bound, the launches on the main
 path), then, last, ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero and prints no ``ok`` line.  Without a CUDA device it exits 2.
 
 Options (for development; the default run does everything):
-    --skip-serve      no serve phase (exits 1 by design)
-    --skip-train      no train phase (exits 1 by design)
+    --skip-serve      no serve and packed inference phases (exits 1 by design)
+    --skip-train      no train and packed train phases (exits 1 by design)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
 """
@@ -71,6 +79,15 @@ TOL = {
     # natural-base plain formulation, fp32, relative to each gradient's max
     ("flash_grad", torch.float32): 2e-4,
 }
+# the packed kernels K7-K9 are held to the same bounds as K1/K2/K5/K6, relative
+# to each output's max (the LSE absolutely, at valid queries only).
+# A packed row against the same events unpacked, one model evaluation: fp32
+# relative to the output's max (the attention kernels' bound); bf16 absolute,
+# nomax_selfcheck's model-level bound: the packed layout's per-cell modulation
+# rows are fp32 (the one-hot scatter promotes) where the unpacked ones are
+# bf16, and the JAX package's own bf16 gap between the two layouts on this
+# model (6 layers, random weights) is 0.045 absolute, 3.2e-2 of the max.
+LAYOUT_TOL = {torch.float32: ("rel", 2e-4), torch.bfloat16: ("abs", 6e-2)}
 
 REPLACES = {
     "flash_fwd": "superresolutionhep_tpu/ops/flash_attention.py:213",
@@ -79,6 +96,10 @@ REPLACES = {
     "flash_bwd_dkv": "superresolutionhep_tpu/ops/flash_attention.py:464",
     "fused_qkv": "superresolutionhep_tpu/ops/fused_qkv.py:116",
     "fused_mlp": "superresolutionhep_tpu/ops/fused_mlp.py:141",
+    "packed_fwd": "superresolutionhep_tpu/ops/flash_packed.py:237",
+    "packed_fwd_nomax": "superresolutionhep_tpu/ops/flash_packed.py:237",
+    "packed_bwd_dq": "superresolutionhep_tpu/ops/flash_packed.py:381",
+    "packed_bwd_dkv": "superresolutionhep_tpu/ops/flash_packed.py:415",
 }
 SOURCE = {
     "flash_fwd": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
@@ -87,11 +108,16 @@ SOURCE = {
     "flash_bwd_dkv": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
     "fused_qkv": "superresolutionhep_tpu_torch/csrc/fused_qkv.cu",
     "fused_mlp": "superresolutionhep_tpu_torch/csrc/fused_mlp.cu",
+    "packed_fwd": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
+    "packed_fwd_nomax": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
+    "packed_bwd_dq": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
+    "packed_bwd_dkv": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 
 
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+PACKED_S, PACKED_ROWS = 5120, 8  # the JAX package's packing defaults
 
 
 def emit(obj):
@@ -416,6 +442,249 @@ def bwd_kernel_cases(reps):
     return cases
 
 
+def multipart_dataset(cfg_mv, n, seed, make_low=False, make_particles=False, **kw):
+    """``n`` synthetic multi-particle events (``GeneratorConfig(res_factor=4,
+    **kw)``) as an in-memory ``SupResEvents``."""
+    from superresolutionhep_tpu_torch.data.sr_dataset import SupResEvents
+    from superresolutionhep_tpu_torch.data.synthetic import GeneratorConfig, generate_events
+
+    trees = generate_events(n, seed=seed, config=GeneratorConfig(res_factor=4, **kw))
+    return SupResEvents.from_trees(trees["Low_Tree"], trees["High_Tree"], cfg_mv, make_low=make_low,
+                                   make_particles=make_particles)
+
+
+def packed_row_pair(ds, row, dev, seed):
+    """One packed row of ``ds``'s events (1, S) and the same events unpacked
+    (n, 128-aligned longest), with the same per-cell noise x0 (and one t for
+    all): the model-level equivalence of the two layouts."""
+    from superresolutionhep_tpu_torch.data.packing import PackedBatch, aligned_len, collate_packed
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS, collate
+    from superresolutionhep_tpu_torch.inference.sr import PACKED_BATCH_KEYS, batch_to_device
+
+    row = sorted(row, key=lambda r: r[1])
+    events = {i: ds.get_event(i) for i, _, _ in row}
+    hp = collate_packed(events, PackedBatch(rows=[row]), S=PACKED_S)
+    hu = collate([events[i] for i, _, _ in row], aligned_len(max(n for _, _, n in row)))
+    x0p = np.random.default_rng(seed).normal(size=hp["target"].shape).astype(np.float32)
+    x0u = np.zeros_like(hu["target"])
+    for j, (_, off, n) in enumerate(row):
+        x0u[j, :n] = x0p[0, off: off + n]
+    bp, bu = batch_to_device(hp, dev, PACKED_BATCH_KEYS), batch_to_device(hu, dev, MODEL_BATCH_KEYS)
+    return (bp, torch.from_numpy(x0p).to(dev)), (bu, torch.from_numpy(x0u).to(dev)), row
+
+
+def layout_errs(vp, vu, row):
+    """max over the row's events of |packed - unpacked|: absolute, and over
+    max |unpacked|."""
+    vp, vu = vp.float(), vu.float()
+    err = max(float((vp[0, off: off + n] - vu[j, :n]).abs().max()) for j, (_, off, n) in enumerate(row))
+    return {"abs": err, "rel": err / max(float(vu.abs().max()), 1e-12)}
+
+
+def packed_layout(seed=7):
+    """One (8, 5120) packed batch from ``pack_events`` over the multi-particle
+    length mix (432-4864 cells), seeded: events of an exact multiple of 128
+    cells, events ending inside a 64-cell tile, a row holding one 4864-cell
+    event alone, and one empty row.  Returns (layout, seg (8, 5120) int32
+    numpy, the events' lengths)."""
+    from superresolutionhep_tpu_torch.data.packing import pack_events
+
+    fixed = [4864, 2048, 1024, 640, 432]
+    for attempt in range(1000):  # the first seeded draw that fills exactly 7 rows
+        rng = np.random.default_rng(seed + attempt)
+        lens = fixed + [int(x) for x in rng.integers(432, 4865, size=int(rng.integers(4, 10)))]
+        lay = pack_events(lens, S=PACKED_S, rows_per_batch=PACKED_ROWS)
+        if len(lay) == 1 and sum(1 for r in lay[0].rows if r) == PACKED_ROWS - 1:
+            break
+    seg = np.full((PACKED_ROWS, PACKED_S), -1, np.int32)  # as collate_packed numbers segments
+    for b, row in enumerate(lay[0].rows):
+        for si, (_, off, n) in enumerate(sorted(row, key=lambda r: r[1])):
+            seg[b, off: off + n] = si
+    return lay[0], seg, lens
+
+
+def packed_kernel_cases(reps):
+    """K7 (robust with LSE, no-max), K8 and K9 against ``_ref_packed_*`` on the
+    same CUDA tensors (the backward from K7's own LSE), bf16 and fp32, with
+    exact zeros at padding: timed at (B, S, H, D) = (8, 5120, 4, 64) on the
+    ``packed_layout`` rows; untimed on two rows whose segment boundaries fall
+    inside 64-cell tiles (the packer aligns events to 128 cells, so only such
+    rows put two segments into one tile and test the segment mask itself, not
+    just the band).  Then autograd through ``packed_flash_attention`` (K7 + K8
+    + K9) against autograd through the dense natural-base reference.  Times by
+    CUDA-graph replay; library yardstick: one SDPA call with the (B, 1, S, S)
+    block-diagonal boolean mask (forward), its memory-efficient backward as
+    (fwd+bwd) - fwd."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from superresolutionhep_tpu_torch.ops import flash_packed as fp
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(777)
+    H, D = 4, 64
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    def rel_err(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12)).item()
+
+    lay, seg_np, lens = packed_layout()
+    emit({"phase": "packed_layout", "rows": [[n for _, _, n in sorted(r, key=lambda x: x[1])] for r in lay.rows],
+          "S": PACKED_S})
+    unaligned = np.full((2, 1024), -1, np.int32)  # boundaries at 300, 584 (inside tiles), padding from 1000
+    unaligned[0, :300], unaligned[0, 300:584], unaligned[0, 584:1000] = 0, 1, 2
+    unaligned[1, :700] = 0
+
+    def run_layout(seg_host, dtype, timed):
+        seg = torch.from_numpy(seg_host).to(dev)
+        B, S = seg.shape
+        pad = seg < 0
+        valid_q = (~pad)[:, None, :].expand(B, H, S)
+        seg_lens = [int((seg_host[b] == i).sum()) for b in range(B) for i in range(int(seg_host[b].max()) + 1)]
+        sq = float(sum(n * n for n in seg_lens))  # same-segment (query, key) pairs
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        isz = 2 if dtype == torch.bfloat16 else 4
+        peak = H100_FLOPS[dtype]
+        layout = "packed" if timed else "unaligned"
+
+        def zero_at_pad(t):  # (B, S, H, D)
+            return float(t.float()[pad].abs().max()) == 0.0
+
+        qkv = randn(B, S, 3, H, D)
+        qkv[:, :, 0] *= (1.0 / D**0.5) * fp.LOG2E * 2.0
+        qkv = qkv.to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, D) strided views, as the fused buffer gives
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        amask = ((seg[:, :, None] == seg[:, None, :]) & (~pad)[:, None, :])[:, None]  # yardstick only
+        out_cases = []
+        tol = TOL[("flash", dtype)]
+        nbytes_fwd = 4 * B * S * H * D * isz + B * S * 4
+        robust_ref = None
+        for name, nomax in (("packed_fwd", False), ("packed_fwd_nomax", True)):
+            before = kernels.LAUNCHES[name]
+            out, lse = fp._packed_fwd(q, k, v, seg, nomax=nomax, with_lse=not nomax)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES[name] != before + 1:
+                fail(f"{name}: the wrapper did not count its launch")
+            ref = fp._ref_packed_fwd(qh, kh, vh, seg, "nomax_clip" if nomax else "max", with_lse=not nomax)
+            ref_out, ref_lse = ref if not nomax else (ref, None)
+            ref_out = ref_out.permute(0, 2, 1, 3)
+            err = rel_err(out, ref_out)
+            case = {"kernel": name, "dtype": dname, "layout": layout, "B": B, "H": H, "L": S, "D": D,
+                    "max_abs_err": (out.float() - ref_out.float()).abs().max().item(), "max_rel_err": err,
+                    "tol_rel": tol, "padding_exactly_zero": zero_at_pad(out)}
+            ok = bool(torch.isfinite(out.float()).all()) and err <= tol and case["padding_exactly_zero"]
+            if not nomax:
+                lerr = (lse - ref_lse)[valid_q].abs().max().item()
+                case["lse_max_abs_err_valid"], case["lse_tol"] = lerr, TOL[("lse", dtype)]
+                ok = ok and lerr <= TOL[("lse", dtype)]
+                robust_ref = ref_out.float()
+                fwd_out, fwd_lse = out, lse
+            elif dtype == torch.bfloat16:
+                xerr = (out.float() - robust_ref).abs().max().item()
+                case["vs_robust_max_abs_err"], case["vs_robust_tol"] = xerr, TOL[("nomax_vs_robust", dtype)]
+                ok = ok and xerr <= TOL[("nomax_vs_robust", dtype)]
+            if timed:
+                flops = 4.0 * H * D * sq
+                case["ms"] = time_ms(lambda: fp._packed_fwd(q, k, v, seg, nomax=nomax, with_lse=not nomax), reps)
+                case["plain_ms"] = time_ms(
+                    lambda: fp._ref_packed_fwd(qh, kh, vh, seg, "nomax_clip" if nomax else "max", with_lse=not nomax),
+                    max(3, reps // 5))
+                qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+                case["library_ms"] = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(qc, kc, vc, attn_mask=amask,
+                                                                             scale=fp.LN2), reps)
+                case["bound_ms"] = max(flops / peak, nbytes_fwd / H100_BYTES_PER_S) * 1e3
+                case["bound_by"] = "operations" if flops / peak >= nbytes_fwd / H100_BYTES_PER_S else "bytes"
+            case["ok"] = ok
+            out_cases.append(case)
+            emit({"phase": "kernel_case", **case})
+
+        # K8 / K9 from K7's own residuals
+        gr = randn(B, S, H, D).to(dtype) * (~pad)[:, :, None, None].to(dtype)
+        dl = (fwd_out.float() * gr.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, gr, fwd_lse, dl, seg)
+        gh = gr.permute(0, 2, 1, 3)
+        ref_args = (qh, kh, vh, gh, fwd_lse, dl, seg)
+        before = dict(kernels.LAUNCHES)
+        dq = fp._packed_bwd_dq_cuda(*args)
+        dk, dv = fp._packed_bwd_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        if (kernels.LAUNCHES["packed_bwd_dq"] != before["packed_bwd_dq"] + 1
+                or kernels.LAUNCHES["packed_bwd_dkv"] != before["packed_bwd_dkv"] + 1):
+            fail("packed backward: a wrapper did not count its launch")
+        ref_dq = fp._ref_packed_bwd_dq(*ref_args).permute(0, 2, 1, 3)
+        ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fp._ref_packed_bwd_dkv(*ref_args))
+        tol = TOL[("flash_bwd", dtype)]
+        nbytes_in = 4 * B * S * H * D * isz + 2 * B * H * S * 4 + B * S * 4
+        library_ms = None
+        if timed and dtype == torch.bfloat16:
+            qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (qh, kh, vh))
+            gc = gh.contiguous()
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                def lib_fwd():
+                    return torch.nn.functional.scaled_dot_product_attention(qc, kc, vc, attn_mask=amask, scale=fp.LN2)
+
+                def lib_fwd_bwd():
+                    return torch.autograd.grad(lib_fwd(), (qc, kc, vc), gc)
+
+                library_ms = time_ms(lib_fwd_bwd, reps) - time_ms(lambda: lib_fwd().detach(), reps)
+        for name, got, ref, flops, nbytes, fn, plain in (
+            ("packed_bwd_dq", (dq,), (ref_dq,), 6.0 * H * D * sq, nbytes_in + B * S * H * D * isz,
+             fp._packed_bwd_dq_cuda, fp._ref_packed_bwd_dq),
+            ("packed_bwd_dkv", (dk, dv), (ref_dk, ref_dv), 8.0 * H * D * sq, nbytes_in + 2 * B * S * H * D * isz,
+             fp._packed_bwd_dkv_cuda, fp._ref_packed_bwd_dkv),
+        ):
+            errs = [rel_err(a, b) for a, b in zip(got, ref)]
+            zeros = all(zero_at_pad(t) for t in got)
+            case = {"kernel": name, "dtype": dname, "layout": layout, "B": B, "H": H, "L": S, "D": D,
+                    "max_abs_err": max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)),
+                    "max_rel_err": max(errs), "tol_rel": tol, "padding_exactly_zero": zeros}
+            if timed:
+                case.update({"ms": time_ms(lambda: fn(*args), reps),
+                             "plain_ms": time_ms(lambda: plain(*ref_args), max(3, reps // 5)),
+                             "library_ms": library_ms, "library_covers": "dq+dk+dv",
+                             "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
+                             "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"})
+            case["ok"] = bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol and zeros
+            out_cases.append(case)
+            emit({"phase": "kernel_case", **case})
+        return out_cases
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += run_layout(seg_np, dtype, timed=True)
+        torch.cuda.empty_cache()
+        cases += run_layout(unaligned, dtype, timed=False)
+
+    # autograd: packed_flash_attention (K7 with LSE, K8, K9) against the dense
+    # natural-base reference, fp32, on the unaligned rows
+    segs = torch.from_numpy(unaligned).to(dev)
+    x = [randn(2, 1024, H, D).requires_grad_(True) for _ in range(3)]
+    w = randn(2, 1024, H, D)
+    before = dict(kernels.LAUNCHES)
+    out = fp.packed_flash_attention(*x, segs, scale=D**-0.5)
+    got = torch.autograd.grad((out * w).sum(), x)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("packed_fwd", "packed_bwd_dq", "packed_bwd_dkv")}
+    want = torch.autograd.grad((fp.ref_packed_attention(*x, segs, D**-0.5) * w).sum(), x)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    tol = TOL[("flash_grad", torch.float32)]
+    case = {"kernel": "packed_autograd", "dtype": "fp32", "layout": "unaligned", "B": 2, "H": H, "L": 1024, "D": D,
+            "max_rel_err_dq_dk_dv": errs, "tol_rel": tol, "launches": launched,
+            "ok": max(errs) <= tol and all(n == 1 for n in launched.values())}
+    cases.append(case)
+    emit({"phase": "kernel_case", **case})
+
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} packed case(s) disagree with the plain version: "
+             + "; ".join(f"{c['kernel']}/{c['dtype']}/{c['layout']}" for c in bad))
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase: train
 # ---------------------------------------------------------------------------
@@ -471,8 +740,7 @@ def train_phase(reps):
     import tempfile
 
     from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, MULTIPART_CONFIG_T
-    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS, SupResEvents, collate
-    from superresolutionhep_tpu_torch.data.synthetic import GeneratorConfig, generate_events
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS, collate
     from superresolutionhep_tpu_torch.ops import kernels
     from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
     from superresolutionhep_tpu_torch.train.checkpoint import CheckpointManager
@@ -486,8 +754,7 @@ def train_phase(reps):
                  fused_prologue=False, num_workers=2)
 
     def dataset(n, seed, **kw):
-        trees = generate_events(n, seed=seed, config=GeneratorConfig(res_factor=4, **kw))
-        return SupResEvents.from_trees(trees["Low_Tree"], trees["High_Tree"], cfg_mv)
+        return multipart_dataset(cfg_mv, n, seed, **kw)
 
     train_ds = dataset(48, 11, max_particles=4, window_lr_cells=2)
     val_ds = dataset(8, 12, max_particles=4, window_lr_cells=2)
@@ -512,9 +779,9 @@ def train_phase(reps):
     fit_s = time.time() - t0
     # ---- end of the counted window
     hook.remove()
-    expect = {"flash_fwd": n_layers * (2 * calls["train"] + calls["val"]),  # remat: forward + recompute
-              "flash_fwd_nomax": 0, "flash_bwd_dq": n_layers * calls["train"],
-              "flash_bwd_dkv": n_layers * calls["train"], "fused_qkv": 0, "fused_mlp": 0}
+    expect = dict({k: 0 for k in kernels.LAUNCHES},
+                  flash_fwd=n_layers * (2 * calls["train"] + calls["val"]),  # remat: forward + recompute
+                  flash_bwd_dq=n_layers * calls["train"], flash_bwd_dkv=n_layers * calls["train"])
     lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
     checks["fit_epochs"] = tr.epoch == 2 and len(lines) == 2
     checks["losses_finite"] = all(np.isfinite(x["train/loss"]) and x["train/nonfinite"] == 0.0
@@ -611,6 +878,286 @@ def train_phase(reps):
     emit(line)
     if not line["ok"]:
         fail("train checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase: packed inference
+# ---------------------------------------------------------------------------
+
+
+def packed_inference_phase():
+    """``SRInference.predict`` with ``packed: true`` at the full width of the
+    multipart model (bf16, 25-point grid, 10 ensemble members, rows of 5120
+    cells, 8 rows a batch) on 48 synthetic events: the fast model (no-max
+    packed kernel behind the first-batch self-check, fused prologue and MLP)
+    in the counted window, then the robust model; a small run whose pack_s
+    lies below the largest events, so that they take the bucketed mop-up;
+    the copied branches against a bucketed run of the same events; one model
+    evaluation of a packed row against the same events unpacked (K7 vs K1)."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, MULTIPART_CONFIG_T, serve_inference_config
+    from superresolutionhep_tpu_torch.data.bucketing import BucketBatcher
+    from superresolutionhep_tpu_torch.data.packing import aligned_len, collate_packed, pack_events
+    from superresolutionhep_tpu_torch.inference.sr import PACKED_BATCH_KEYS, SRInference, batch_to_device
+    from superresolutionhep_tpu_torch.models.flow_model import FlowModel
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+
+    dev = torch.device("cuda")
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    flow_cfg = cfg_mv["flow_model"]
+    n_layers = int(flow_cfg["transformer"]["num_transformer_layers"])
+    params = params_from_jax(init_params_jax_layout(flow_cfg, seed=0), flow_cfg)
+    ds = multipart_dataset(cfg_mv, 48, 21, make_low=True, make_particles=True, max_particles=4, window_lr_cells=2)
+    counts = ds.cell_count_high
+    inf_dict = {"n_ensemble": 10, "ode_method": "ab2e", "seed": 0, "batch_size": 8}
+    packing = dict(packed=True, pack_s=PACKED_S, pack_rows=PACKED_ROWS)
+    n_packed = len(pack_events(counts, S=PACKED_S, rows_per_batch=PACKED_ROWS))
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    checks, line = {}, {"phase": "packed_inference", "n_events": len(ds), "cells": [min(counts), max(counts)],
+                        "packed_batches": n_packed, "S": PACKED_S, "rows": PACKED_ROWS}
+
+    # ---- the counted window: the fast model, every count to 0 just before, read just after
+    inf = SRInference(serve_inference_config(cfg_mv, **packing), params=params, device="cuda")
+    per_call = n_layers * (inf.n_steps - 1)  # ab2e: one evaluation per grid interval
+    kernels.reset_launches()
+    t0 = time.time()
+    fast = inf.predict(ds, inf_dict)
+    torch.cuda.synchronize()
+    counts_fast = dict(kernels.LAUNCHES)
+    fast_s = time.time() - t0
+    # ---- end of the counted window
+    expect_fast = dict(zero, packed_fwd=n_layers,  # the self-check's robust model
+                       packed_fwd_nomax=per_call * n_packed + n_layers, fused_qkv=per_call * n_packed + n_layers,
+                       fused_mlp=per_call * n_packed + n_layers)
+    checks["selfcheck_passed"] = inf.nomax_selfcheck_passed is True and inf.fast_softmax is True
+    checks["launch_counts_fast"] = counts_fast == expect_fast
+
+    # where the time goes: one sampler call of the first packed batch under torch.profiler
+    lay0 = pack_events(counts, S=PACKED_S, rows_per_batch=PACKED_ROWS)[0]
+    b0 = batch_to_device(collate_packed({i: ds.get_event(i) for r in lay0.rows for i, _, _ in r}, lay0, S=PACKED_S),
+                         dev, PACKED_BATCH_KEYS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    line["profile_sampler_call"] = profile_steps(
+        lambda: inf._gen(b0, gen, n_ensemble=10, n_steps=inf.n_steps, method="ab2e", fast=True), 1)
+    line["profile_sampler_call"]["valid_cells"] = int(b0["q_mask"].sum())
+    del b0
+
+    robust_inf = SRInference(serve_inference_config(cfg_mv, fast_softmax=False, **packing), params=params,
+                                   device="cuda")
+    kernels.reset_launches()
+    t0 = time.time()
+    robust = robust_inf.predict(ds, inf_dict)
+    torch.cuda.synchronize()
+    counts_robust = dict(kernels.LAUNCHES)
+    robust_s = time.time() - t0
+    checks["launch_counts_robust"] = counts_robust == dict(zero, packed_fwd=per_call * n_packed)
+    ht_f, ht_r = fast["High_Tree"], robust["High_Tree"]
+    checks["predictions_finite"] = all(bool(np.isfinite(t["High_Tree"][k].flat).all()) for t in (fast, robust)
+                                       for k in ("e_pred_raw", "raw_nn_pred"))
+    checks["one_row_per_event"] = all(len(t["High_Tree"]["e_pred_raw"]) == len(ds) for t in (fast, robust))
+    raw_diff = float(np.abs(ht_f["raw_nn_pred"].flat - ht_r["raw_nn_pred"].flat).max())
+    checks["robust_agrees_raw_nn_pred"] = raw_diff <= 6e-2
+
+    # ---- the copied branches against a bucketed run of the same events (one
+    # evaluation per batch, one member: the branches do not depend on the sampler)
+    bucketed = SRInference(serve_inference_config(cfg_mv, n_steps=2, fast_softmax=False), params=params,
+                                 device="cuda").predict(ds, dict(inf_dict, n_ensemble=1))
+    same = True
+    for tree in ("Low_Tree", "High_Tree", "Particle_Tree"):
+        for k, b in bucketed[tree].items():
+            if k.startswith(("e_pred", "raw_nn_pred")):
+                continue
+            a = fast[tree][k]
+            same = same and np.array_equal(a.offsets, b.offsets) and np.array_equal(a.flat, b.flat)
+    checks["copied_branches_equal_bucketed"] = bool(same)
+
+    # ---- mop-up: pack_s below the largest events
+    small = multipart_dataset(cfg_mv, 6, 22, make_low=True, make_particles=True, max_particles=4, window_lr_cells=2)
+    sc = np.asarray(small.cell_count_high)
+    pack_s = 2048
+    fits = np.array([aligned_len(int(n)) <= pack_s for n in sc])
+    n_pk = len(pack_events(sc[fits], S=pack_s, rows_per_batch=2))
+    n_mop = len(list(BucketBatcher(sc[~fits], quantum=int(MULTIPART_CONFIG_T["bucket_quantum"]), max_batch_size=8,
+                                   shuffle=False, tail_shrink="exact")))
+    mop_inf = SRInference(serve_inference_config(cfg_mv, packed=True, pack_s=pack_s, pack_rows=2),
+                                params=params, device="cuda")
+    kernels.reset_launches()
+    mop = mop_inf.predict(small, dict(inf_dict, n_ensemble=2))
+    torch.cuda.synchronize()
+    counts_mop = dict(kernels.LAUNCHES)
+    expect_mop = dict(zero, packed_fwd=n_layers, packed_fwd_nomax=per_call * n_pk + n_layers,
+                      flash_fwd_nomax=per_call * n_mop, fused_qkv=per_call * (n_pk + n_mop) + n_layers,
+                      fused_mlp=per_call * (n_pk + n_mop) + n_layers)
+    checks["mopup_ran"] = n_pk > 0 and n_mop > 0 and counts_mop == expect_mop
+    checks["mopup_finite_in_order"] = (
+        bool(np.isfinite(mop["High_Tree"]["e_pred_raw"].flat).all())
+        and [len(x) for x in mop["High_Tree"]["e_pred_raw"]] == list(sc))
+
+    # ---- one evaluation of a packed row against the same events unpacked
+    # the row holding the most events (several segments side by side)
+    row = max((r for b in pack_events(counts, S=PACKED_S, rows_per_batch=PACKED_ROWS) for r in b.rows), key=len)
+    (bp, xp), (bu, xu), row = packed_row_pair(ds, row, dev, seed=5)
+    fp32_model = FlowModel(flow_cfg).to(dev)
+    fp32_model.load_reference_state_dict(params)
+    fp32_model.eval().requires_grad_(False)
+    layouts = {}
+    for name, model, dtype in (("bf16", robust_inf.model, torch.bfloat16), ("fp32", fp32_model, torch.float32)):
+        before = dict(kernels.LAUNCHES)
+        with torch.no_grad():
+            vp = model(bp, xp, torch.full((1,), 0.5, device=dev))
+            vu = model(bu, xu, torch.full((len(row),), 0.5, device=dev))
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("packed_fwd", "flash_fwd")}
+        errs = layout_errs(vp, vu, row)
+        kind, tol = LAYOUT_TOL[dtype]
+        layouts[name] = {"max_abs_err": errs["abs"], "max_rel_err": errs["rel"], f"tol_{kind}": tol,
+                         "launches": launched}
+        checks[f"packed_row_equals_unpacked_{name}"] = errs[kind] <= tol and launched == {"packed_fwd": n_layers,
+                                                                                         "flash_fwd": n_layers}
+
+    line.update({"fast_s": round(fast_s, 2), "robust_s": round(robust_s, 2),
+                 "sampler_calls": n_packed, "launches_per_sampler_call": per_call,
+                 "launches": counts_fast, "launches_expected": expect_fast, "launches_robust": counts_robust,
+                 "robust_vs_fast_raw_nn_pred_max_abs": raw_diff, "robust_vs_fast_tol": 6e-2,
+                 "mopup": {"pack_s": pack_s, "cells": sc.tolist(), "packed_calls": n_pk, "bucketed_calls": n_mop,
+                           "launches": counts_mop},
+                 "packed_row_vs_unpacked": {"events": [n for _, _, n in row], **layouts},
+                 "checks": checks, "ok": all(checks.values())})
+    emit(line)
+    if not line["ok"]:
+        fail("packed inference checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts_fast
+
+
+# ---------------------------------------------------------------------------
+# phase: packed train
+# ---------------------------------------------------------------------------
+
+
+def packed_train_phase(reps):
+    """``SRTrainer.fit`` with ``packed: true`` at full width (bf16 compute,
+    fp32 parameters, per-layer remat, unfused, rows of 5120 cells, 8 a batch)
+    for two epochs, then resumed for a third; one fp32 step of a packed row
+    against the same events unpacked (loss and every gradient); the median
+    step time at (8, 5120) with a torch.profiler busy share."""
+    import copy
+    import tempfile
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, MULTIPART_CONFIG_T
+    from superresolutionhep_tpu_torch.data.packing import collate_packed, pack_events
+    from superresolutionhep_tpu_torch.inference.sr import PACKED_BATCH_KEYS, batch_to_device
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+    from superresolutionhep_tpu_torch.train.checkpoint import CheckpointManager
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    dev = torch.device("cuda")
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    fm = cfg_mv["flow_model"]
+    n_layers = int(fm["transformer"]["num_transformer_layers"])
+    cfg_t = dict(copy.deepcopy(MULTIPART_CONFIG_T), n_event_displays=0, num_epochs=2, remat=True,
+                 fused_prologue=False, num_workers=2, packed=True, pack_s=PACKED_S, pack_rows=PACKED_ROWS)
+    train_ds = multipart_dataset(cfg_mv, 48, 11, max_particles=4, window_lr_cells=2)
+    val_ds = multipart_dataset(cfg_mv, 8, 12, max_particles=4, window_lr_cells=2)
+    layouts = pack_events(train_ds.cell_count_high, S=PACKED_S, rows_per_batch=PACKED_ROWS)
+    run = tempfile.mkdtemp(prefix="srhep_packed_train_")
+    checks, line = {}, {"phase": "packed_train", "run_dir": run, "n_train_events": len(train_ds),
+                        "packed_batches_per_epoch": len(layouts), "S": PACKED_S, "rows": PACKED_ROWS}
+    calls = {"train": 0, "val": 0}
+
+    def count_calls(_module, _inputs):
+        calls["train" if torch.is_grad_enabled() else "val"] += 1
+
+    # ---- the counted window: fit, every count to 0 just before, read just after
+    tr = SRTrainer(cfg_mv, cfg_t, run_dir=run, seed=0, dtype=torch.bfloat16, device="cuda")
+    hook = tr.model.register_forward_pre_hook(count_calls)
+    kernels.reset_launches()
+    t0 = time.time()
+    tr.fit(train_ds, val_ds)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    fit_s = time.time() - t0
+    # ---- end of the counted window
+    hook.remove()
+    expect = {k: 0 for k in kernels.LAUNCHES}
+    expect.update(packed_fwd=2 * n_layers * calls["train"],  # remat: forward + recompute
+                  packed_bwd_dq=n_layers * calls["train"], packed_bwd_dkv=n_layers * calls["train"],
+                  flash_fwd=n_layers * calls["val"])  # validation stays bucketed
+    lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    checks["fit_epochs"] = tr.epoch == 2 and len(lines) == 2 and calls["train"] == 2 * len(layouts)
+    checks["losses_finite"] = all(np.isfinite(x["train/loss"]) and x["train/nonfinite"] == 0.0
+                                  and np.isfinite(x["val/loss_raw"]) for x in lines)
+    checks["launch_counts"] = counts == expect
+    line.update({"fit_s": round(fit_s, 2), "train_steps": tr.global_step, "model_calls": dict(calls),
+                 "launches": counts, "launches_expected": expect,
+                 "epochs": [{k: x[k] for k in ("step", "train/loss", "train/grad_norm", "train/n_batches",
+                                               "train/epoch_s", "val/loss_raw")} for x in lines]})
+
+    final = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    ck = CheckpointManager(f"{run}/checkpoints")
+    restored = ck.restore(which="last", map_location=dev)["params"]
+    tr2 = SRTrainer(cfg_mv, dict(cfg_t, num_epochs=3), run_dir=run, seed=1, dtype=torch.bfloat16, device="cuda")
+    tr2.fit(train_ds, val_ds, resume=True)
+    lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    checks["resume_restored_last_epoch"] = (
+        all(torch.equal(restored[k], final[k]) for k in final) and tr2.epoch == 3 and lines[-1]["step"] == 2
+        and tr2.global_step == len(layouts))
+    del tr, tr2
+
+    # ---- one fp32 step: a packed row against the same events unpacked
+    row = max((r for b in layouts for r in b.rows), key=len)  # the row holding the most events
+    (bp, xp), (bu, xu), row = packed_row_pair(train_ds, row, dev, seed=6)
+    params = params_from_jax(init_params_jax_layout(fm, seed=3), fm)  # Xavier adaLN: attention not gated off
+    trx = SRTrainer(cfg_mv, cfg_t, run_dir=tempfile.mkdtemp(), seed=0, device="cuda", params=params)
+    res = {}
+    for name, b, x0 in (("packed", bp, xp), ("unpacked", bu, xu)):
+        before = dict(kernels.LAUNCHES)
+        t = torch.full((b["target"].shape[0],), 0.37, device=dev)
+        loss, _, g = trx.loss_and_grads(b, t=t, x0=x0)
+        torch.cuda.synchronize()
+        res[name] = ({n: gi for (n, _), gi in zip(trx.model.named_parameters(), g)}, float(loss.detach()),
+                     {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES if kernels.LAUNCHES[k] != before[k]})
+    tol = 1e-3
+    ok, worst, leaf = _grads_agree(res["packed"][0], res["unpacked"][0], tol)
+    lp, lu = res["packed"][1], res["unpacked"][1]
+    checks["packed_vs_unpacked_grads_fp32"] = (
+        ok and abs(lp - lu) <= tol * abs(lu)
+        and res["packed"][2] == {"packed_fwd": 2 * n_layers, "packed_bwd_dq": n_layers, "packed_bwd_dkv": n_layers}
+        and res["unpacked"][2] == {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers})
+    line["grad_check"] = {"events": [n for _, _, n in row], "tol_rel": tol, "worst_rel_err": worst, "leaf": leaf,
+                          "loss": [lp, lu], "launches": {k: v[2] for k, v in res.items()}}
+    del trx
+
+    # ---- train-step time on one packed batch (a reading, not a benchmark)
+    trs = SRTrainer(cfg_mv, dict(cfg_t, lr_scheduler=None), run_dir=tempfile.mkdtemp(), seed=0,
+                    dtype=torch.bfloat16, device="cuda")
+    hb = collate_packed({i: train_ds.get_event(i) for r in layouts[0].rows for i, _, _ in r}, layouts[0], S=PACKED_S)
+    b = batch_to_device(hb, dev, PACKED_BATCH_KEYS)
+    for _ in range(2):
+        trs.train_step(b, lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(max(5, reps // 4)):
+        t1 = time.time()
+        st = trs.train_step(b, lr=1e-3)
+        float(st["loss"])
+        ms.append((time.time() - t1) * 1e3)
+    step = {"B": PACKED_ROWS, "N": PACKED_S, "valid_cells": int(hb["q_mask"].sum()),
+            "events": layouts[0].n_events, "median_ms": statistics.median(ms), "min_ms": min(ms),
+            "max_ms": max(ms), "n": len(ms), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "finite": bool(np.isfinite(float(st["loss"]))),
+            "profile": profile_steps(lambda: trs.train_step(b, lr=1e-3), 3)}
+    del trs, b
+    checks["step_time_finite"] = step["finite"]
+    line["train_step_ms"] = step
+    line["checks"], line["ok"] = checks, all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("packed train checks failed: " + ", ".join(k for k, v in checks.items() if not v))
     return counts
 
 
@@ -719,9 +1266,9 @@ def serve_phase():
     pair_out = [out for label, _, out, _ in results if label.startswith("pair")]
     n_calls = len(results) - (1 if all(o["batched_with"] == 2 for o in pair_out) else 0)
     per_call = n_layers * evals
-    expect = {"flash_fwd": n_layers, "flash_fwd_nomax": per_call * n_calls + n_layers,
-              "flash_bwd_dq": 0, "flash_bwd_dkv": 0,  # serving runs no backward
-              "fused_qkv": per_call * n_calls + n_layers, "fused_mlp": per_call * n_calls + n_layers}
+    expect = dict({k: 0 for k in kernels.LAUNCHES},  # serving runs no backward and no packed kernel
+                  flash_fwd=n_layers, flash_fwd_nomax=per_call * n_calls + n_layers,
+                  fused_qkv=per_call * n_calls + n_layers, fused_mlp=per_call * n_calls + n_layers)
 
     checks = {
         "nomax_validated": bool(srv.inf._nomax_validated),
@@ -802,16 +1349,21 @@ def main():
     if args.ptxas:
         print((kernels.build_dir() / "nvcc_log.txt").read_text(), flush=True)
 
-    cases = kernel_cases(args.reps) + bwd_kernel_cases(args.reps)
+    cases = kernel_cases(args.reps) + bwd_kernel_cases(args.reps) + packed_kernel_cases(args.reps)
     zero = {k: 0 for k in kernels.LAUNCHES}
     by_phase = {"serve": serve_phase() if not args.skip_serve else zero,
-                "train": train_phase(args.reps) if not args.skip_train else zero}
+                "packed_inference": packed_inference_phase() if not args.skip_serve else zero,
+                "train": train_phase(args.reps) if not args.skip_train else zero,
+                "packed_train": packed_train_phase(args.reps) if not args.skip_train else zero}
 
-    # one entry per kernel: the main paths' shape class (bf16, L=2048, per-batch rows);
-    # launches: the serve phase's counted window plus the train phase's
+    # one entry per kernel: the main paths' shape class (bf16; L=2048 with
+    # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9);
+    # launches: the counted windows of the four path phases
     entries = []
-    for name in ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp", "flash_bwd_dq", "flash_bwd_dkv"):
-        c = next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["L"] == 2048)
+    for name in ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp", "flash_bwd_dq", "flash_bwd_dkv",
+                 "packed_fwd", "packed_fwd_nomax", "packed_bwd_dq", "packed_bwd_dkv"):
+        L = PACKED_S if name.startswith("packed") else 2048
+        c = next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["L"] == L and "ms" in c)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": sum(counts[name] for counts in by_phase.values()),

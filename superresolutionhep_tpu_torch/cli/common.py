@@ -1,6 +1,7 @@
-"""Shared CLI plumbing: the JAX package's argument surface (``-cmv``,
-``-ct``, ``--precision``, ``--device``, ``--run_dir``, ``--resume``,
-``--profile``) mapped onto PyTorch."""
+"""Shared CLI plumbing: the JAX package's argument surface (training:
+``-cmv``, ``-ct``, ``--run_dir``, ``--resume``, ``--profile``; inference:
+``-i``, ``-bm``, ``-estart``, ``-estop``; both: ``--precision``,
+``--device``) mapped onto PyTorch."""
 
 from __future__ import annotations
 
@@ -10,18 +11,32 @@ import os
 import torch
 
 
+def _add_runtime_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--precision", "-p", type=str, default="default", choices=["default", "highest", "bfloat16"],
+                        help="bfloat16: bf16 compute; default/highest: fp32 (TF32 off)")
+    parser.add_argument("--device", "-g", type=str, default="cuda",
+                        help="torch device; 'cuda' (default) raises where there is no GPU, 'cpu' runs on the CPU")
+
+
 def add_train_args(parser: argparse.ArgumentParser):
     parser.add_argument("--config_mv", "-cmv", type=str, required=True)
     parser.add_argument("--config_t", "-ct", type=str, required=True)
-    parser.add_argument("--precision", "-p", type=str, default="default", choices=["default", "highest", "bfloat16"],
-                        help="bfloat16: bf16 compute with fp32 parameters; default/highest: fp32 (TF32 off)")
-    parser.add_argument("--device", "-g", type=str, default="cuda",
-                        help="torch device; 'cuda' (default) raises where there is no GPU, 'cpu' runs on the CPU")
+    _add_runtime_args(parser)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--run_dir", type=str, default=None)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--profile", action="store_true",
                         help="trace the first trained epoch with torch.profiler into <run_dir>/profile")
+    return parser
+
+
+def add_inference_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--inference_path", "-i", type=str, required=True)
+    parser.add_argument("--batch_mode", "-bm", action="store_true",
+                        help="one entry range (-estart, -estop), output suffixed _{start}_{stop}")
+    parser.add_argument("--entry_start", "-estart", type=int, default=0)
+    parser.add_argument("--entry_stop", "-estop", type=int, default=None)
+    _add_runtime_args(parser)
     return parser
 
 

@@ -34,6 +34,74 @@ struct Strides {
   long long b, l, h;
 };
 
+// ---- which keys a query attends: the attention kernels' two mask modes
+// (template flag SEG), read through ids so that one code path serves both:
+//  * padding masks (SEG = false; K1, K2, K5, K6): float 0/1 per query and per
+//    key; every query has id 0, a valid key id 0 and a padded key kNoKey, so a
+//    query attends every valid key;
+//  * segment ids (SEG = true; K7, K8, K9): int32 per cell, PAD_SEG = -1 on
+//    padding; a query attends the keys of its own segment, and padding cells
+//    match each other, as in the TPU kernel's mask (segment equality alone).
+// A key with id >= 0 is live; a cell past the end of the row gets kNoKey.
+constexpr int kPadSeg = -1;
+constexpr int kNoKey = -2;
+
+template <bool SEG> __device__ __forceinline__ int key_id(const void* kmask, size_t i) {
+  if (SEG) return static_cast<const int*>(kmask)[i];
+  return static_cast<const float*>(kmask)[i] > 0.f ? 0 : kNoKey;
+}
+template <bool SEG> __device__ __forceinline__ int query_id(const void* qmask, size_t i) {
+  return SEG ? static_cast<const int*>(qmask)[i] : 0;
+}
+template <bool SEG> __device__ __forceinline__ bool query_valid(const void* qmask, size_t i) {
+  return SEG ? static_cast<const int*>(qmask)[i] >= 0 : static_cast<const float*>(qmask)[i] > 0.f;
+}
+
+// The band of a segment-packed block: the first and last BT-wide tile of the
+// other axis (keys for a block of queries, queries for a block of keys) that
+// holds a cell of any segment present among the block's valid rows.  Valid
+// ids are nondecreasing along the row (the packer's contract), so every cell
+// of those segments lies inside it; all-pad tiles inside are masked, not
+// skipped.  Each thread passes its rows' (id, valid) pairs (up to two); one
+// coalesced pass over the row's L ids.  Returns (first, last), last < first
+// when the block has no valid row.  Block-uniform; every thread must call it.
+template <int BT>
+__device__ __forceinline__ int2 segment_band(const int* __restrict__ seg_row, int L, int id0, bool v0, int id1,
+                                             bool v1) {
+  __shared__ int sh[4];  // smallest and largest id of the block, first and last cell of the band
+  if (threadIdx.x == 0) {
+    sh[0] = 0x7fffffff;
+    sh[1] = -1;
+    sh[2] = 0x7fffffff;
+    sh[3] = -1;
+  }
+  __syncthreads();
+  if (v0) {
+    atomicMin(&sh[0], id0);
+    atomicMax(&sh[1], id0);
+  }
+  if (v1) {
+    atomicMin(&sh[0], id1);
+    atomicMax(&sh[1], id1);
+  }
+  __syncthreads();
+  const int smin = sh[0], smax = sh[1];
+  int first = 0x7fffffff, last = -1;
+  for (int p = threadIdx.x; p < L; p += kThreads) {
+    const int s = seg_row[p];
+    if (s >= smin && s <= smax) {
+      first = min(first, p);
+      last = max(last, p);
+    }
+  }
+  if (last >= 0) {
+    atomicMin(&sh[2], first);
+    atomicMax(&sh[3], last);
+  }
+  __syncthreads();
+  return sh[3] < 0 ? make_int2(0, -1) : make_int2(sh[2] / BT, sh[3] / BT);
+}
+
 // 16 bytes of padding per shared-memory row: consecutive rows then start 16
 // bytes apart modulo 128, so the 8 row reads of an ldmatrix hit distinct banks.
 template <typename T> struct Pad { static constexpr int value = 16 / (int)sizeof(T); };

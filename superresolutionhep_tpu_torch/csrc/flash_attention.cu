@@ -1,10 +1,14 @@
-// Padding-masked flash attention forward for Hopper (sm_90a): the robust
-// running-max kernel and the inference-only no-max kernel from one source
-// (template flag NOMAX).
+// Flash attention forward for Hopper (sm_90a): the robust running-max kernel
+// and the inference-only no-max kernel (template flag NOMAX), each for
+// padding masks and for segment-packed rows (template flag SEG, see
+// common.cuh), from one source.
 //
 // Replaces the TPU kernels superresolutionhep_tpu/ops/flash_attention.py::
 // _fwd_kernel (through _flash_fwd) and ::_fwd_kernel_nomax (through
-// _flash_fwd_nomax).  What they compute is kept:
+// _flash_fwd_nomax) with SEG = false (K1, K2), and superresolutionhep_tpu/
+// ops/flash_packed.py::_packed_fwd_kernel (through _packed_fwd, both of its
+// softmax variants, with and without LSE) with SEG = true (K7).  What they
+// compute is kept:
 //   * logits are base 2: Q arrives pre-scaled by scale*log2(e);
 //   * robust: padded keys get an additive -1e30 bias, online softmax with a
 //     running max, p = exp2(s - m);   no-max: p = exp2(clip(s, -126, 80)) * km;
@@ -12,7 +16,10 @@
 //     PV product, accumulation is fp32, out = acc / max(l, 1e-30);
 //   * key tiles without a valid key are skipped, query tiles without a valid
 //     query write zeros, padded query rows are zeroed;
-//   * robust can emit the base-2 log-sum-exp m + log2(max(l, 1e-30)).
+//   * robust can emit the base-2 log-sum-exp m + log2(max(l, 1e-30));
+//   * packed (SEG): the pair mask is segment equality (padding cells match
+//     each other, their rows are zeroed on output), and only the band of key
+//     tiles that can hold a key of the query tile's segments is visited.
 //
 // What is not carried over: the TPU grid's sequential key axis with a carry
 // in scratch memory becomes a loop inside the block (one block per batch row,
@@ -20,7 +27,11 @@
 // the transposed (B, H, D, L) layout, which existed to fill a 128-lane matrix
 // unit, becomes (B, L, H, D) views with D contiguous and free strides for B, L
 // and H, so K/V tiles arrive with coalesced 16-byte loads straight out of the
-// fused projection's (B, L, 3F) buffer.
+// fused projection's (B, L, 3F) buffer.  The packed kernel's band, which the
+// TPU computed outside the kernel at 512-wide blocks and fed by scalar
+// prefetch, is found by each block itself at its 64-query tile
+// (common.cuh::segment_band): tighter, and exact, so no segment-length cap
+// can cut a segment short.
 //
 // What bounds it on the card: operations.  4*L*L*D flops per (b, h) against
 // 4*L*D elements moved: at L = 2048, D = 64 that is ~1000 flop/byte in bf16,
@@ -33,7 +44,10 @@
 // 8-wide tiles.  wgmma, TMA and a multi-stage pipeline are left to a later
 // pass.  The fp32 build (one thread per query row, FMA loops) exists to hold
 // the arithmetic tightly against the plain PyTorch version; it uses no tensor
-// cores.
+// cores.  Packed rows are bound the same way: 4*D flops per same-segment
+// (query, key) pair, sum over events of len^2, against one read of q, k, v
+// and one write of out; the band costs one extra pass over the row's int32
+// segment ids per block (20 KB at S = 5120, from L2).
 #include "common.cuh"
 
 namespace srhep {
@@ -46,10 +60,10 @@ constexpr float kClipHi = 80.0f;
 // tiles of 64.  lane = 4*g + t: the thread holds rows g and g+8 of its warp's
 // 16, columns 2t, 2t+1 of every 8-wide fragment.
 // ---------------------------------------------------------------------------
-template <int D, bool NOMAX>
+template <int D, bool NOMAX, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      const float* __restrict__ qm, const float* __restrict__ km, bf16* __restrict__ out,
+                      const void* __restrict__ qmask, const void* __restrict__ kmask, bf16* __restrict__ out,
                       float* __restrict__ lse, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs) {
   constexpr int BQ = 64, BK = 64;
   constexpr int LDK = D + 8;    // row stride of Ks and Vs (elements)
@@ -57,15 +71,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   constexpr int DT = D / 8;       // 8-wide output fragments over D
   __shared__ __align__(16) bf16 Ks[BK * LDK];  // [key][d]
   __shared__ __align__(16) bf16 Vs[BK * LDK];  // [key][d]
-  __shared__ float kms[BK];
+  __shared__ int kid[BK];                      // key ids of the staged tile (common.cuh)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
 
-  const float qm0 = r0 < Lq ? qm[(size_t)b * Lq + r0] : 0.f;
-  const float qm1 = r1 < Lq ? qm[(size_t)b * Lq + r1] : 0.f;
-  const int tile_has_query = __syncthreads_or(qm0 > 0.f || qm1 > 0.f);
+  const bool val0 = r0 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r0);
+  const bool val1 = r1 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r1);
+  const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
+  const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
+  const int tile_has_query = __syncthreads_or(val0 || val1);
 
   bf16* o0p = out + (((size_t)b * Lq + r0) * H + h) * D;
   bf16* o1p = out + (((size_t)b * Lq + r1) * H + h) * D;
@@ -104,16 +120,18 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0, r1 (robust only)
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
-  const int n_tiles = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  // key tiles to visit: all of them, or the packed row's band
+  const int2 band = SEG ? segment_band<BK>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, qid0, val0, qid1, val1)
+                        : make_int2(0, (Lk + BK - 1) / BK - 1);
+  for (int kt = band.x; kt <= band.y; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // previous tile consumed
-    float my_km = 0.f;
+    int my_kid = kNoKey;
     if (tid < BK) {
-      my_km = (k0 + tid) < Lk ? km[(size_t)b * Lk + k0 + tid] : 0.f;
-      kms[tid] = my_km;
+      my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
+      kid[tid] = my_kid;
     }
-    if (!__syncthreads_or(my_km > 0.f)) continue;  // no valid key in this tile
+    if (!__syncthreads_or(my_kid >= 0)) continue;  // no live key in this tile
 
     // stage K and V, both [key][d], with 16-byte loads
     constexpr int CPR = D / 8;
@@ -150,11 +168,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
     if (NOMAX) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        const float ka = kms[8 * j + 2 * t], kb = kms[8 * j + 2 * t + 1];
-        s[j][0] = exp2f(fminf(fmaxf(s[j][0], kClipLo), kClipHi)) * ka;
-        s[j][1] = exp2f(fminf(fmaxf(s[j][1], kClipLo), kClipHi)) * kb;
-        s[j][2] = exp2f(fminf(fmaxf(s[j][2], kClipLo), kClipHi)) * ka;
-        s[j][3] = exp2f(fminf(fmaxf(s[j][3], kClipLo), kClipHi)) * kb;
+        const int ia = kid[8 * j + 2 * t], ib = kid[8 * j + 2 * t + 1];
+        s[j][0] = exp2f(fminf(fmaxf(s[j][0], kClipLo), kClipHi)) * (ia == qid0 ? 1.f : 0.f);
+        s[j][1] = exp2f(fminf(fmaxf(s[j][1], kClipLo), kClipHi)) * (ib == qid0 ? 1.f : 0.f);
+        s[j][2] = exp2f(fminf(fmaxf(s[j][2], kClipLo), kClipHi)) * (ia == qid1 ? 1.f : 0.f);
+        s[j][3] = exp2f(fminf(fmaxf(s[j][3], kClipLo), kClipHi)) * (ib == qid1 ? 1.f : 0.f);
         ps0 += s[j][0] + s[j][1];
         ps1 += s[j][2] + s[j][3];
       }
@@ -164,11 +182,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        const float ba = (kms[8 * j + 2 * t] - 1.0f) * kBig, bb = (kms[8 * j + 2 * t + 1] - 1.0f) * kBig;
-        s[j][0] += ba;
-        s[j][1] += bb;
-        s[j][2] += ba;
-        s[j][3] += bb;
+        // additive bias of a masked pair: (eq - 1) * 1e30, as the TPU kernels
+        const int ia = kid[8 * j + 2 * t], ib = kid[8 * j + 2 * t + 1];
+        s[j][0] += ia == qid0 ? 0.f : -kBig;
+        s[j][1] += ib == qid0 ? 0.f : -kBig;
+        s[j][2] += ia == qid1 ? 0.f : -kBig;
+        s[j][3] += ib == qid1 ? 0.f : -kBig;
         mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
         mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
       }
@@ -225,7 +244,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const float f0 = qm0 > 0.f ? 1.f : 0.f, f1 = qm1 > 0.f ? 1.f : 0.f;
+  const float f0 = val0 ? 1.f : 0.f, f1 = val1 ? 1.f : 0.f;
 #pragma unroll
   for (int jd = 0; jd < DT; ++jd) {
     if (r0 < Lq)
@@ -245,21 +264,22 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
 // fp32: one thread per query row, 128 rows per block, key tiles of 32 through
 // shared memory (every thread reads the same K/V element: a broadcast).
 // ---------------------------------------------------------------------------
-template <int D, bool NOMAX>
+template <int D, bool NOMAX, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ qm, const float* __restrict__ km, float* __restrict__ out,
+                     const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ out,
                      float* __restrict__ lse, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs) {
   constexpr int BQ = kThreads, BK = 32;
   __shared__ __align__(16) float Ks[BK * D];
   __shared__ __align__(16) float Vs[BK * D];
-  __shared__ float kms[BK];
+  __shared__ int kid[BK];
 
   const int tid = threadIdx.x;
   const int row = blockIdx.x * BQ + tid, h = blockIdx.y, b = blockIdx.z;
   const bool in_range = row < Lq;
-  const float my_qm = in_range ? qm[(size_t)b * Lq + row] : 0.f;
-  const int tile_has_query = __syncthreads_or(my_qm > 0.f);
+  const bool my_valid = in_range && query_valid<SEG>(qmask, (size_t)b * Lq + row);
+  const int my_qid = in_range ? query_id<SEG>(qmask, (size_t)b * Lq + row) : kPadSeg;
+  const int tile_has_query = __syncthreads_or(my_valid);
   float* op = out + (((size_t)b * Lq + row) * H + h) * D;
 
   if (!tile_has_query) {
@@ -287,16 +307,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  const int n_tiles = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  const int2 band = SEG ? segment_band<BK>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, my_qid, my_valid, 0, false)
+                        : make_int2(0, (Lk + BK - 1) / BK - 1);
+  for (int kt = band.x; kt <= band.y; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    float my_km = 0.f;
+    int my_kid = kNoKey;
     if (tid < BK) {
-      my_km = (k0 + tid) < Lk ? km[(size_t)b * Lk + k0 + tid] : 0.f;
-      kms[tid] = my_km;
+      my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
+      kid[tid] = my_kid;
     }
-    if (!__syncthreads_or(my_km > 0.f)) continue;
+    if (!__syncthreads_or(my_kid >= 0)) continue;
 
     constexpr int CPR = D / 4;
     for (int c = tid; c < BK * CPR; c += kThreads) {
@@ -330,7 +351,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
     if (NOMAX) {
 #pragma unroll
       for (int j = 0; j < BK; ++j) {
-        s[j] = exp2f(fminf(fmaxf(s[j], kClipLo), kClipHi)) * kms[j];
+        s[j] = exp2f(fminf(fmaxf(s[j], kClipLo), kClipHi)) * (kid[j] == my_qid ? 1.f : 0.f);
         psum += s[j];
       }
       l += psum;
@@ -338,7 +359,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < BK; ++j) {
-        s[j] += (kms[j] - 1.0f) * kBig;
+        s[j] += kid[j] == my_qid ? 0.f : -kBig;
         mx = fmaxf(mx, s[j]);
       }
       const float mn = fmaxf(m, mx);
@@ -370,7 +391,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 
   if (in_range) {
     const float den = fmaxf(l, 1e-30f);
-    const float f = my_qm > 0.f ? 1.f : 0.f;
+    const float f = my_valid ? 1.f : 0.f;
 #pragma unroll
     for (int d = 0; d < D; d += 4)
       *reinterpret_cast<float4*>(op + d) =
@@ -379,22 +400,20 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   }
 }
 
-template <int D, bool NOMAX>
-static int launch_flash(const void* q, const void* k, const void* v, const void* qm, const void* km, void* out,
-                        void* lse, int B, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, int is_bf16,
-                        cudaStream_t stream) {
+template <int D, bool NOMAX, bool SEG>
+static int launch_flash(const void* q, const void* k, const void* v, const void* qmask, const void* kmask,
+                        void* out, void* lse, int B, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
+                        int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     dim3 grid((Lq + 63) / 64, H, B);
-    flash_fwd_bf16_kernel<D, NOMAX><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(qm), static_cast<const float*>(km), static_cast<bf16*>(out),
-        static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
+    flash_fwd_bf16_kernel<D, NOMAX, SEG><<<grid, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), qmask, kmask,
+        static_cast<bf16*>(out), static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
   } else {
     dim3 grid((Lq + kThreads - 1) / kThreads, H, B);
-    flash_fwd_f32_kernel<D, NOMAX><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(qm), static_cast<const float*>(km), static_cast<float*>(out),
-        static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
+    flash_fwd_f32_kernel<D, NOMAX, SEG><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qmask, kmask,
+        static_cast<float*>(out), static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
   }
   return (int)cudaGetLastError();
 }
@@ -416,8 +435,8 @@ extern "C" int srhep_flash_fwd(const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SRHEP_FLASH_CASE(DD)                                                                               \
   case DD:                                                                                                 \
-    return nomax ? launch_flash<DD, true>(q, k, v, qm, km, out, lse, B, H, Lq, Lk, qs, ks, vs, is_bf16, s) \
-                 : launch_flash<DD, false>(q, k, v, qm, km, out, lse, B, H, Lq, Lk, qs, ks, vs, is_bf16, s);
+    return nomax ? launch_flash<DD, true, false>(q, k, v, qm, km, out, lse, B, H, Lq, Lk, qs, ks, vs, is_bf16, s) \
+                 : launch_flash<DD, false, false>(q, k, v, qm, km, out, lse, B, H, Lq, Lk, qs, ks, vs, is_bf16, s);
   switch (D) {
     SRHEP_FLASH_CASE(16)
     SRHEP_FLASH_CASE(32)
@@ -426,4 +445,32 @@ extern "C" int srhep_flash_fwd(const void* q, const void* k, const void* v, cons
       return (int)cudaErrorInvalidValue;
   }
 #undef SRHEP_FLASH_CASE
+}
+
+// Segment-packed rows (K7): q, k, v (B, S, H, D) as strided views with D
+// contiguous (strides in elements, 16-byte aligned); seg (B, S) int32, -1 on
+// padding, valid ids nondecreasing along each row; out (B, S, H, D)
+// contiguous, zero on padding; lse (B, H, S) fp32 or null (robust only).
+// D in {16, 32, 64}.  Returns cudaGetLastError().
+extern "C" int srhep_packed_fwd(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
+                                int B, int H, int S, int D, long long qsb, long long qsl, long long qsh,
+                                long long ksb, long long ksl, long long ksh, long long vsb, long long vsl,
+                                long long vsh, int is_bf16, int nomax, void* stream) {
+  using namespace srhep;
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (nomax && lse != nullptr) return (int)cudaErrorInvalidValue;
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SRHEP_PACKED_CASE(DD)                                                                                \
+  case DD:                                                                                                   \
+    return nomax ? launch_flash<DD, true, true>(q, k, v, seg, seg, out, lse, B, H, S, S, qs, ks, vs, is_bf16, st) \
+                 : launch_flash<DD, false, true>(q, k, v, seg, seg, out, lse, B, H, S, S, qs, ks, vs, is_bf16, st);
+  switch (D) {
+    SRHEP_PACKED_CASE(16)
+    SRHEP_PACKED_CASE(32)
+    SRHEP_PACKED_CASE(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SRHEP_PACKED_CASE
 }

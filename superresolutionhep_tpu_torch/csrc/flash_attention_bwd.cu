@@ -1,9 +1,12 @@
-// Padding-masked flash attention backward for Hopper (sm_90a): dq (K5) and
-// dk, dv (K6), recomputing the probabilities from the forward's base-2
-// log-sum-exp.
+// Flash attention backward for Hopper (sm_90a): dq and dk, dv, recomputing
+// the probabilities from the forward's base-2 log-sum-exp, for padding masks
+// (K5, K6) and for segment-packed rows (K8, K9; template flag SEG, see
+// common.cuh).
 //
 // Replaces the TPU kernels superresolutionhep_tpu/ops/flash_attention.py::
-// _bwd_dq_kernel and ::_bwd_dkv_kernel (through _flash_bwd).  What they
+// _bwd_dq_kernel and ::_bwd_dkv_kernel (through _flash_bwd) with SEG = false,
+// and superresolutionhep_tpu/ops/flash_packed.py::_packed_bwd_dq_kernel and
+// ::_packed_bwd_dkv_kernel (through _packed_bwd) with SEG = true.  What they
 // compute is kept:
 //   * logits are base 2 (Q arrives pre-scaled by scale*log2(e)); padded keys
 //     get the additive -1e30 bias;
@@ -17,7 +20,12 @@
 //   * a (query tile, key tile) pair without a valid key or without a valid
 //     query is skipped (the JAX package's block_live);
 //   * the cotangent arrives zeroed on padded queries, and the ln(2) of the
-//     base-2 parametrisation is applied by the caller.
+//     base-2 parametrisation is applied by the caller;
+//   * packed (SEG): the masked pairs are those of different segments (padding
+//     cells match each other; their zero cotangent keeps dq, dk, dv at padding
+//     exactly 0), and only the band of tiles that can hold a cell of the
+//     block's segments is visited: key tiles for dq, query tiles for dk/dv
+//     (the TPU's band_ranges with the roles swapped).
 //
 // What is not carried over: the TPU's sequential innermost grid axis with a
 // carry in scratch memory becomes a loop inside the block (dq: one block per
@@ -26,7 +34,10 @@
 // every output element is written by the one block that owns it, so the
 // result is deterministic.  The transposed (B, H, D, L) layout becomes
 // (B, L, H, D) views with D contiguous, as in the forward kernel, so the
-// unfused path's q/k/v projections arrive without a copy.
+// unfused path's q/k/v projections arrive without a copy.  The packed band is
+// found by each block at its own 64-row tile (common.cuh::segment_band), not
+// fed in at 512-wide blocks as on the TPU: exact, so no segment-length cap
+// can cut a segment short.
 //
 // What bounds it on the card: operations (dq: 3 products of 2*D flops per
 // live (query, key) pair; dk/dv: 4 products), ~1000 flop per byte moved at
@@ -40,7 +51,9 @@
 // fragments of S = A B^T and a transposing one those of acc += P B.
 // wgmma, TMA and a multi-stage pipeline are left to a later pass.  The fp32
 // build (FMA loops, two threads per row, no tensor cores) exists to hold the
-// arithmetic tightly against the plain PyTorch version.
+// arithmetic tightly against the plain PyTorch version.  Packed rows: 6*D
+// (dq) and 8*D (dk, dv) flops per same-segment pair, sum over events of len^2;
+// bound by operations in the same way.
 #include "common.cuh"
 
 namespace srhep {
@@ -150,24 +163,26 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (
 // lane = 4*g + t: the thread holds rows g and g+8 of its warp's 16, columns
 // 2t, 2t+1 of every 8-wide fragment.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                         const float* __restrict__ qm, const float* __restrict__ km, bf16* __restrict__ dq, int H,
-                         int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
+                         const void* __restrict__ qmask, const void* __restrict__ kmask, bf16* __restrict__ dq,
+                         int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
   using namespace bwd;
   constexpr int LDS = D + 8;
   __shared__ __align__(16) bf16 Ks[BT * LDS];
   __shared__ __align__(16) bf16 Vs[BT * LDS];
-  __shared__ float kms[BT];
+  __shared__ int kid[BT];  // key ids of the staged tile (common.cuh)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gi = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
   const int r0 = q0 + 16 * warp + gi, r1 = r0 + 8;
-  const float qm0 = r0 < Lq ? qm[(size_t)b * Lq + r0] : 0.f;
-  const float qm1 = r1 < Lq ? qm[(size_t)b * Lq + r1] : 0.f;
-  const int live_q = __syncthreads_or(qm0 > 0.f || qm1 > 0.f);
+  const bool val0 = r0 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r0);
+  const bool val1 = r1 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r1);
+  const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
+  const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
+  const int live_q = __syncthreads_or(val0 || val1);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -181,16 +196,18 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lse0 = r0 < Lq ? lse[rb + r0] : 0.f, lse1 = r1 < Lq ? lse[rb + r1] : 0.f;
     const float dl0 = r0 < Lq ? dl[rb + r0] : 0.f, dl1 = r1 < Lq ? dl[rb + r1] : 0.f;
 
-    const int n_tiles = (Lk + BT - 1) / BT;
-    for (int kt = 0; kt < n_tiles; ++kt) {
+    const int2 band = SEG ? segment_band<BT>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, qid0, val0, qid1,
+                                             val1)
+                          : make_int2(0, (Lk + BT - 1) / BT - 1);
+    for (int kt = band.x; kt <= band.y; ++kt) {
       const int k0 = kt * BT;
       __syncthreads();  // previous tile consumed
-      float my_km = 0.f;
+      int my_kid = kNoKey;
       if (tid < BT) {
-        my_km = (k0 + tid) < Lk ? km[(size_t)b * Lk + k0 + tid] : 0.f;
-        kms[tid] = my_km;
+        my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
+        kid[tid] = my_kid;
       }
-      if (!__syncthreads_or(my_km > 0.f)) continue;  // no valid key in this tile
+      if (!__syncthreads_or(my_kid >= 0)) continue;  // no live key in this tile
       stage_rows<D>(Ks, k, ks, b, h, k0, Lk);
       stage_rows<D>(Vs, v, vs, b, h, k0, Lk);
       __syncthreads();
@@ -200,12 +217,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       rows_times_tile_t<D>(dp, ga, Vs, lane);  // dP = G V^T
 #pragma unroll
       for (int j = 0; j < BT / 8; ++j) {
-        const float ba = (kms[8 * j + 2 * t] - 1.0f) * kBig, bb = (kms[8 * j + 2 * t + 1] - 1.0f) * kBig;
-        // s becomes dS = P * (dP - dl)
-        s[j][0] = exp2f(fminf((s[j][0] + ba) - lse0, 0.f)) * (dp[j][0] - dl0);
-        s[j][1] = exp2f(fminf((s[j][1] + bb) - lse0, 0.f)) * (dp[j][1] - dl0);
-        s[j][2] = exp2f(fminf((s[j][2] + ba) - lse1, 0.f)) * (dp[j][2] - dl1);
-        s[j][3] = exp2f(fminf((s[j][3] + bb) - lse1, 0.f)) * (dp[j][3] - dl1);
+        const int ia = kid[8 * j + 2 * t], ib = kid[8 * j + 2 * t + 1];
+        // s becomes dS = P * (dP - dl); masked pairs carry the -1e30 bias
+        s[j][0] = exp2f(fminf((s[j][0] + (ia == qid0 ? 0.f : -kBig)) - lse0, 0.f)) * (dp[j][0] - dl0);
+        s[j][1] = exp2f(fminf((s[j][1] + (ib == qid0 ? 0.f : -kBig)) - lse0, 0.f)) * (dp[j][1] - dl0);
+        s[j][2] = exp2f(fminf((s[j][2] + (ia == qid1 ? 0.f : -kBig)) - lse1, 0.f)) * (dp[j][2] - dl1);
+        s[j][3] = exp2f(fminf((s[j][3] + (ib == qid1 ? 0.f : -kBig)) - lse1, 0.f)) * (dp[j][3] - dl1);
       }
       acc_p_times_tile<D>(acc, s, Ks, lane);  // dQ += dS K
     }
@@ -218,11 +235,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // the products run transposed (S^T = K Q^T, dP^T = V G^T), so the key rows are
 // the A operand held in registers and both outputs accumulate per warp.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                           const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                          const float* __restrict__ qm, const float* __restrict__ km, bf16* __restrict__ dk,
+                          const void* __restrict__ qmask, const void* __restrict__ kmask, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
                           Strides gs) {
   using namespace bwd;
@@ -230,13 +247,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   __shared__ __align__(16) bf16 Qs[BT * LDS];
   __shared__ __align__(16) bf16 Gs[BT * LDS];
   __shared__ float lses[BT], dls[BT];
+  __shared__ int qids[BT];  // query ids of the staged tile
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gi = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
   const int r0 = k0 + 16 * warp + gi, r1 = r0 + 8;
-  const float km0 = r0 < Lk ? km[(size_t)b * Lk + r0] : 0.f;
-  const float km1 = r1 < Lk ? km[(size_t)b * Lk + r1] : 0.f;
-  const int live_k = __syncthreads_or(km0 > 0.f || km1 > 0.f);
+  const int kid0 = r0 < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + r0) : kNoKey;
+  const int kid1 = r1 < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + r1) : kNoKey;
+  const int live_k = __syncthreads_or(kid0 >= 0 || kid1 >= 0);
 
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -249,21 +267,23 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     uint32_t ka[D / 16][4], va[D / 16][4];
     load_a_rows<D>(ka, k, ks, b, h, r0, r1, Lk, t);
     load_a_rows<D>(va, v, vs, b, h, r0, r1, Lk, t);
-    const float bias0 = (km0 - 1.0f) * kBig, bias1 = (km1 - 1.0f) * kBig;
     const size_t rb = ((size_t)b * H + h) * Lq;
 
-    const int n_tiles = (Lq + BT - 1) / BT;
-    for (int qt = 0; qt < n_tiles; ++qt) {
+    const int2 band = SEG ? segment_band<BT>(static_cast<const int*>(qmask) + (size_t)b * Lq, Lq, kid0, kid0 >= 0,
+                                             kid1, kid1 >= 0)
+                          : make_int2(0, (Lq + BT - 1) / BT - 1);
+    for (int qt = band.x; qt <= band.y; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();  // previous tile consumed
-      float my_qm = 0.f;
+      bool my_valid = false;
       if (tid < BT) {
         const int r = q0 + tid;
-        my_qm = r < Lq ? qm[(size_t)b * Lq + r] : 0.f;
+        my_valid = r < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r);
+        qids[tid] = r < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r) : kPadSeg;
         lses[tid] = r < Lq ? lse[rb + r] : 0.f;
         dls[tid] = r < Lq ? dl[rb + r] : 0.f;
       }
-      if (!__syncthreads_or(my_qm > 0.f)) continue;  // no valid query in this tile
+      if (!__syncthreads_or(my_valid)) continue;  // no valid query in this tile
       stage_rows<D>(Qs, q, qs, b, h, q0, Lq);
       stage_rows<D>(Gs, g, gs, b, h, q0, Lq);
       __syncthreads();
@@ -275,11 +295,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int j = 0; j < BT / 8; ++j) {
         const int c = 8 * j + 2 * t;
         const float la = lses[c], lb = lses[c + 1], da = dls[c], db = dls[c + 1];
-        // s becomes P^T, dp becomes dS^T = P^T * (dP^T - dl)
-        s[j][0] = exp2f(fminf((s[j][0] + bias0) - la, 0.f));
-        s[j][1] = exp2f(fminf((s[j][1] + bias0) - lb, 0.f));
-        s[j][2] = exp2f(fminf((s[j][2] + bias1) - la, 0.f));
-        s[j][3] = exp2f(fminf((s[j][3] + bias1) - lb, 0.f));
+        const int ia = qids[c], ib = qids[c + 1];
+        // s becomes P^T, dp becomes dS^T = P^T * (dP^T - dl); masked pairs carry the -1e30 bias
+        s[j][0] = exp2f(fminf((s[j][0] + (ia == kid0 ? 0.f : -kBig)) - la, 0.f));
+        s[j][1] = exp2f(fminf((s[j][1] + (ib == kid0 ? 0.f : -kBig)) - lb, 0.f));
+        s[j][2] = exp2f(fminf((s[j][2] + (ia == kid1 ? 0.f : -kBig)) - la, 0.f));
+        s[j][3] = exp2f(fminf((s[j][3] + (ib == kid1 ? 0.f : -kBig)) - lb, 0.f));
         dp[j][0] = s[j][0] * (dp[j][0] - da);
         dp[j][1] = s[j][1] * (dp[j][1] - db);
         dp[j][2] = s[j][2] * (dp[j][2] - da);
@@ -369,23 +390,24 @@ __device__ __forceinline__ void store_half_row(float* __restrict__ out, const fl
 
 }  // namespace bwd
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                         const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                        const float* __restrict__ qm, const float* __restrict__ km, float* __restrict__ dq, int H,
-                        int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
+                        const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ dq,
+                        int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
   using namespace bwd;
   constexpr int HD = D / 2;
   __shared__ __align__(16) float Ks[BT32 * D];
   __shared__ __align__(16) float Vs[BT32 * D];
-  __shared__ float kms[BT32];
+  __shared__ int kid[BT32];
 
   const int tid = threadIdx.x, half = tid & 1;
   const int row = blockIdx.x * BR + (tid >> 1), h = blockIdx.y, b = blockIdx.z;
   const bool in_range = row < Lq;
-  const float my_qm = in_range ? qm[(size_t)b * Lq + row] : 0.f;
-  const int live_q = __syncthreads_or(my_qm > 0.f);
+  const bool my_valid = in_range && query_valid<SEG>(qmask, (size_t)b * Lq + row);
+  const int my_qid = in_range ? query_id<SEG>(qmask, (size_t)b * Lq + row) : kPadSeg;
+  const int live_q = __syncthreads_or(my_valid);
 
   float acc[HD];
 #pragma unroll
@@ -398,16 +420,18 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const size_t rb = ((size_t)b * H + h) * Lq;
     const float lse_r = in_range ? lse[rb + row] : 0.f, dl_r = in_range ? dl[rb + row] : 0.f;
 
-    const int n_tiles = (Lk + BT32 - 1) / BT32;
-    for (int kt = 0; kt < n_tiles; ++kt) {
+    const int2 band = SEG ? segment_band<BT32>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, my_qid, my_valid,
+                                               0, false)
+                          : make_int2(0, (Lk + BT32 - 1) / BT32 - 1);
+    for (int kt = band.x; kt <= band.y; ++kt) {
       const int k0 = kt * BT32;
       __syncthreads();
-      float my_km = 0.f;
+      int my_kid = kNoKey;
       if (tid < BT32) {
-        my_km = (k0 + tid) < Lk ? km[(size_t)b * Lk + k0 + tid] : 0.f;
-        kms[tid] = my_km;
+        my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
+        kid[tid] = my_kid;
       }
-      if (!__syncthreads_or(my_km > 0.f)) continue;
+      if (!__syncthreads_or(my_kid >= 0)) continue;
       stage_rows_f32<D>(Ks, k, ks, b, h, k0, Lk);
       stage_rows_f32<D>(Vs, v, vs, b, h, k0, Lk);
       __syncthreads();
@@ -416,7 +440,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
         const float* kj = &Ks[j * D + half * HD];
         const float s = dot_pair<D>(qr, kj);
         const float dp = dot_pair<D>(gr, &Vs[j * D + half * HD]);
-        const float p = exp2f(fminf((s + (kms[j] - 1.0f) * kBig) - lse_r, 0.f));
+        const float p = exp2f(fminf((s + (kid[j] == my_qid ? 0.f : -kBig)) - lse_r, 0.f));
         axpy_half<D>(acc, p * (dp - dl_r), kj);
       }
     }
@@ -424,11 +448,11 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   store_half_row<D>(dq, acc, b, h, H, row, Lq, half);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                         const float* __restrict__ qm, const float* __restrict__ km, float* __restrict__ dk,
+                         const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ dk,
                          float* __restrict__ dv, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
                          Strides gs) {
   using namespace bwd;
@@ -436,12 +460,13 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   __shared__ __align__(16) float Qs[BT32 * D];
   __shared__ __align__(16) float Gs[BT32 * D];
   __shared__ float lses[BT32], dls[BT32];
+  __shared__ int qids[BT32];
 
   const int tid = threadIdx.x, half = tid & 1;
   const int row = blockIdx.x * BR + (tid >> 1), h = blockIdx.y, b = blockIdx.z;
   const bool in_range = row < Lk;
-  const float my_km = in_range ? km[(size_t)b * Lk + row] : 0.f;
-  const int live_k = __syncthreads_or(my_km > 0.f);
+  const int my_kid = in_range ? key_id<SEG>(kmask, (size_t)b * Lk + row) : kNoKey;
+  const int live_k = __syncthreads_or(my_kid >= 0);
 
   float dka[HD], dva[HD];
 #pragma unroll
@@ -451,21 +476,23 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     float kr[HD], vr[HD];
     load_half_row<D>(kr, k, ks, b, h, row, in_range, half);
     load_half_row<D>(vr, v, vs, b, h, row, in_range, half);
-    const float bias = (my_km - 1.0f) * kBig;
     const size_t rb = ((size_t)b * H + h) * Lq;
 
-    const int n_tiles = (Lq + BT32 - 1) / BT32;
-    for (int qt = 0; qt < n_tiles; ++qt) {
+    const int2 band = SEG ? segment_band<BT32>(static_cast<const int*>(qmask) + (size_t)b * Lq, Lq, my_kid,
+                                               my_kid >= 0, 0, false)
+                          : make_int2(0, (Lq + BT32 - 1) / BT32 - 1);
+    for (int qt = band.x; qt <= band.y; ++qt) {
       const int q0 = qt * BT32;
       __syncthreads();
-      float my_qm = 0.f;
+      bool my_valid = false;
       if (tid < BT32) {
         const int r = q0 + tid;
-        my_qm = r < Lq ? qm[(size_t)b * Lq + r] : 0.f;
+        my_valid = r < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r);
+        qids[tid] = r < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r) : kPadSeg;
         lses[tid] = r < Lq ? lse[rb + r] : 0.f;
         dls[tid] = r < Lq ? dl[rb + r] : 0.f;
       }
-      if (!__syncthreads_or(my_qm > 0.f)) continue;
+      if (!__syncthreads_or(my_valid)) continue;
       stage_rows_f32<D>(Qs, q, qs, b, h, q0, Lq);
       stage_rows_f32<D>(Gs, g, gs, b, h, q0, Lq);
       __syncthreads();
@@ -475,7 +502,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         const float* gi = &Gs[i * D + half * HD];
         const float s = dot_pair<D>(kr, qi);
         const float dp = dot_pair<D>(vr, gi);
-        const float p = exp2f(fminf((s + bias) - lses[i], 0.f));
+        const float p = exp2f(fminf((s + (qids[i] == my_kid ? 0.f : -kBig)) - lses[i], 0.f));
         axpy_half<D>(dva, p, gi);
         axpy_half<D>(dka, p * (dp - dls[i]), qi);
       }
@@ -485,43 +512,39 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   store_half_row<D>(dv, dva, b, h, H, row, Lk, half);
 }
 
-template <int D>
+template <int D, bool SEG>
 static int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* dl,
-                     const void* qm, const void* km, void* dq, int B, int H, int Lq, int Lk, Strides qs, Strides ks,
-                     Strides vs, Strides gs, int is_bf16, cudaStream_t stream) {
+                     const void* qmask, const void* kmask, void* dq, int B, int H, int Lq, int Lk, Strides qs,
+                     Strides ks, Strides vs, Strides gs, int is_bf16, cudaStream_t stream) {
   const dim3 grid((Lq + bwd::BR - 1) / bwd::BR, H, B);
   if (is_bf16)
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_dq_bf16_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl),
-        static_cast<const float*>(qm), static_cast<const float*>(km), static_cast<bf16*>(dq), H, Lq, Lk, qs, ks, vs,
-        gs);
+        static_cast<const bf16*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
+        static_cast<bf16*>(dq), H, Lq, Lk, qs, ks, vs, gs);
   else
-    flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_dq_f32_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl),
-        static_cast<const float*>(qm), static_cast<const float*>(km), static_cast<float*>(dq), H, Lq, Lk, qs, ks, vs,
-        gs);
+        static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
+        static_cast<float*>(dq), H, Lq, Lk, qs, ks, vs, gs);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SEG>
 static int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* dl,
-                      const void* qm, const void* km, void* dk, void* dv, int B, int H, int Lq, int Lk, Strides qs,
-                      Strides ks, Strides vs, Strides gs, int is_bf16, cudaStream_t stream) {
+                      const void* qmask, const void* kmask, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                      Strides qs, Strides ks, Strides vs, Strides gs, int is_bf16, cudaStream_t stream) {
   const dim3 grid((Lk + bwd::BR - 1) / bwd::BR, H, B);
   if (is_bf16)
-    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_dkv_bf16_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl),
-        static_cast<const float*>(qm), static_cast<const float*>(km), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        H, Lq, Lk, qs, ks, vs, gs);
+        static_cast<const bf16*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Lq, Lk, qs, ks, vs, gs);
   else
-    flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_dkv_f32_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl),
-        static_cast<const float*>(qm), static_cast<const float*>(km), static_cast<float*>(dk),
-        static_cast<float*>(dv), H, Lq, Lk, qs, ks, vs, gs);
+        static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
+        static_cast<float*>(dk), static_cast<float*>(dv), H, Lq, Lk, qs, ks, vs, gs);
   return (int)cudaGetLastError();
 }
 
@@ -541,9 +564,9 @@ extern "C" int srhep_flash_bwd_dq(const void* q, const void* k, const void* v, c
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_dq<16>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 32: return launch_dq<32>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 64: return launch_dq<64>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    case 16: return launch_dq<16, false>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    case 32: return launch_dq<32, false>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    case 64: return launch_dq<64, false>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -560,9 +583,49 @@ extern "C" int srhep_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_dkv<16>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 32: return launch_dkv<32>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 64: return launch_dkv<64>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    case 16: return launch_dkv<16, false>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    case 32: return launch_dkv<32, false>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    case 64: return launch_dkv<64, false>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Segment-packed rows (K8): q, k, v, g (B, S, H, D) as strided views with D
+// contiguous, g zeroed on padding; lse, dl (B, H, S) fp32; seg (B, S) int32,
+// -1 on padding, valid ids nondecreasing along each row; dq (B, S, H, D)
+// contiguous, WITHOUT the ln(2) factor.  D in {16, 32, 64}.
+extern "C" int srhep_packed_bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                                   const void* dl, const void* seg, void* dq, int B, int H, int S, int D, long long qsb,
+                                   long long qsl, long long qsh, long long ksb, long long ksl, long long ksh,
+                                   long long vsb, long long vsl, long long vsh, long long gsb, long long gsl,
+                                   long long gsh, int is_bf16, void* stream) {
+  using namespace srhep;
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_dq<16, true>(q, k, v, g, lse, dl, seg, seg, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    case 32: return launch_dq<32, true>(q, k, v, g, lse, dl, seg, seg, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    case 64: return launch_dq<64, true>(q, k, v, g, lse, dl, seg, seg, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Segment-packed rows (K9): the same operands; dk, dv (B, S, H, D) contiguous,
+// dk WITHOUT the ln(2) factor.
+extern "C" int srhep_packed_bwd_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                                    const void* dl, const void* seg, void* dk, void* dv, int B, int H, int S, int D,
+                                    long long qsb, long long qsl, long long qsh, long long ksb, long long ksl,
+                                    long long ksh, long long vsb, long long vsl, long long vsh, long long gsb,
+                                    long long gsl, long long gsh, int is_bf16, void* stream) {
+  using namespace srhep;
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_dkv<16, true>(q, k, v, g, lse, dl, seg, seg, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    case 32: return launch_dkv<32, true>(q, k, v, g, lse, dl, seg, seg, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    case 64: return launch_dkv<64, true>(q, k, v, g, lse, dl, seg, seg, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

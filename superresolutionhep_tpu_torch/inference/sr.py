@@ -1,10 +1,11 @@
 """Stage-1 inference runner: ensemble ODE sampling.
 
-Counterpart of the JAX package's ``inference/sr.py``.  Ported so far: the
-model/parameter set-up, the first-batch gate of the no-max attention kernel,
-the ensemble sampler call and the per-event output fill.  ``run_pred`` (the
-file-driven batch loop, which needs the bucket batcher and file output) is
-not ported yet.
+Counterpart of the JAX package's ``inference/sr.py``: the model/parameter
+set-up, the first-batch gate of the no-max attention kernel, the ensemble
+sampler with store-index capture, and the file-driven ``run_pred`` over
+bucketed batches or segment-packed rows (``packed: true``; events too long
+for a packed row go through the bucketed path), writing the three output
+trees.
 
 Differences a caller sees:
   * ``device`` is explicit and defaults to ``cuda``; asking for ``cuda`` on a
@@ -12,27 +13,44 @@ Differences a caller sees:
   * wherever the JAX package takes a YAML path (``model.config_path_mv`` /
     ``model.config_path_t``) an already-loaded mapping may be given instead
     (``model.config_mv`` / ``model.config_t``).
-  * ``params`` is a reference-layout ``state_dict`` (tools/convert.py).
-  * noise comes from a ``torch.Generator`` on the device, or is injected.
+  * ``params`` is a reference-layout ``state_dict`` (tools/convert.py); by
+    default it is read from ``model.checkpoint_path``, a checkpoint of the
+    port's trainer (train/checkpoint.py::load_params).
+  * noise comes from a ``torch.Generator`` on the device seeded from
+    ``inf_dict["seed"]``, or from an injected callable
+    ``noise(batch_index, shape) -> x0`` (the tests feed the JAX package's
+    draws).  As in the JAX package, the batch index restarts at 0 for the
+    bucketed pass that follows the packed one.
+  * ``predict`` is ``run_pred`` without the file IO: it takes a
+    ``SupResEvents`` and returns the three trees.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import warnings
 from pathlib import Path
-from typing import List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..config import load_yaml
+from ..data import root_io
+from ..data.bucketing import BucketBatcher
+from ..data.jagged import JaggedArray
+from ..data.packing import aligned_len, collate_packed, pack_events
+from ..data.sr_dataset import MODEL_BATCH_KEYS, SupResEvents, collate
 from ..flow.ode import FIXED_STEP_METHODS, MULTISTEP_METHODS
 from ..flow.sampling import generate_ensemble
 from ..models.flow_model import FlowModel
 from ..models.precision import cast_params_for_inference
 from ..ops.flash_attention import nomax_selfcheck
+from ..train.checkpoint import load_params
 from ..transforms import TargetTransform
+
+PACKED_BATCH_KEYS = MODEL_BATCH_KEYS + ("seg",)
 
 
 def resolve_device(device) -> torch.device:
@@ -85,8 +103,7 @@ class SRInference:
         self.target_transform = TargetTransform.from_config(self.config_mv["target_transform"])
 
         if params is None:
-            ckpt = torch.load(mcfg["checkpoint_path"], map_location="cpu", weights_only=True)
-            params = ckpt["state_dict"] if isinstance(ckpt, dict) and "state_dict" in ckpt else ckpt
+            params = load_params(mcfg["checkpoint_path"])
 
         flow_cfg = self.config_mv["flow_model"]
         self.model = FlowModel(flow_cfg).to(self.device)
@@ -146,14 +163,136 @@ class SRInference:
     @torch.no_grad()
     def _gen(self, batch, generator, n_ensemble: int, n_steps: int, method: str, fast: bool = False, x0=None):
         """Ensemble trajectories at the stored grid positions:
-        (E, len(store_set), B, N, 1)."""
+        (E, len(store_set), B, N, 1).  Fixed-step and multistep methods keep
+        only those states; an adaptive one returns its whole trajectory, cut
+        down here."""
         model = self.model_fast if fast else self.model
-        if method not in FIXED_STEP_METHODS and method not in MULTISTEP_METHODS:
-            raise NotImplementedError(f"ODE method {method!r} is not ported yet")
-        return generate_ensemble(
+        store = self.store_set if (method in FIXED_STEP_METHODS or method in MULTISTEP_METHODS) else None
+        out = generate_ensemble(
             model, batch, n_ensemble=n_ensemble, n_steps=n_steps, method=method,
-            ret_seq=True, store_indices=self.store_set, generator=generator, x0=x0,
+            ret_seq=True, store_indices=store, generator=generator, x0=x0,
         )
+        return out if store is not None else out[:, self.store_set]
+
+    # ------------------------------------------------------------------
+    def run_pred(self, inf_dict: dict, noise: Optional[Callable] = None) -> str:
+        """Read ``truth_path``, predict every event (``predict``) and write the
+        three trees to ``pred_path``."""
+        ds = SupResEvents(
+            inf_dict["truth_path"], self.config_mv, make_low=True, make_particles=True,
+            entry_start=int(inf_dict.get("entry_start", 0)),
+            reduce_ds=int(inf_dict["n_events"]) if inf_dict.get("n_events") else -1,
+            one_event_train=self.config_t.get("one_event_train", False),
+            one_event_idx=self.config_t.get("one_event_idx", 0),
+        )
+        trees = self.predict(ds, inf_dict, noise=noise)
+        pred_path = inf_dict["pred_path"]
+        os.makedirs(os.path.dirname(os.path.abspath(pred_path)), exist_ok=True)
+        root_io.write_trees(pred_path, trees)
+        return pred_path
+
+    def predict(self, ds: SupResEvents, inf_dict: dict, noise: Optional[Callable] = None) -> Dict[str, dict]:
+        """Ensemble predictions of every event of ``ds`` (with low-resolution
+        cells and particles) as the three output trees, rows in event-index
+        order.  ``inf_dict``: ``n_ensemble``, ``ode_method``, ``seed``,
+        ``batch_size``, ``tail_shrink``, ``packed``/``pack_s``/``pack_rows``
+        (default: the model config's), ``save_ensemble_components``,
+        ``store_energy_incidence``, ``max_particles``."""
+        mcfg = self.inf_cfg["model"]
+        n_ensemble = int(inf_dict.get("n_ensemble", 1))
+        method = inf_dict.get("ode_method", self.config_t.get("val_ode_method", "dopri5"))
+        store_comp = bool(inf_dict.get("save_ensemble_components", False)
+                          or inf_dict.get("store_ensemble_components", False))
+        fill_kw = dict(n_ensemble=n_ensemble, store_comp=store_comp,
+                       store_inc=bool(inf_dict.get("store_energy_incidence", False)),
+                       max_particles=int(inf_dict.get("max_particles", 0)))
+        low_z, high_z, part_z = self._empty_trees(**fill_kw)
+        generator = None
+        if noise is None:
+            generator = torch.Generator(device=self.device).manual_seed(int(inf_dict.get("seed", 0)))
+        positions: List[int] = []  # event index of each filled row
+
+        def sample(batch, bi):
+            if self.fast_softmax and not self._nomax_validated:
+                self.fast_softmax = self._validate_nomax(batch)
+                self._nomax_validated = True
+            x0 = None
+            if noise is not None:
+                x0 = torch.as_tensor(noise(bi, (n_ensemble, *batch["e_proxy"].shape)), dtype=torch.float32,
+                                     device=self.device)
+            traj = self._gen(batch, generator, n_ensemble=n_ensemble, n_steps=self.n_steps, method=method,
+                             fast=self.fast_softmax, x0=x0)
+            return traj.float().cpu().numpy()  # (E, T, B, N, 1)
+
+        counts = np.asarray(ds.cell_count_high, np.int64)
+        bucketed = np.arange(len(ds))
+        # segment-packed rows (`packed: true`): one shape for the whole run,
+        # 128-cell alignment padding, the packed attention kernels
+        if bool(inf_dict.get("packed", mcfg.get("packed", False))):
+            pack_s = int(inf_dict.get("pack_s", mcfg.get("pack_s", 5120)))
+            pack_rows = int(inf_dict.get("pack_rows", mcfg.get("pack_rows", 8)))
+            fits = np.array([aligned_len(int(n)) <= pack_s for n in counts], bool)
+            bucketed, sub = np.nonzero(~fits)[0], np.nonzero(fits)[0]
+            if bucketed.size:
+                print(f"[packed] {bucketed.size} event(s) exceed pack_s={pack_s} after alignment; "
+                      "routing them through the bucketed path", file=sys.stderr)
+            for bi, lay in enumerate(pack_events(counts[sub], S=pack_s, rows_per_batch=pack_rows)):
+                # layout index -> event, fetched once for collate and unpack
+                events = {i: ds.get_event(int(sub[i])) for row in lay.rows for i, _, _ in row}
+                batch = batch_to_device(collate_packed(events, lay, S=pack_s), self.device, PACKED_BATCH_KEYS)
+                traj = sample(batch, bi)
+                for row_i, row in enumerate(lay.rows):
+                    for ev_idx, off, n in sorted(row, key=lambda r: r[1]):
+                        ev = events[ev_idx]
+                        self._fill_event(ev, traj[:, :, row_i, off: off + n, 0], low_z, high_z, part_z, **fill_kw)
+                        positions.append(ev.idx)
+
+        if bucketed.size:
+            batcher = BucketBatcher(
+                counts[bucketed], quantum=int(self.config_t.get("bucket_quantum", 128)),
+                max_batch_size=int(inf_dict.get("batch_size", 32)), shuffle=False,
+                tail_shrink=inf_dict.get("tail_shrink", "exact"),
+            )
+            # the batch index restarts at 0 here, as in the JAX package
+            for bi, (idxs, bucket) in enumerate(batcher):
+                events = [ds.get_event(int(bucketed[i])) if i >= 0 else None for i in idxs]
+                batch = batch_to_device(collate(events, bucket.pad_n), self.device, MODEL_BATCH_KEYS)
+                traj = sample(batch, bi)
+                for slot, ev in enumerate(events):
+                    if ev is not None:
+                        self._fill_event(ev, traj[:, :, slot, :, 0], low_z, high_z, part_z, **fill_kw)
+                        positions.append(ev.idx)
+
+        order = np.argsort(np.asarray(positions, np.int64), kind="stable")
+        return {name: {k: JaggedArray.from_list([v[i] for i in order]) for k, v in zd.items()}
+                for name, zd in (("Low_Tree", low_z), ("High_Tree", high_z), ("Particle_Tree", part_z))}
+
+    def _empty_trees(self, *, n_ensemble, store_comp, store_inc, max_particles):
+        """The branch lists of the three output trees (the reference's schema)."""
+        low_z: Dict[str, list] = {k: [] for k in ["eta_raw", "phi", "layer", "e_meas_raw"]}
+        high_z: Dict[str, list] = {
+            k: [] for k in ["eta_raw", "phi", "layer", "e_proxy", "e_truth_raw", "e_proxy_raw", "e_pred_raw",
+                            "e_pred_avg_raw", "raw_nn_cond", "raw_nn_target", "raw_nn_pred"]
+        }
+        for t in self.ts_to_store:
+            for stem in ("e_pred_raw", "e_pred_avg_raw", "raw_nn_pred"):
+                high_z[f"{stem}_{t:.2f}"] = []
+        if n_ensemble > 1 and store_comp:
+            for ci in range(n_ensemble):
+                high_z[f"e_pred_raw_comp_{ci}"] = []
+                high_z[f"raw_nn_pred_comp_{ci}"] = []
+                for t in self.ts_to_store:
+                    high_z[f"e_pred_raw_{t:.2f}_comp_{ci}"] = []
+                    high_z[f"raw_nn_pred_{t:.2f}_comp_{ci}"] = []
+        part_z: Dict[str, list] = {
+            k: [] for k in ["particle_pt", "particle_eta", "particle_phi", "particle_e", "particle_pdgid",
+                            "particle_dep_e"]
+        }
+        if store_inc:
+            for pi in range(max_particles):
+                low_z[f"e_part_{pi}"] = []
+                high_z[f"e_part_{pi}"] = []
+        return low_z, high_z, part_z
 
     # ------------------------------------------------------------------
     def _fill_event(self, ev, traj, low_z, high_z, part_z, *, n_ensemble, store_comp, store_inc, max_particles):

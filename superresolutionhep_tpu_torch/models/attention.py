@@ -1,11 +1,15 @@
 """Masked multi-head attention over padded variable-length sets.
 
 Counterpart of the JAX package's ``models/attention.py``, for now the
-padding-masked self-attention path only: edges, attention bias, adjacency
-masks, cross-attention inputs, sequence/tensor parallelism and segment
-packing raise ``NotImplementedError``.
+self-attention path with padding masks or segment-packed rows: edges,
+attention bias, adjacency masks, cross-attention inputs and sequence/tensor
+parallelism raise ``NotImplementedError``.
 
   * mask convention: True == valid (see ops/masked.py);
+  * ``segment_ids`` (B, L) int, -1 on padding: several events packed into
+    one row attend only within their own segment (ops/flash_packed.py).  On
+    a CUDA tensor this is always the packed kernel (``impl`` picks its
+    softmax); the dense block-diagonal formulation is taken only on the CPU;
   * ``impl``: 'flash' (running-max kernel) | 'flash_nomax' (inference-only
     clipped-exp2 kernel) | 'einsum' (dense scores) | 'auto' (flash when the
     tensor is on CUDA, einsum on the CPU);
@@ -28,6 +32,7 @@ from ..ops.flash_attention import (
     masked_flash_attention,
     masked_flash_attention_T,
 )
+from ..ops.flash_packed import packed_flash_attention, packed_flash_attention_T, packed_shapes_ok
 from ..ops.fused_qkv import _ln_noaffine, fused_ln_mod_proj, fused_qkv_ok
 from ..ops.masked import masked_softmax, merge_masks
 from .dense import Linear, xavier_uniform_
@@ -90,10 +95,8 @@ class MultiheadAttention(nn.Module):
             raise NotImplementedError("cross-attention is not ported yet")
         if edges is not None or attn_bias is not None or attn_valid is not None:
             raise NotImplementedError("edge features / attention bias / adjacency masks are not ported yet")
-        if segment_ids is not None:
-            raise NotImplementedError("segment-packed attention is not ported yet")
         if fused_ln is not None:
-            return self._fused_self_attention(q, q_valid, fused_ln)
+            return self._fused_self_attention(q, q_valid, fused_ln, segment_ids)
         kv_valid = q_valid
 
         B, L, _ = q.shape
@@ -102,18 +105,25 @@ class MultiheadAttention(nn.Module):
         q_p = self.linear_q(q).reshape(B, L, H, HD)
         k_p = self.linear_k(q).reshape(B, L, H, HD)
         v_p = self.linear_v(q).reshape(B, L, H, HD)
-        return self._project_out(self._attend(q_p, k_p, v_p, q_valid, kv_valid))
+        return self._project_out(self._attend(q_p, k_p, v_p, q_valid, kv_valid, segment_ids))
 
-    def _attend(self, q_p, k_p, v_p, q_valid, kv_valid):
+    def _attend(self, q_p, k_p, v_p, q_valid, kv_valid, segment_ids=None):
         """(B, L, H, HD) projections -> (B, L, embed_dim)."""
         B, L, H, HD = q_p.shape
         scale = math.sqrt(HD)  # scores are DIVIDED by it
-        if self._use_flash(q_p) and flash_shapes_ok(L, L, HD):
+        attn_valid = None
+        if segment_ids is not None:
+            if q_p.is_cuda or (self._use_flash(q_p) and packed_shapes_ok(L, HD)):
+                out = packed_flash_attention(q_p, k_p, v_p, segment_ids, scale=1.0 / scale, softmax=self._softmax)
+                return out.reshape(B, L, self.embed_dim)
+            # plain block-diagonal formulation (CPU): same segment, valid key
+            attn_valid = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (segment_ids >= 0)[:, None, :]
+        elif self._use_flash(q_p) and flash_shapes_ok(L, L, HD):
             out = masked_flash_attention(
                 q_p, k_p, v_p, q_valid, kv_valid, scale=1.0 / scale, softmax=self._softmax
             )
             return out.reshape(B, L, self.embed_dim)
-        mask = merge_masks(q_valid, kv_valid, None, L, L)  # (B, Lq, Lk) or None
+        mask = merge_masks(q_valid, kv_valid, attn_valid, L, L)  # (B, Lq, Lk) or None
         scores = torch.einsum("bqhd,bkhd->bhqk", q_p, k_p) / scale
         weights = masked_softmax(scores, mask[:, None] if mask is not None else None, axis=-1)
         return torch.einsum("bhqk,bkhd->bqhd", weights, v_p).reshape(B, L, self.embed_dim)
@@ -148,23 +158,30 @@ class MultiheadAttention(nn.Module):
             self._fold = (key, *fold())
         return self._fold[1], self._fold[2]
 
-    def _fused_self_attention(self, x, valid, fused_ln):
+    def _fused_self_attention(self, x, valid, fused_ln, segment_ids=None):
         """Fused-prologue self-attention: LN + modulate + QKV in one kernel
-        straight into the flash kernel.  Takes an equivalent unfused
-        formulation when the shape gates fail or the impl is not a flash one,
-        so the caller never needs a second code path."""
+        straight into the flash kernel: the padding-masked one, or the
+        segment-packed one when ``segment_ids`` is given (eff_a/eff_b are then
+        per-cell (B, L, F) rows).  Takes an equivalent unfused formulation
+        when the shape gates fail or the impl is not a flash one, so the
+        caller never needs a second code path."""
         eff_a, eff_b = fused_ln
         B, L, F = x.shape
         H, HD = self.num_heads, self.embed_dim // self.num_heads
         dt = self.linear_q.dtype
+        packed = segment_ids is not None
+        kernel_ok = packed_shapes_ok(L, HD) if packed else flash_shapes_ok(L, L, HD)
 
-        if self._use_flash(x) and fused_qkv_ok(L, F) and flash_shapes_ok(L, L, HD):
+        if self._use_flash(x) and fused_qkv_ok(L, F) and kernel_ok:
             w, bias = self._folded_qkv()
             qkvT = fused_ln_mod_proj(x.to(dt), eff_a, eff_b, w, bias)  # (B, 3F, L)
             qkvT = qkvT.reshape(B, 3, H, HD, L)
-            outT = masked_flash_attention_T(
-                qkvT[:, 0], qkvT[:, 1], qkvT[:, 2], valid, valid, softmax=self._softmax
-            )
+            if packed:
+                outT = packed_flash_attention_T(qkvT[:, 0], qkvT[:, 1], qkvT[:, 2], segment_ids, softmax=self._softmax)
+            else:
+                outT = masked_flash_attention_T(
+                    qkvT[:, 0], qkvT[:, 1], qkvT[:, 2], valid, valid, softmax=self._softmax
+                )
             out = outT.permute(0, 3, 1, 2).reshape(B, L, self.embed_dim)
         else:
             xhat = _ln_noaffine(x.float())
@@ -174,5 +191,5 @@ class MultiheadAttention(nn.Module):
             q_p = self.linear_q(y).reshape(B, L, H, HD)
             k_p = self.linear_k(y).reshape(B, L, H, HD)
             v_p = self.linear_v(y).reshape(B, L, H, HD)
-            out = self._attend(q_p, k_p, v_p, valid, valid)
+            out = self._attend(q_p, k_p, v_p, valid, valid, segment_ids)
         return self._project_out(out)

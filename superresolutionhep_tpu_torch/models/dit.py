@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``models/dit.py``: per-layer context ->
 SiLU -> Linear -> 6-way (shift/scale/gate for MSA and MLP) modulation; gated
-residual attention and FFN.  Self-attention with padding masks only for now
-(no cross-attention, tensor parallelism, segment packing).  ``remat``
+residual attention and FFN.  Self-attention with padding masks or
+segment-packed rows (no cross-attention, tensor parallelism).  ``remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``, the
 counterpart of ``nn.remat(DiTLayer)``).
 """
@@ -32,6 +32,13 @@ def modulate(x, shift, scale):
 def _gate(g, x):
     """Broadcast a (B, F) or per-cell (B, L, F) residual gate onto x."""
     return (g if g.ndim == x.ndim else g[:, None, :]) * x
+
+
+def scatter_segments(seg_onehot, per_segment):
+    """(B, S, E) one-hot x (B, E, F) per-segment rows -> (B, S, F) per-cell
+    rows, in the promoted dtype of the two (as the JAX package's einsum)."""
+    dt = torch.promote_types(seg_onehot.dtype, per_segment.dtype)
+    return torch.einsum("bse,bef->bsf", seg_onehot.to(dt), per_segment.to(dt))
 
 
 def adaln_modulation(context_size: int, out_features: int, dtype=None) -> nn.Sequential:
@@ -64,24 +71,33 @@ class DiTLayer(nn.Module):
             self.norm2 = LayerNorm(embed_dim, dtype=dtype)
             self.dense = Dense.from_config(self.mlp_cfg, input_size=embed_dim, dtype=dtype)
 
-    def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, attn_valid=None, attn_bias=None):
+    def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, context_seg=None, seg_onehot=None,
+                attn_valid=None, attn_bias=None, segment_ids=None):
         if k is not None:
             raise NotImplementedError("cross-attention DiT layers are not ported yet")
-        mod = self.adaLN_modulation(context)
+        # packed rows (context_seg (B, E, C) + seg_onehot (B, S, E)): the
+        # context is constant within a segment, so the modulation net runs per
+        # segment and its output is scattered per cell by one (S x E) product
+        mod = self.adaLN_modulation(context_seg if context_seg is not None else context)
+        if context_seg is not None:
+            mod = scatter_segments(seg_onehot, mod)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
 
-        fuse = self.fused_prologue and attn_valid is None and attn_bias is None
+        # packed rows fuse too: the per-cell modulation rows go into the fused
+        # kernels, and attention takes the packed kernel
+        fuse = (self.fused_prologue and attn_valid is None and attn_bias is None
+                and (segment_ids is None) == (context_seg is None))
         if fuse:
             # fold norm1's gamma/beta with the adaLN shift/scale, in fp32, into
             # the two affine rows the fused kernel consumes
             one_scale = 1.0 + scale_msa.float()
             eff_a = self.norm1.weight.float() * one_scale
             eff_b = self.norm1.bias.float() * one_scale + shift_msa.float()
-            q_attn = self.mha(q, q_valid=q_valid, fused_ln=(eff_a, eff_b))
+            q_attn = self.mha(q, q_valid=q_valid, fused_ln=(eff_a, eff_b), segment_ids=segment_ids)
         else:
             q_attn = self.mha(
                 modulate(self.norm1(q), shift_msa, scale_msa),
-                q_valid=q_valid, attn_valid=attn_valid, attn_bias=attn_bias,
+                q_valid=q_valid, attn_valid=attn_valid, attn_bias=attn_bias, segment_ids=segment_ids,
             )
 
         if fuse and self.mlp_cfg is not None:

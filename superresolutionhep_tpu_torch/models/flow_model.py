@@ -5,8 +5,10 @@ geometry (eta/cosphi/sinphi), calorimeter layer, proxy energy and the noisy
 per-cell state, each conditioned on the timestep embedding; pools a
 masked-mean global conditioning vector; runs a DiT stack over the cell set;
 skip-concatenates the conditional features; optional final adaLN modulation;
-and predicts a per-cell scalar velocity.  ``type: DiT`` and non-packed
-batches only for now; no Fourier geometry features.
+and predicts a per-cell scalar velocity.  ``type: DiT`` only for now; no
+Fourier geometry features.  A segment-packed batch (``batch["seg"]``) carries
+several events per row: the pooled context becomes per segment (and per cell
+for the Dense concat paths), and attention stays within a segment.
 
 ``dtype`` is the compute dtype (Flax ``dtype=``): every module but the
 geometry embedder casts its weights to it at use, so fp32 parameters train
@@ -21,9 +23,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.masked import masked_mean
+from ..ops.flash_packed import SEG_ALIGN
+from ..ops.masked import masked_mean, segment_mean, segment_onehot
 from .dense import Dense, LayerNorm, cast
-from .dit import DiTEncoder, adaln_modulation, modulate
+from .dit import DiTEncoder, adaln_modulation, modulate, scatter_segments
 from .embed import TimestepEmbedder
 
 N_CALO_LAYERS = 3  # ECAL layers kept after the layer<3 cut
@@ -109,7 +112,8 @@ class FlowModel(nn.Module):
 
     def forward(self, batch, noisy_input, time_step):
         """batch: dict with (B,N,1) float features ``eta,cosphi,sinphi,e_proxy``,
-        (B,N,1) int ``layer`` and (B,N) bool ``q_mask`` (True==valid).
+        (B,N,1) int ``layer`` and (B,N) bool ``q_mask`` (True==valid), and
+        for a packed batch ``seg`` (B,N) int (-1 = padding).
         noisy_input: (B,N,1); time_step: (B,). Returns v_t (B,N,1)."""
         time_emb = self.time_step_embedder(time_step)
 
@@ -128,22 +132,41 @@ class FlowModel(nn.Module):
 
         # mixed dtypes promote (fp32 e_proxy wins over bf16 embeddings)
         cond_feat = torch.cat([etaphi_emb, layer_emb, e_proxy_emb, e_proxy], dim=-1)
-        cond_feat_global = masked_mean(cond_feat, q_mask, axis=1)
+        seg = batch.get("seg")
+        if seg is not None:
+            n_seg = seg.shape[1] // SEG_ALIGN  # the packer aligns events to this
+            seg_onehot = segment_onehot(seg, n_seg, cond_feat.dtype)  # (B, S, E)
+            cond_seg = segment_mean(cond_feat, seg_onehot)  # (B, E, C)
+        else:
+            cond_feat_global = masked_mean(cond_feat, q_mask, axis=1)
 
         noisy_input_emb = self.noisy_input_emb_net(noisy_input, context=time_emb)
 
-        context = torch.cat([time_emb, cond_feat_global], dim=-1)
+        # context = [time_emb ‖ pooled conditional features]
+        if seg is not None:
+            # per segment for the modulation nets, scattered per cell for the
+            # Dense concat paths
+            B, E = seg_onehot.shape[0], seg_onehot.shape[2]
+            context_seg = torch.cat([time_emb[:, None, :].expand(B, E, time_emb.shape[-1]), cond_seg], dim=-1)
+            context = scatter_segments(seg_onehot, context_seg)
+            seg_kw = dict(context_seg=context_seg, seg_onehot=seg_onehot, segment_ids=seg)
+        else:
+            context_seg = None
+            context = torch.cat([time_emb, cond_feat_global], dim=-1)
+            seg_kw = {}
 
         feat_0 = torch.cat([cond_feat, noisy_input_emb], dim=-1)
         feat = self.feat_0_mlp(feat_0, context=context)
 
-        feat = self.transformer(feat, q_valid=q_mask, context=context)
+        feat = self.transformer(feat, q_valid=q_mask, context=context, **seg_kw)
 
         # final skip connection with the conditional features
         feat = torch.cat([feat, cond_feat], dim=-1)
 
         if self.final_modulation:
-            mod = self.v_t_adaLN_modulation(context)
+            mod = self.v_t_adaLN_modulation(context_seg if context_seg is not None else context)
+            if context_seg is not None:
+                mod = scatter_segments(seg_onehot, mod)
             v_t_shift, v_t_scale = mod.chunk(2, dim=-1)
             feat = modulate(self.norm_v_t(feat), v_t_shift, v_t_scale)
 

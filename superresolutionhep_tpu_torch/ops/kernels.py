@@ -44,6 +44,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_nomax": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "fused_qkv": 0, "fused_mlp": 0,
+    "packed_fwd": 0, "packed_fwd_nomax": 0, "packed_bwd_dq": 0, "packed_bwd_dkv": 0,
 }
 
 _lib = None
@@ -134,6 +135,13 @@ _SIGNATURES = {
     "srhep_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, _P],
     # the same with dk, dv in place of dq
     "srhep_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I, _P],
+    # segment-packed rows: q, k, v, seg, out, lse, B, H, S, D, strides (b, l, h)
+    # of q, k, v, is_bf16, nomax, stream
+    "srhep_packed_fwd": [_P] * 6 + [_I] * 4 + [_L] * 9 + [_I, _I, _P],
+    # q, k, v, g, lse, dl, seg, dq, B, H, S, D, strides of q, k, v, g, is_bf16, stream
+    "srhep_packed_bwd_dq": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
+    # the same with dk, dv in place of dq
+    "srhep_packed_bwd_dkv": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_I, _P],
     # x, a, b, w(O,F), bias, out, M, L, F, O, per_cell, is_bf16, stream
     "srhep_fused_qkv": [_P] * 6 + [_I] * 6 + [_P],
     # q, attn, ga, a, b, gm, w0(Fh,F), b0, w1(F,Fh), b1, out, M, L, F, Fh,

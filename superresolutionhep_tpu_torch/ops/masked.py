@@ -75,3 +75,19 @@ def attach_context(x, context):
         context = context[:, None, ...]
     context = context.expand(*x.shape[:-1], context.shape[-1])
     return torch.cat([x, context], dim=-1)
+
+
+def segment_onehot(seg, n_seg: int, dtype):
+    """(B, S) segment ids -> (B, S, n_seg) one-hot; pad cells (seg == -1)
+    are all-zero rows.  The packed path's gather/scatter: both the
+    per-segment reduction and the per-cell broadcast are (S x n_seg)
+    products."""
+    return (seg[..., None] == torch.arange(n_seg, device=seg.device)[None, None, :]).to(dtype)
+
+
+def segment_mean(x, onehot):
+    """Per-segment mean of ``x`` (B, S, C) given a segment_onehot (B, S, E):
+    returns (B, E, C); empty segments are zero."""
+    num = torch.einsum("bse,bsc->bec", onehot, x)
+    den = onehot.sum(dim=1)  # (B, E)
+    return num / den.clamp_min(1.0)[..., None]

@@ -26,10 +26,12 @@ run() {  # name, sed expression, file
   if [ "$rc" = "0" ] || [ "$oks" != "0" ]; then status=1; fi
   cd "$ROOT" || exit 9
 }
-run nomax_drops_key_mask 's/kClipHi)) \* ka;/kClipHi));/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run nomax_drops_key_mask 's/kClipHi)) \* (ia == qid\([01]\) ? 1.f : 0.f);/kClipHi));/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run lrelu_slope 's/kLreluSlope = 0.01f/kLreluSlope = 0.02f/' superresolutionhep_tpu_torch/csrc/common.cuh
 run qkv_forgets_bias 's/from_float<T>(acc\[i\] + bias\[n0 + c\])/from_float<T>(acc[i])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
 run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/common.cuh
 run bwd_dq_sign_of_dl 's/\* (dp\[j\]\[0\] - dl0);/* (dp[j][0] + dl0);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
-run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + bias0) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + (ia == kid0 ? 0.f : -kBig)) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run packed_fwd_ignores_segments 's/+= ia == qid0 ? 0.f : -kBig;/+= ia >= 0 ? 0.f : -kBig;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run packed_dkv_drops_ln2 's/    dk = (dk.float() \* LN2).to(k.dtype)/    dk = dk.to(k.dtype)/' superresolutionhep_tpu_torch/ops/flash_packed.py
 exit $status

@@ -99,3 +99,15 @@ class CheckpointManager:
                                     f"in {self.directory}")
         payload = torch.load(os.path.join(d, f"{step}.pt"), map_location=map_location, weights_only=True)
         return payload["state"]
+
+
+def load_params(path: str, map_location="cpu") -> dict:
+    """The model parameters saved at ``path``: a ``CheckpointManager``
+    directory (its best step), one of its ``.pt`` files, or a saved state
+    dict (under ``state_dict`` or bare)."""
+    if os.path.isdir(path):
+        return CheckpointManager(path).restore(which="best", map_location=map_location)["params"]
+    ckpt = torch.load(path, map_location=map_location, weights_only=True)
+    if "state" in ckpt:
+        return ckpt["state"]["params"]
+    return ckpt.get("state_dict", ckpt)

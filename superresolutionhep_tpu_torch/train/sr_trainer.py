@@ -14,8 +14,13 @@ Differences a caller sees:
     setting); parameters, gradients and optimizer state stay fp32.
   * noise and times come from a ``torch.Generator`` seeded from ``seed``, or
     are passed to ``train_step`` (the tests feed the JAX package's draws).
-  * ``packed: true`` and ``n_event_displays > 0`` raise
-    ``NotImplementedError``: they need modules that are not ported yet.
+  * ``n_event_displays > 0`` raises ``NotImplementedError``: the live
+    validation plots are not ported yet.
+  * ``packed: true`` packs the training events once into rows of
+    ``pack_s`` cells (``pack_rows`` rows a batch; an event longer than a row
+    raises, training has no bucketed mop-up), permutes the batch order per
+    epoch, and trains through the packed attention kernels; validation stays
+    bucketed.
 
 The optimizer mirrors the JAX package's optax chain exactly
 (``clip_by_global_norm`` -> ``scale_by_adam`` -> ``add_decayed_weights`` ->
@@ -36,6 +41,7 @@ import torch
 
 from ..config import resolve_threshold
 from ..data.bucketing import BucketBatcher
+from ..data.packing import aligned_len, collate_packed, pack_events
 from ..data.prefetch import BatchPrefetcher
 from ..data.sr_dataset import MODEL_BATCH_KEYS, SupResEvents, collate
 from ..flow.cfm import flow_matching_loss, sample_location_and_conditional_flow
@@ -43,6 +49,7 @@ from ..flow.sampling import generate_samples
 from ..inference.sr import batch_to_device, resolve_device
 from ..models.flow_model import FlowModel
 from ..models.init_policies import apply_init_policies
+from ..ops.flash_packed import SEG_ALIGN
 from ..tools.convert import init_params_jax_layout, params_from_jax
 from ..transforms import TargetTransform
 from .checkpoint import CheckpointManager
@@ -154,12 +161,6 @@ class SRTrainer:
         kernels on CUDA, the dense formulation on the CPU; 'flash';
         'einsum')."""
         ct = config_t
-        if ct.get("packed", False):
-            raise NotImplementedError(
-                "packed training (`packed: true`) needs the segment-packed attention kernels K7-K9 "
-                "(ops/flash_packed.py: _packed_fwd_kernel, _packed_bwd_dq_kernel, _packed_bwd_dkv_kernel), "
-                "which are not ported yet; train bucketed (`packed: false`)"
-            )
         if int(ct.get("n_event_displays", 0) or 0) > 0:
             raise NotImplementedError(
                 "n_event_displays > 0 needs the live validation plots (analysis/live.py), which are not "
@@ -209,6 +210,10 @@ class SRTrainer:
 
     # ------------------------------------------------------------------
     def _device_batch(self, host_batch, keys=MODEL_BATCH_KEYS) -> dict:
+        """The model's keys of a host batch on the device (and ``seg`` for a
+        packed one)."""
+        if "seg" in host_batch:
+            keys = keys + ("seg",)
         return batch_to_device(host_batch, self.device, keys)
 
     def _batcher(self, ds: SupResEvents, split: str, seed: int) -> BucketBatcher:
@@ -303,14 +308,35 @@ class SRTrainer:
         cache_events = bool(ct.get("cache_events", True))
         train_cache: Dict[int, object] = {}
 
+        def event(i):
+            if not cache_events:
+                return train_ds.get_event(i)
+            ev = train_cache.get(i)
+            if ev is None:
+                ev = train_cache[i] = train_ds.get_event(i)
+            return ev
+
         def prepare(item):
             """Host-side batch prep, in the prefetch thread pool."""
             idxs, bucket = item
-            if cache_events:
-                events = [(train_cache.setdefault(i, train_ds.get_event(i)) if i >= 0 else None) for i in idxs]
-            else:
-                events = [train_ds.get_event(i) if i >= 0 else None for i in idxs]
-            return collate(events, bucket.pad_n)
+            return collate([event(i) if i >= 0 else None for i in idxs], bucket.pad_n)
+
+        # packed training (`packed: true`): the layout is packed once (first-fit
+        # decreasing is deterministic) and the batch order permuted per epoch
+        packed = bool(ct.get("packed", False))
+        if packed:
+            pack_s, pack_rows = int(ct.get("pack_s", 5120)), int(ct.get("pack_rows", 8))
+            if pack_rows < 1:  # a multiple of the device count, which is 1 here
+                raise ValueError(f"pack_rows={pack_rows} must be a positive multiple of the device count (1)")
+            counts = np.asarray(train_ds.cell_count_high)
+            n_over = int(sum(aligned_len(int(c)) > pack_s for c in counts))
+            if n_over:
+                raise ValueError(f"{n_over} events exceed pack_s={pack_s} after {SEG_ALIGN}-cell alignment; "
+                                 "raise pack_s (training has no bucketed mop-up)")
+            pack_layouts = pack_events(counts, S=pack_s, rows_per_batch=pack_rows)
+
+            def prepare_packed(lay):
+                return collate_packed({i: event(i) for row in lay.rows for i, _, _ in row}, lay, S=pack_s)
 
         profile_epoch = self.epoch if ct.get("profile") else None
 
@@ -322,7 +348,12 @@ class SRTrainer:
             n_batches, last_hb = 0, None
             if epoch == profile_epoch:
                 self.metrics.start_profile()
-            batches = BatchPrefetcher(self._batcher(train_ds, "train", seed=epoch), prepare, num_workers=num_workers)
+            if packed:
+                order = np.random.default_rng(epoch).permutation(len(pack_layouts))
+                batches = BatchPrefetcher([pack_layouts[i] for i in order], prepare_packed, num_workers=num_workers)
+            else:
+                batches = BatchPrefetcher(self._batcher(train_ds, "train", seed=epoch), prepare,
+                                          num_workers=num_workers)
             for hb in batches:
                 stats = self.train_step(self._device_batch(hb), lr=lr)
                 n_batches += 1

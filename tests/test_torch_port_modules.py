@@ -147,11 +147,17 @@ def test_multihead_attention_matches_jax(impl, jimpl):
 def test_multihead_attention_unported_features_raise():
     tm = MultiheadAttention(32, 2)
     x = torch.zeros(1, 4, 32)
-    for kw in ({"k": x}, {"edges": x}, {"attn_bias": x}, {"attn_valid": x}, {"segment_ids": x}):
+    for kw in ({"k": x}, {"edges": x}, {"attn_bias": x}, {"attn_valid": x}):
         with pytest.raises(NotImplementedError):
             tm(x, **kw)
     with pytest.raises(ValueError):
         MultiheadAttention(32, 2, impl="xla")
+    # segment ids are ported: two segments of a row attend as two separate rows
+    xr = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 4, 32)).astype(np.float32))
+    with torch.no_grad():
+        got = tm(xr, segment_ids=torch.tensor([[0, 0, 1, 1]], dtype=torch.int32))
+        want = torch.cat([tm(xr[:, :2]), tm(xr[:, 2:])], dim=1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "flash_nomax"])

@@ -96,7 +96,7 @@ def test_entry_points_refuse_what_is_not_there(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             train_sr.main(["-cmv", os.path.join(cfg_dir, "model_and_var.yml"), "-ct", str(train_yml),
                            "--precision", "bfloat16", "--run_dir", str(tmp_path / "cli")])
-    with pytest.raises(NotImplementedError, match="K7|packed"):
-        SRTrainer(config_mv, dict(config_t, packed=True), run_dir=str(tmp_path / "b"), device="cpu")
+    # packed training is ported: the option builds a trainer (tests/test_torch_port_packed_model.py trains it)
+    assert SRTrainer(config_mv, dict(config_t, packed=True), run_dir=str(tmp_path / "b"), device="cpu").config_t["packed"]
     with pytest.raises(NotImplementedError, match="live"):
         SRTrainer(config_mv, dict(config_t, n_event_displays=2), run_dir=str(tmp_path / "c"), device="cpu")
