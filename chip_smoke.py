@@ -7,8 +7,11 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels from ``superresolutionhep_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card, then drives the port's main paths at the full width of the
-multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
+card (K1-K9 at the SR and PF shapes, the attention probes K10/K11 at the
+measuring scripts' shapes), runs the two ported measuring scripts' own sweeps
+(``scripts/kernel_experiments.py``, ``scripts/probe_exp_dtype.py`` of the
+package; the probes phase), then drives the port's main paths at the full
+width of the multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
   * serve: ``SRServer.predict_event`` (25-point grid, 10 ensemble members,
     bf16, no-max attention, fused prologue);
   * packed inference: ``SRInference.predict`` with ``packed: true`` (rows of
@@ -21,21 +24,31 @@ multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
   * packed train: ``SRTrainer.fit`` with ``packed: true``, resumed; fp32
     gradients of a packed row against the same events unpacked; the step time
     at (8, 5120);
+and stage 2 at the published particle-flow configuration (h 64, 3 encoder
+DiT layers of 4 heads of 16, 4 cross-attention kinematics layers) on the
+SR-predicted trees of 32 synthetic events:
+  * pf inference: ``PFInference.predict`` at high and low resolution (fp32,
+    batch 32); the K1 path against the dense path;
+  * pf train: ``PFTrainer.fit`` (fp32, the published training settings),
+    resumed; fp32 gradients through K1/K5/K6 against the dense path, a bf16
+    step by its loss, step times on a fit batch and at the published bucket
+    sizes;
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
 (seeded); events are synthetic (seeded).
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
-``kernel_case`` lines, ``serve``, ``packed_inference``, ``train``,
-``packed_train``), then the card's name and power limit as
-nvidia-smi gives them, then ``{"kernels": [...]}`` (one entry per kernel: its
-time on the card, the plain version's, the bound, the launches on the main
-path), then, last, ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero and prints no ``ok`` line.  Without a CUDA device it exits 2.
+``kernel_case`` lines, the scripts' own lines and ``probes``, ``serve``,
+``packed_inference``, ``train``, ``packed_train``, ``pf_inference``,
+``pf_train``), then the card's name and power limit as nvidia-smi gives them,
+then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
+card, the plain version's, the bound, the launches on the main paths), then,
+last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and
+prints no ``ok`` line.  Without a CUDA device it exits 2.
 
 Options (for development; the default run does everything):
-    --skip-serve      no serve and packed inference phases (exits 1 by design)
-    --skip-train      no train and packed train phases (exits 1 by design)
+    --skip-serve      no serve, packed and pf inference phases (exits 1 by design)
+    --skip-train      no train, packed and pf train phases (exits 1 by design)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
 """
@@ -88,6 +101,10 @@ TOL = {
 # bf16, and the JAX package's own bf16 gap between the two layouts on this
 # model (6 layers, random weights) is 0.045 absolute, 3.2e-2 of the max.
 LAYOUT_TOL = {torch.float32: ("rel", 2e-4), torch.bfloat16: ("abs", 6e-2)}
+# the attention probes K10/K11 against their plain versions, relative to each
+# output's max: p rounded to bf16 on both sides (the hardware bf16 exp2 can sit
+# one ulp from the rounded fp32 one), another summation order
+PROBE_TOL = 1e-2
 
 REPLACES = {
     "flash_fwd": "superresolutionhep_tpu/ops/flash_attention.py:213",
@@ -100,6 +117,8 @@ REPLACES = {
     "packed_fwd_nomax": "superresolutionhep_tpu/ops/flash_packed.py:237",
     "packed_bwd_dq": "superresolutionhep_tpu/ops/flash_packed.py:381",
     "packed_bwd_dkv": "superresolutionhep_tpu/ops/flash_packed.py:415",
+    "probe_variant": "scripts/kernel_experiments.py:122",
+    "probe_exp_dtype": "scripts/probe_exp_dtype.py:70",
 }
 SOURCE = {
     "flash_fwd": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
@@ -112,6 +131,8 @@ SOURCE = {
     "packed_fwd_nomax": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
     "packed_bwd_dq": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
     "packed_bwd_dkv": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
+    "probe_variant": "superresolutionhep_tpu_torch/csrc/attention_probes.cu",
+    "probe_exp_dtype": "superresolutionhep_tpu_torch/csrc/attention_probes.cu",
 }
 
 
@@ -130,34 +151,14 @@ def fail(msg):
 
 
 def time_ms(fn, reps, inner=8):
-    """Device time of one call of ``fn`` in ms: ``inner`` calls are captured into
-    a CUDA graph, the graph is replayed ``reps`` times, each replay between its
-    own pair of CUDA events, and the median is divided by ``inner``.  Replaying a
+    """Device time of one call of ``fn`` in ms: ``inner`` calls captured into a
+    CUDA graph, replayed ``reps`` times between CUDA events, the median over
+    ``inner`` (the package's ``scripts/common.py::graph_ms``).  Replaying a
     graph takes the host out of the interval: timed eagerly, a 20 us kernel
     behind a 100 us Python wrapper reads as 100 us."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up (first-launch set-up must not be captured)
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    del graph
-    return statistics.median(times)
+    from superresolutionhep_tpu_torch.scripts.common import graph_ms
+
+    return graph_ms(fn, reps, chain=inner)
 
 
 def ragged_valid(B, L, device):
@@ -306,18 +307,43 @@ def kernel_cases(reps):
                 cases.append(case)
                 emit({"phase": "kernel_case", **case})
 
-    # the PF stage's head dim (16) must build and agree too: one small robust case
-    valid, _ = ragged_valid(4, 256, dev)
-    t16 = randn(4, 256, 3, 4, 16, scale=0.7).to(torch.bfloat16)
-    q16, k16, v16 = t16[:, :, 0], t16[:, :, 1], t16[:, :, 2]  # (B, L, H, 16) strided views
-    out16 = fa.masked_flash_attention(q16, k16, v16, valid, valid, scale=0.25)
-    ref16, _ = fa._ref_attention(*(t.permute(0, 2, 1, 3) for t in (q16, k16, v16)),
-                                 valid.float()[:, None], valid.float()[:, None], 0.25)
-    err16 = (out16.float() - ref16.permute(0, 2, 1, 3).float()).abs().max().item()
-    case = {"kernel": "flash_fwd", "dtype": "bf16", "B": 4, "H": 4, "L": 256, "D": 16,
-            "max_abs_err": err16, "tol": TOL[("flash", torch.bfloat16)], "ok": err16 <= TOL[("flash", torch.bfloat16)]}
-    cases.append(case)
-    emit({"phase": "kernel_case", **case})
+    # the PF stage's head dim (16), bf16 and fp32 (PF's default precision):
+    # a small case and the PF encoder's shape class, (32, 640) with 4 heads
+    for dtype, B16, L16 in ((torch.bfloat16, 4, 256), (torch.float32, 4, 256), (torch.float32, 32, 640)):
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        valid, lens = ragged_valid(B16, L16, dev)
+        t16 = randn(B16, L16, 3, 4, 16, scale=0.7).to(dtype)
+        q16, k16, v16 = t16[:, :, 0], t16[:, :, 1], t16[:, :, 2]  # (B, L, H, 16) strided views
+        before = kernels.LAUNCHES["flash_fwd"]
+        out16 = fa.masked_flash_attention(q16, k16, v16, valid, valid, scale=0.25)
+        torch.cuda.synchronize()
+        ref16, _ = fa._ref_attention(*(t.permute(0, 2, 1, 3) for t in (q16, k16, v16)),
+                                     valid.float()[:, None], valid.float()[:, None], 0.25)
+        err16 = (out16.float() - ref16.permute(0, 2, 1, 3).float()).abs().max().item()
+        tol = TOL[("flash", dtype)]
+        case = {"kernel": "flash_fwd", "dtype": dname, "B": B16, "H": 4, "L": L16, "D": 16,
+                "max_abs_err": err16, "tol": tol,
+                "ok": (err16 <= tol and kernels.LAUNCHES["flash_fwd"] == before + 1
+                       and bool(torch.isfinite(out16).all()))}
+        if L16 == 640:
+            flops = 4.0 * 4 * 16 * sum(n * n for n in lens)
+            nbytes = 4 * B16 * L16 * 4 * 16 * 4 + 2 * B16 * L16 * 4
+            peak = H100_FLOPS[dtype]
+            # the kernel alone, on the pre-scaled q (the wrapper's scale
+            # constant is a host-to-device copy, which a CUDA graph cannot hold)
+            q16_pre, qm16 = q16 * (0.25 * fa.LOG2E), valid.float().contiguous()
+            qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q16, k16, v16))
+            case.update({
+                "ms": time_ms(lambda: fa._flash_fwd_cuda(q16_pre, k16, v16, qm16, qm16, nomax=False,
+                                                         with_lse=False), reps),
+                "plain_ms": time_ms(lambda: fa._ref_attention(qh, kh, vh, qm16[:, None], qm16[:, None], 0.25),
+                                    max(3, reps // 5)),
+                "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=valid[:, None, None, :], scale=0.25), reps),
+                "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"})
+        cases.append(case)
+        emit({"phase": "kernel_case", **case})
 
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -349,7 +375,8 @@ def bwd_kernel_cases(reps):
         dname = "bf16" if dtype == torch.bfloat16 else "fp32"
         isz = 2 if dtype == torch.bfloat16 else 4
         peak = H100_FLOPS[dtype]
-        for B, H, D, L in shapes:
+        # the PF encoder's shape class (head dim 16, fp32 training)
+        for B, H, D, L in shapes + ([(32, 4, 16, 640)] if dtype == torch.float32 else []):
             valid, lens = ragged_valid(B, L, dev)
             qm = valid.float().contiguous()
             # q/k/v as strided views of one (B, L, 3, H, D) projection, q pre-scaled
@@ -1318,6 +1345,450 @@ def serve_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase: probes (K10, K11 and the two measuring scripts)
+# ---------------------------------------------------------------------------
+
+
+def max_sm_clock_hz():
+    """The card's maximum SM clock, for the special-function unit's bound."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def probe_kernel_cases(reps):
+    """K10 (four modes) and K11 (bf16 and fp32 exp; all-ones and ragged key
+    masks) against their plain versions on the same CUDA tensors.
+      * timed, at the scripts' shapes (8, 8, 2048, 64) and (4, 8, 3584, 64),
+        64x64 tiles, on the scripts' inputs: q fed as q, k and v (scaled by
+        0.9: |q|^2 ~ 52 +- 9 keeps the no-max mode's bf16 exp2, which
+        overflows at 128, finite on every row);
+      * untimed, at (8, 8, 2048, 64), on independent q, k, v: logits of std ~2
+        in every mode (the softmax is not the near-identity that q = k = v
+        gives), logits of std ~32 in the running-max modes (without the max,
+        exp2 overflows), and the other instantiated tile shapes.
+    Tolerance 1e-2 of each output's max: p is rounded to bf16 on both sides
+    (the hardware ex2.approx.bf16x2 against a rounded fp32 exp2, one ulp
+    apart at most), another summation order.  That tolerance cannot tell the
+    exponential's dtype apart, so on the independent inputs every bf16/fp32
+    exp case must also lie nearer (mean absolute difference) to its own
+    mode's plain version than to the other dtype's; both gaps are printed.
+    Bounds: operations 4*B*H*L^2*D over the bf16 tensor-core peak, bytes (q,
+    k, v, out, km once) over the memory rate, and beside them the
+    special-function units' bound: B*H*L^2 exponentials at 16 per clock per
+    SM (the maximum SM clock), one per exp2f in the fp32 mode and one per two
+    exponentials in the bf16 modes, whose ex2.approx.ftz.bf16x2 yields two
+    results; that the bf16x2 instruction issues at the f32 rate is an
+    assumption, not a measured or documented figure.
+    Library: one SDPA call with scale ln 2 (the same base-2 softmax) and the
+    boolean key mask; for matmuls_only two torch.matmul."""
+    from superresolutionhep_tpu_torch.ops import attention_probes as ap
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2024)
+    sfu_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_clock_hz()
+    peak = H100_FLOPS[torch.bfloat16]
+
+    def randn(B, H, L, scale):
+        return (torch.randn((B, H, L, 64), generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    def ragged(B, L):
+        """1 = valid: full rows, a row whose valid keys start after the first
+        two 64-key tiles (the p = 1 trap wiped by alpha = 0), a row with no
+        valid key at all (out = mean of v), ragged ends."""
+        km = torch.ones((B, L), device=dev)
+        km[1, :160], km[1, 1500:] = 0.0, 0.0
+        km[2, :] = 0.0
+        km[3, 700:] = 0.0
+        return km
+
+    cases = []
+
+    def run(name, inputs, call, plain, extra, timing=None, other=None):
+        """Launch once (counted), compare with the plain version; with
+        ``other`` (the plain version in the other exp dtype) also require the
+        output nearer its own mode's; with ``timing`` = (library, flops,
+        sfu_instructions, bytes) also time all three."""
+        B, H, L, _ = inputs[0].shape
+        before = kernels.LAUNCHES[name]
+        out = call()
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[name] != before + 1:
+            fail(f"{name}: the wrapper did not count its launch")
+        ref = plain()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        scale = ref.float().abs().max().item()
+        case = {"kernel": name, "dtype": "bf16", "B": B, "H": H, "L": L, "D": 64, **extra, "max_abs_err": err,
+                "max_rel_err": err / max(scale, 1e-30), "tol_rel": PROBE_TOL,
+                "plain_finite": bool(torch.isfinite(ref.float()).all())}
+        case["ok"] = case["plain_finite"] and bool(torch.isfinite(out.float()).all()) and err <= PROBE_TOL * scale
+        if other is not None:
+            gap = (out.float() - other().float()).abs()
+            case["exp_dtype_check"] = {"mean_abs_err_own_dtype": diff.mean().item(),
+                                       "mean_abs_err_other_dtype": gap.mean().item(),
+                                       "max_abs_err_other_dtype": gap.max().item()}
+            case["ok"] = case["ok"] and diff.mean().item() < gap.mean().item()
+        if timing is not None:
+            library, flops, sfu_ops, nbytes = timing
+            case.update({"ms": time_ms(call, reps), "plain_ms": time_ms(plain, max(3, reps // 5)),
+                         "library_ms": time_ms(library, reps),
+                         "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
+                         "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes",
+                         "sfu_bound_ms": sfu_ops / sfu_per_s * 1e3})
+        emit({"phase": "kernel_case", **case})
+        cases.append(case)
+
+    def variant(q, k, v, mode, tag, bq=64, bk=64, timing=None, dtype_check=False):
+        swap = {"full": "fp32_exp", "fp32_exp": "full"}
+        run("probe_variant", (q, k, v), lambda: ap.attention_variant(q, k, v, mode, block_q=bq, block_k=bk),
+            lambda: ap._ref_variant(q, k, v, mode, block_k=bk), {"mode": mode, "blocks": [bq, bk], **tag}, timing,
+            (lambda: ap._ref_variant(q, k, v, swap[mode], block_k=bk)) if dtype_check and mode in swap else None)
+
+    def exp_probe(q, k, v, km, exp_bf16, mask, tag, bq=64, bk=64, timing=None, dtype_check=False):
+        run("probe_exp_dtype", (q, k, v),
+            lambda: ap.attention_exp_probe(q, k, v, km, exp_bf16, block_q=bq, block_k=bk),
+            lambda: ap._ref_exp_probe(q, k, v, km, exp_bf16, block_k=bk),
+            {"exp_bf16": exp_bf16, "mask": mask, "blocks": [bq, bk], **tag}, timing,
+            (lambda: ap._ref_exp_probe(q, k, v, km, not exp_bf16, block_k=bk)) if dtype_check else None)
+
+    for B, H, L in ((8, 8, 2048), (4, 8, 3584)):
+        # ---- timed, on the scripts' inputs
+        q = randn(B, H, L, 0.9)
+        flops, exps, nbytes = 4.0 * B * H * L * L * 64, float(B * H * L * L), 4 * B * H * L * 64 * 2
+        # special-function instructions: one ex2.approx.ftz.bf16x2 per two exps
+        sfu_ops = {"matmuls_only": 0.0, "no_max": exps / 2, "full": exps / 2, "fp32_exp": exps}
+        tag = {"inputs": "q=k=v, x0.9"}
+        for mode in ap.MODES:
+            if mode == "matmuls_only":
+                def library():
+                    return torch.matmul(torch.matmul(q, q.transpose(-1, -2)), q)
+            else:
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(q, q, q, scale=fa.LN2)
+            variant(q, q, q, mode, tag, timing=(library, flops, sfu_ops[mode], nbytes))
+        for mask in ("ones", "ragged"):
+            km = torch.ones((B, L), device=dev) if mask == "ones" else ragged(B, L)
+            amask = (km > 0)[:, None, None, :]
+            for exp_bf16 in (True, False):
+                exp_probe(q, q, q, km, exp_bf16, mask, tag, timing=(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q, q, q, attn_mask=amask,
+                                                                             scale=fa.LN2),
+                    flops, sfu_ops["full" if exp_bf16 else "fp32_exp"], nbytes + B * L * 4))
+        del q
+        if L != 2048:
+            continue
+        # ---- untimed, independent q, k, v
+        km = ragged(B, L)
+        for scale, modes in ((0.5, ap.MODES), (2.0, ("full", "fp32_exp"))):
+            q, k, v = randn(B, H, L, scale), randn(B, H, L, scale), randn(B, H, L, 1.0)
+            tag = {"inputs": f"independent, logit std ~{64 ** 0.5 * scale * scale:.0f}"}
+            for mode in modes:
+                variant(q, k, v, mode, tag, dtype_check=True)
+            for exp_bf16 in (True, False):
+                exp_probe(q, k, v, km, exp_bf16, "ragged", tag, dtype_check=True)
+        for bq, bk in ((64, 128), (128, 64), (128, 128)):  # large logits, the other tile shapes
+            variant(q, k, v, "full", tag, bq, bk, dtype_check=True)
+            exp_probe(q, k, v, km, True, "ragged", tag, bq, bk, dtype_check=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} probe case(s) disagree with the plain version: "
+             + "; ".join(f"{c['kernel']}/{c.get('mode', c.get('exp_bf16'))}/L={c['L']}/{c['blocks']}/"
+                         f"{c.get('inputs')} rel={c['max_rel_err']:.3g} {c.get('exp_dtype_check', '')}"
+                         for c in bad))
+    return cases
+
+
+def probes_phase(reps):
+    """The two ported measuring scripts' own sweeps, once each, in the counted
+    window: their lines go to stdout; every configuration must have launched
+    (a configuration the scripts skip would leave the counts short)."""
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.scripts import kernel_experiments, probe_exp_dtype
+
+    kernels.reset_launches()
+    t0 = time.time()
+    kernel_experiments.sweep("cuda", reps=reps)
+    probe_exp_dtype.sweep("cuda")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    # per configuration: 2 warm-up calls + the 8 captured (kernel_experiments,
+    # 7 configurations); 2 warm-up chains + 1 captured chain of REPS (probe_exp_dtype, 10)
+    expect = dict({k: 0 for k in kernels.LAUNCHES}, probe_variant=7 * 10,
+                  probe_exp_dtype=10 * 3 * probe_exp_dtype.REPS)
+    line = {"phase": "probes", "seconds": round(time.time() - t0, 2), "launches": counts,
+            "launches_expected": expect, "ok": counts == expect}
+    emit(line)
+    if not line["ok"]:
+        fail("probes: the scripts' sweeps did not launch every configuration")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases: stage 2 (particle flow)
+# ---------------------------------------------------------------------------
+
+
+def sr_predicted_trees(n=32, seed=31):
+    """Stage-1 output trees of ``n`` synthetic multi-particle events, in
+    memory: ``SRInference.predict`` at the full width of the multipart model
+    (random Xavier weights, bf16, robust attention, 3-point grid, 2 members)
+    with ``store_energy_incidence`` and ``max_particles: 4``, the branches
+    stage 2 reads."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, serve_inference_config
+    from superresolutionhep_tpu_torch.inference.sr import SRInference
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    ds = multipart_dataset(cfg_mv, n, seed, make_low=True, make_particles=True, max_particles=4, window_lr_cells=2)
+    params = params_from_jax(init_params_jax_layout(cfg_mv["flow_model"], seed=0), cfg_mv["flow_model"])
+    inf = SRInference(serve_inference_config(cfg_mv, n_steps=3, fast_softmax=False), params=params, device="cuda")
+    return inf.predict(ds, {"n_ensemble": 2, "ode_method": "ab2e", "seed": 0, "batch_size": 8,
+                            "store_energy_incidence": True, "max_particles": 4})
+
+
+def pf_inference_phase(trees):
+    """``PFInference.predict`` of the published stage-2 model (h 64, encoder
+    3 DiT layers of 4 heads of 16, kinematics 4 cross-attention layers,
+    random Xavier weights from a seed), fp32, batch 32, bucket quantum 128, on
+    the SR-predicted events at high and at low resolution, in the counted
+    window: exactly 3 K1 per batch (the encoder's self-attention; the
+    kinematics cross-attention with 4 queries is dense by design; at h 64 the
+    fused prologue is its unfused equivalent, so no K3/K4).  Then every batch
+    again through the same model on the dense attention path: fp32 outputs
+    within 2e-4 of their max, cardinalities and assignments equal."""
+    from superresolutionhep_tpu_torch.configs import PF_CONFIG_MV, PF_CONFIG_T
+    from superresolutionhep_tpu_torch.data.bucketing import BucketBatcher
+    from superresolutionhep_tpu_torch.data.pf_dataset import PflowEvents, collate_pf
+    from superresolutionhep_tpu_torch.inference.pf import PFInference, pf_batch_to_device
+    from superresolutionhep_tpu_torch.losses.set2set import set_to_set_incidence_loss
+    from superresolutionhep_tpu_torch.models.pf import SAPF
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.tools.convert import init_pf_params_jax_layout, pf_params_from_jax
+
+    pf_cfg = PF_CONFIG_MV["pf_model"]
+    n_enc = int(pf_cfg["encoder"]["transformer"]["num_transformer_layers"])
+    params = pf_params_from_jax(init_pf_params_jax_layout(pf_cfg, seed=0), pf_cfg)
+
+    infs = {res: PFInference({"model": {"config_mv": PF_CONFIG_MV, "config_t": dict(PF_CONFIG_T, resolution=res),
+                                        "checkpoint_path": None}, "batch_size": 32}, params=params, device="cuda")
+            for res in ("high", "low")}
+    dss = {res: PflowEvents.from_trees(trees, PF_CONFIG_MV, energy_threshold=float(PF_CONFIG_T["energy_threshold"]),
+                                       res=res, load_incidence=True) for res in infs}
+    n_batches = {res: len(BucketBatcher(ds.cell_count, quantum=128, max_batch_size=32, shuffle=False))
+                 for res, ds in dss.items()}
+
+    # ---- the counted window: every count to 0 just before, read just after
+    kernels.reset_launches()
+    t0 = time.time()
+    out = {res: infs[res].predict(dss[res], {"store_inc_wt": True}) for res in ("high", "low")}
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    predict_s = time.time() - t0
+    # ---- end of the counted window
+    expect = dict({k: 0 for k in kernels.LAUNCHES}, flash_fwd=n_enc * sum(n_batches.values()))
+    checks = {"launch_counts": counts == expect}
+    checks["one_row_per_event"] = all(len(o["Particle_Tree"]["pred_card"]) == len(dss[r]) for r, o in out.items())
+    checks["predictions_finite"] = all(bool(np.isfinite(o["Particle_Tree"][k].flat).all()) for o in out.values()
+                                       for k in ("pred_pt_raw", "pred_eta_raw", "pred_phi", "pred_e_raw"))
+
+    # ---- the K1 path against the dense path, same weights, every batch (high res)
+    dense = SAPF(pf_cfg, infs["high"].transforms, inference=True, attn_impl="einsum")
+    dense.load_reference_state_dict(params)
+    dense.to("cuda").eval()
+    worst = {"logits": 0.0, "kin": 0.0, "inc": 0.0}
+    same_card = same_assign = True
+    ds = dss["high"]
+    for idxs, bucket in BucketBatcher(ds.cell_count, quantum=128, max_batch_size=32, shuffle=False):
+        batch = pf_batch_to_device(collate_pf([ds.get_event(i) if i >= 0 else None for i in idxs], bucket.pad_n, 4),
+                                   torch.device("cuda"))
+        with torch.no_grad():
+            res = [m(batch) for m in (infs["high"].model, dense)]
+        for name, a, b in zip(("logits", "kin", "inc"), res[0], res[1]):
+            worst[name] = max(worst[name], float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+        same_card = same_card and torch.equal(res[0][0].argmax(-1), res[1][0].argmax(-1))
+        assigns = [set_to_set_incidence_loss(r[2], batch, r[1])[2] for r in res]
+        same_assign = same_assign and torch.equal(*assigns)
+    checks["flash_vs_dense_fp32"] = max(worst.values()) <= 2e-4
+    checks["cardinalities_equal"] = bool(same_card)
+    checks["assignments_equal"] = bool(same_assign)
+    line = {"phase": "pf_inference", "events": {r: len(d) for r, d in dss.items()},
+            "cells": {r: [min(d.cell_count), max(d.cell_count)] for r, d in dss.items()},
+            "batches": n_batches, "predict_s": round(predict_s, 3), "launches": counts, "launches_expected": expect,
+            "flash_vs_dense_max_rel_err": worst, "tol_rel": 2e-4,
+            "pred_card_histogram": {r: np.bincount(o["Particle_Tree"]["pred_card"], minlength=5).tolist()
+                                    for r, o in out.items()},
+            "checks": checks, "ok": all(checks.values())}
+    emit(line)
+    if not line["ok"]:
+        fail("pf inference checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts
+
+
+def budget_sized_pf_events(ds, n_cells, rng):
+    """Stage-2 events of ``n_cells[i]`` cells each, for timing at realistic
+    sizes: cells drawn with replacement from all the cells of ``ds`` (every
+    per-cell field of one cell kept together), the particles of a random event
+    of ``ds``, and incidence rows drawn from a Dirichlet over its particles."""
+    evs = [ds.get_event(i) for i in range(len(ds))]
+    cell_keys = [k for k, v in evs[0].items() if k.startswith("cell_")]
+    pool = {k: np.concatenate([ev[k] for ev in evs]) for k in cell_keys}
+    out = []
+    for n in n_cells:
+        src = evs[int(rng.integers(len(evs)))]
+        pick = rng.integers(0, len(pool["cell_e"]), n)
+        ev = {k: v for k, v in src.items() if not k.startswith("cell_")}
+        ev.update({k: v[pick] for k, v in pool.items()})
+        inc = np.zeros((n, src["incidence_matrix"].shape[1]), np.float32)
+        n_part = min(src["n_particles"], inc.shape[1])
+        inc[:, :n_part] = rng.dirichlet(np.ones(n_part), n)
+        ev["incidence_matrix"] = inc
+        out.append(ev)
+    return out
+
+
+def pf_train_phase(trees, reps):
+    """``PFTrainer.fit`` of the published stage-2 model with the published
+    training settings (incidence set loss, card weight 0.5, bucket quantum
+    128, batch 32, the cost budget, clip 1.0, warm-start cosine), fp32, seeded
+    init with its policies, on the low-resolution SR-predicted events: two
+    epochs with validation and checkpoints in the counted window (exactly 3
+    K1 + 3 K5 + 3 K6 per step, 3 K1 per validation batch), then resumed for
+    a third.  Then one fp32 step's gradients through K1/K5/K6 against the
+    dense path (1e-4 of each leaf's max, floored at 1e-3 of the largest), one
+    bf16 step held by its loss (3e-2 of the fp32 loss), and the median step
+    time on that batch (a few cells per event) and on batches at the
+    published bucket sizes: pad 1024 and 2048 with the batch the cost budget
+    allows (32 and 27 events), each event filling its bucket."""
+    import copy
+    import tempfile
+
+    from superresolutionhep_tpu_torch.config import resolve_threshold
+    from superresolutionhep_tpu_torch.configs import PF_CONFIG_MV, PF_CONFIG_T
+    from superresolutionhep_tpu_torch.data.pf_dataset import PflowEvents, collate_pf
+    from superresolutionhep_tpu_torch.inference.pf import pf_batch_to_device
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.tools.convert import init_pf_params_jax_layout, pf_params_from_jax
+    from superresolutionhep_tpu_torch.train.checkpoint import CheckpointManager
+    from superresolutionhep_tpu_torch.train.pf_trainer import PFTrainer
+
+    dev = torch.device("cuda")
+    pf_cfg = PF_CONFIG_MV["pf_model"]
+    n_enc = int(pf_cfg["encoder"]["transformer"]["num_transformer_layers"])
+    cfg_t = dict(copy.deepcopy(PF_CONFIG_T), num_epochs=2, epoch_end_plots=False, num_workers=2)
+    ds = PflowEvents.from_trees(trees, PF_CONFIG_MV, energy_threshold=float(cfg_t["energy_threshold"]),
+                                res=cfg_t["resolution"], load_incidence=True)
+    run = tempfile.mkdtemp(prefix="srhep_pf_train_")
+    calls = {"train": 0, "val": 0}
+
+    def count_calls(_module, _inputs):
+        calls["train" if torch.is_grad_enabled() else "val"] += 1
+
+    # ---- the counted window: fit, every count to 0 just before, read just after
+    tr = PFTrainer(PF_CONFIG_MV, cfg_t, run_dir=run, seed=0, device="cuda")
+    hook = tr.model.register_forward_pre_hook(count_calls)
+    kernels.reset_launches()
+    t0 = time.time()
+    tr.fit(ds, ds)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    fit_s = time.time() - t0
+    # ---- end of the counted window
+    hook.remove()
+    expect = dict({k: 0 for k in kernels.LAUNCHES}, flash_fwd=n_enc * (calls["train"] + calls["val"]),
+                  flash_bwd_dq=n_enc * calls["train"], flash_bwd_dkv=n_enc * calls["train"])
+    lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    checks = {"fit_epochs": tr.epoch == 2 and len(lines) == 2 and calls["train"] == tr.global_step > 0,
+              "launch_counts": counts == expect,
+              "losses_finite": all(np.isfinite(x["train/loss"]) and np.isfinite(x["val_loss_to_optimize_on"])
+                                   for x in lines)}
+    final = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    restored = CheckpointManager(f"{run}/checkpoints").restore(which="last", map_location=dev)["params"]
+    tr2 = PFTrainer(PF_CONFIG_MV, dict(cfg_t, num_epochs=3), run_dir=run, seed=1, device="cuda")
+    tr2.fit(ds, ds, resume=True)
+    checks["resume_restored_last_epoch"] = (all(torch.equal(restored[k], final[k]) for k in final)
+                                            and tr2.epoch == 3 and tr2.opt.count == tr.opt.count + tr2.global_step)
+    line = {"phase": "pf_train", "run_dir": run, "n_events": len(ds), "cells": [min(ds.cell_count),
+                                                                              max(ds.cell_count)],
+            "fit_s": round(fit_s, 2), "train_steps": tr.global_step, "model_calls": dict(calls),
+            "launches": counts, "launches_expected": expect,
+            "epochs": [{k: x.get(k) for k in ("step", "lr", "train/loss", "train/card_loss", "train/inc_loss",
+                                              "train/grad_norm", "train/epoch_s", "val_loss_to_optimize_on",
+                                              "val/card_accuracy")} for x in lines]}
+    idxs, bucket = next(iter(tr._batcher(ds, "train", seed=0)))  # the first training batch of epoch 0
+    del tr, tr2
+
+    # ---- one step on that batch: K1/K5/K6 against the dense path, fp32; bf16 by its loss
+    hb = collate_pf([ds.get_event(i) if i >= 0 else None for i in idxs], bucket.pad_n, 4)
+    batch = pf_batch_to_device(hb, dev)
+    params = pf_params_from_jax(init_pf_params_jax_layout(pf_cfg, seed=3), pf_cfg)  # Xavier adaLN: gates open
+    res = {}
+    for name, impl, dtype in (("flash", "auto", None), ("dense", "einsum", None), ("bf16", "auto", torch.bfloat16)):
+        trx = PFTrainer(PF_CONFIG_MV, cfg_t, run_dir=tempfile.mkdtemp(), device="cuda", params=params,
+                        attn_impl=impl, dtype=dtype)
+        before = dict(kernels.LAUNCHES)
+        loss, _, g = trx.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        res[name] = ({n: gi for (n, _), gi in zip(trx.model.named_parameters(), g)}, float(loss.detach()),
+                     {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES if kernels.LAUNCHES[k] != before[k]})
+        del trx
+    ok, worst, leaf = _grads_agree(res["flash"][0], res["dense"][0], 1e-4)
+    lf, ld, lb = res["flash"][1], res["dense"][1], res["bf16"][1]
+    kernels_step = {"flash_fwd": n_enc, "flash_bwd_dq": n_enc, "flash_bwd_dkv": n_enc}
+    checks["flash_vs_dense_grads_fp32"] = (ok and abs(lf - ld) <= 1e-4 * abs(ld) and res["flash"][2] == kernels_step
+                                           and res["dense"][2] == {})
+    checks["bf16_step_loss"] = abs(lb - lf) <= 3e-2 * abs(lf) and res["bf16"][2] == kernels_step
+    line["grad_check"] = {"shape": list(hb["cell_e"].shape), "tol_rel": 1e-4, "worst_rel_err": worst, "leaf": leaf,
+                          "loss": {"flash": lf, "dense": ld, "bf16": lb}, "bf16_loss_tol_rel": 3e-2,
+                          "launches": {k: v[2] for k, v in res.items()}}
+
+    # ---- step times (a reading, not a benchmark): that batch, then batches at
+    # the published bucket sizes
+    trs = PFTrainer(PF_CONFIG_MV, dict(cfg_t, lr_scheduler=None), run_dir=tempfile.mkdtemp(), device="cuda",
+                    params=params)
+
+    def step_times(hbx):
+        bx = pf_batch_to_device(hbx, dev)
+        for _ in range(2):
+            trs.train_step(bx, lr=1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(max(5, reps // 4)):
+            t1 = time.time()
+            st = trs.train_step(bx, lr=1e-3)
+            float(st["loss"])
+            ms.append((time.time() - t1) * 1e3)
+        return {"B": int(hbx["cell_e"].shape[0]), "N": int(hbx["cell_e"].shape[1]),
+                "valid_cells": int(hbx["cell_mask"].sum()), "median_ms": statistics.median(ms), "min_ms": min(ms),
+                "max_ms": max(ms), "n": len(ms), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "profile": profile_steps(lambda: trs.train_step(bx, lr=1e-3), 3)}
+
+    line["train_step_ms"] = step_times(hb)
+    budget = resolve_threshold(cfg_t["n_sq_sum_threshold_train"])
+    rng = np.random.default_rng(5)
+    line["train_step_ms_budget"] = []
+    for pad_n in (1024, 2048):
+        bsz = min(int(cfg_t["batch_size_train"]), budget // (pad_n * pad_n))
+        evs = budget_sized_pf_events(ds, [pad_n - int(x) for x in rng.integers(0, 128, bsz)], rng)
+        line["train_step_ms_budget"].append(dict(step_times(collate_pf(evs, pad_n, 4)),
+                                                 cost=bsz * pad_n * pad_n, cost_budget=budget))
+    del trs
+    line["checks"], line["ok"] = checks, all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("pf train checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true")
@@ -1334,10 +1805,9 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    from superresolutionhep_tpu_torch.scripts.common import card
+
+    smi = card()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
@@ -1349,21 +1819,38 @@ def main():
     if args.ptxas:
         print((kernels.build_dir() / "nvcc_log.txt").read_text(), flush=True)
 
-    cases = kernel_cases(args.reps) + bwd_kernel_cases(args.reps) + packed_kernel_cases(args.reps)
+    cases = (kernel_cases(args.reps) + bwd_kernel_cases(args.reps) + packed_kernel_cases(args.reps)
+             + probe_kernel_cases(args.reps))
     zero = {k: 0 for k in kernels.LAUNCHES}
-    by_phase = {"serve": serve_phase() if not args.skip_serve else zero,
+    by_phase = {"probes": probes_phase(args.reps),
+                "serve": serve_phase() if not args.skip_serve else zero,
                 "packed_inference": packed_inference_phase() if not args.skip_serve else zero,
                 "train": train_phase(args.reps) if not args.skip_train else zero,
                 "packed_train": packed_train_phase(args.reps) if not args.skip_train else zero}
+    if not (args.skip_serve and args.skip_train):
+        trees = sr_predicted_trees()
+        by_phase["pf_inference"] = pf_inference_phase(trees) if not args.skip_serve else zero
+        by_phase["pf_train"] = pf_train_phase(trees, args.reps) if not args.skip_train else zero
 
     # one entry per kernel: the main paths' shape class (bf16; L=2048 with
-    # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9);
-    # launches: the counted windows of the four path phases
+    # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9, the
+    # scripts' (8, 8, 2048, 64) for K10 in mode full and K11 with bf16 exp and
+    # the all-ones mask); launches: the counted windows of the path phases
+    def entry_case(name):
+        if name == "probe_variant":
+            return next(c for c in cases if c["kernel"] == name and c["L"] == 2048 and c.get("mode") == "full"
+                        and "ms" in c)
+        if name == "probe_exp_dtype":
+            return next(c for c in cases if c["kernel"] == name and c["L"] == 2048 and c.get("exp_bf16") is True
+                        and c.get("mask") == "ones" and "ms" in c)
+        L = PACKED_S if name.startswith("packed") else 2048
+        return next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["L"] == L and "ms" in c)
+
     entries = []
     for name in ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp", "flash_bwd_dq", "flash_bwd_dkv",
-                 "packed_fwd", "packed_fwd_nomax", "packed_bwd_dq", "packed_bwd_dkv"):
-        L = PACKED_S if name.startswith("packed") else 2048
-        c = next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["L"] == L and "ms" in c)
+                 "packed_fwd", "packed_fwd_nomax", "packed_bwd_dq", "packed_bwd_dkv", "probe_variant",
+                 "probe_exp_dtype"):
+        c = entry_case(name)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": sum(counts[name] for counts in by_phase.values()),
@@ -1371,7 +1858,11 @@ def main():
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": {k: c[k] for k in ("B", "H", "L", "D", "F", "O", "Fh") if k in c}, "dtype": "bf16",
+            **({"sfu_bound_ms": c["sfu_bound_ms"]} if "sfu_bound_ms" in c else {}),
         })
+    missing = [e["name"] for e in entries if e["launches"] == 0]
+    if missing and not (args.skip_serve or args.skip_train):
+        fail(f"kernel(s) never launched on their main path: {missing}")
     emit({"phase": "total", "seconds": round(time.time() - t_start, 1)})
     print(smi, flush=True)
     emit({"kernels": entries})

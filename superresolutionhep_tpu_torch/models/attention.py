@@ -1,10 +1,15 @@
 """Masked multi-head attention over padded variable-length sets.
 
-Counterpart of the JAX package's ``models/attention.py``, for now the
-self-attention path with padding masks or segment-packed rows: edges,
-attention bias, adjacency masks, cross-attention inputs and sequence/tensor
-parallelism raise ``NotImplementedError``.
+Counterpart of the JAX package's ``models/attention.py``, for now self- and
+cross-attention with padding masks, and self-attention over segment-packed
+rows: edges, attention bias, adjacency masks and sequence/tensor parallelism
+raise ``NotImplementedError``.
 
+  * cross-attention (``k`` given, ``v`` defaults to ``k``, ``kv_valid`` the
+    keys' mask; Lq may differ from Lk) takes the flash kernel when
+    ``flash_shapes_ok(Lq, Lk, D)`` holds and the dense formulation otherwise,
+    as in the JAX package: the PF kinematics cross-attention (4 particle
+    queries) is dense by design;
   * mask convention: True == valid (see ops/masked.py);
   * ``segment_ids`` (B, L) int, -1 on padding: several events packed into
     one row attend only within their own segment (ops/flash_packed.py).  On
@@ -89,44 +94,54 @@ class MultiheadAttention(nn.Module):
         segment_ids=None,
         fused_ln=None,
     ):
-        """q: (B, L, F). Masks are True==valid. Returns (B, L, q_dim or
-        embed_dim)."""
-        if k is not None or v is not None:
-            raise NotImplementedError("cross-attention is not ported yet")
+        """q: (B, Lq, F); k, v: (B, Lk, F) for cross-attention (v defaults to
+        k).  Masks are True==valid.  Returns (B, Lq, q_dim or embed_dim)."""
         if edges is not None or attn_bias is not None or attn_valid is not None:
             raise NotImplementedError("edge features / attention bias / adjacency masks are not ported yet")
         if fused_ln is not None:
+            if k is not None or v is not None:
+                raise ValueError("fused_ln supports padding-masked self-attention only (no k/v)")
             return self._fused_self_attention(q, q_valid, fused_ln, segment_ids)
-        kv_valid = q_valid
+        if k is None:
+            k = q
+            if kv_valid is None:
+                kv_valid = q_valid
+        elif segment_ids is not None:
+            raise ValueError("segment_ids are a self-attention option; cross-attention takes padding masks")
+        if v is None:
+            v = k
 
-        B, L, _ = q.shape
+        B, Lq, _ = q.shape
+        Lk = k.shape[1]
         H, HD = self.num_heads, self.embed_dim // self.num_heads
 
-        q_p = self.linear_q(q).reshape(B, L, H, HD)
-        k_p = self.linear_k(q).reshape(B, L, H, HD)
-        v_p = self.linear_v(q).reshape(B, L, H, HD)
+        q_p = self.linear_q(q).reshape(B, Lq, H, HD)
+        k_p = self.linear_k(k).reshape(B, Lk, H, HD)
+        v_p = self.linear_v(v).reshape(B, Lk, H, HD)
         return self._project_out(self._attend(q_p, k_p, v_p, q_valid, kv_valid, segment_ids))
 
     def _attend(self, q_p, k_p, v_p, q_valid, kv_valid, segment_ids=None):
-        """(B, L, H, HD) projections -> (B, L, embed_dim)."""
-        B, L, H, HD = q_p.shape
+        """(B, Lq, H, HD) queries, (B, Lk, H, HD) keys and values ->
+        (B, Lq, embed_dim)."""
+        B, Lq, H, HD = q_p.shape
+        Lk = k_p.shape[1]
         scale = math.sqrt(HD)  # scores are DIVIDED by it
         attn_valid = None
         if segment_ids is not None:
-            if q_p.is_cuda or (self._use_flash(q_p) and packed_shapes_ok(L, HD)):
+            if q_p.is_cuda or (self._use_flash(q_p) and packed_shapes_ok(Lq, HD)):
                 out = packed_flash_attention(q_p, k_p, v_p, segment_ids, scale=1.0 / scale, softmax=self._softmax)
-                return out.reshape(B, L, self.embed_dim)
+                return out.reshape(B, Lq, self.embed_dim)
             # plain block-diagonal formulation (CPU): same segment, valid key
             attn_valid = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (segment_ids >= 0)[:, None, :]
-        elif self._use_flash(q_p) and flash_shapes_ok(L, L, HD):
+        elif self._use_flash(q_p) and flash_shapes_ok(Lq, Lk, HD):
             out = masked_flash_attention(
                 q_p, k_p, v_p, q_valid, kv_valid, scale=1.0 / scale, softmax=self._softmax
             )
-            return out.reshape(B, L, self.embed_dim)
-        mask = merge_masks(q_valid, kv_valid, attn_valid, L, L)  # (B, Lq, Lk) or None
+            return out.reshape(B, Lq, self.embed_dim)
+        mask = merge_masks(q_valid, kv_valid, attn_valid, Lq, Lk)  # (B, Lq, Lk) or None
         scores = torch.einsum("bqhd,bkhd->bhqk", q_p, k_p) / scale
         weights = masked_softmax(scores, mask[:, None] if mask is not None else None, axis=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", weights, v_p).reshape(B, L, self.embed_dim)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, v_p).reshape(B, Lq, self.embed_dim)
 
     def _project_out(self, out):
         return self.linear_out(out) if self.linear_out is not None else out

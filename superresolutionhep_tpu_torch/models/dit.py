@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``models/dit.py``: per-layer context ->
 SiLU -> Linear -> 6-way (shift/scale/gate for MSA and MLP) modulation; gated
 residual attention and FFN.  Self-attention with padding masks or
-segment-packed rows (no cross-attention, tensor parallelism).  ``remat``
+segment-packed rows, and cross-attention, whose modulation is applied to the
+keys (no tensor parallelism).  ``remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``, the
 counterpart of ``nn.remat(DiTLayer)``).
 """
@@ -73,8 +74,6 @@ class DiTLayer(nn.Module):
 
     def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, context_seg=None, seg_onehot=None,
                 attn_valid=None, attn_bias=None, segment_ids=None):
-        if k is not None:
-            raise NotImplementedError("cross-attention DiT layers are not ported yet")
         # packed rows (context_seg (B, E, C) + seg_onehot (B, S, E)): the
         # context is constant within a segment, so the modulation net runs per
         # segment and its output is scattered per cell by one (S x E) product
@@ -85,7 +84,7 @@ class DiTLayer(nn.Module):
 
         # packed rows fuse too: the per-cell modulation rows go into the fused
         # kernels, and attention takes the packed kernel
-        fuse = (self.fused_prologue and attn_valid is None and attn_bias is None
+        fuse = (self.fused_prologue and k is None and attn_valid is None and attn_bias is None
                 and (segment_ids is None) == (context_seg is None))
         if fuse:
             # fold norm1's gamma/beta with the adaLN shift/scale, in fp32, into
@@ -94,10 +93,15 @@ class DiTLayer(nn.Module):
             eff_a = self.norm1.weight.float() * one_scale
             eff_b = self.norm1.bias.float() * one_scale + shift_msa.float()
             q_attn = self.mha(q, q_valid=q_valid, fused_ln=(eff_a, eff_b), segment_ids=segment_ids)
-        else:
+        elif k is None:  # self-attention: modulate the tokens themselves
             q_attn = self.mha(
                 modulate(self.norm1(q), shift_msa, scale_msa),
                 q_valid=q_valid, attn_valid=attn_valid, attn_bias=attn_bias, segment_ids=segment_ids,
+            )
+        else:  # cross-attention: the modulation is applied to the keys
+            q_attn = self.mha(
+                q, k=modulate(self.norm1(k), shift_msa, scale_msa), q_valid=q_valid, kv_valid=kv_valid,
+                attn_valid=attn_valid, attn_bias=attn_bias,
             )
 
         if fuse and self.mlp_cfg is not None:

@@ -1,4 +1,5 @@
-"""Weight-initialisation policies applied to a FlowModel ``state_dict``.
+"""Weight-initialisation policies applied to a model ``state_dict`` (the
+stage-1 FlowModel's or the stage-2 SAPF's).
 
 Counterpart of the JAX package's ``models/init_policies.py`` (the
 reference's config-keyed init policies):
@@ -12,10 +13,9 @@ reference's config-keyed init policies):
     then an identity at step 0;
   * ``v_t_pred_linear: zero`` — zero the last Linear of the v_t head.
 
-Keys are the port's module names (``FlowModel.state_dict()``, no ``net.``
-prefix).  Normal draws come from an explicit ``torch.Generator``; they are
-not the JAX package's numbers (another generator), only the same
-distribution.
+Keys are the port's module names (``state_dict()``, no ``net.`` prefix).
+Normal draws come from an explicit ``torch.Generator``; they are not the JAX
+package's numbers (another generator), only the same distribution.
 """
 
 from __future__ import annotations
@@ -45,7 +45,11 @@ def apply_init_policies(state_dict: Dict[str, torch.Tensor], init_cfg: dict,
                 sd[k] = torch.zeros_like(sd[k])
 
     if init_cfg.get("layer_emb_table") == "normal":
-        sd["layer_emb_table.weight"] = normal_like(sd["layer_emb_table.weight"])
+        # by name, as the JAX package: the PF encoder's table is called
+        # layer_emb_net, and the policy leaves it as it is
+        for k in sorted(sd):
+            if "layer_emb_table" in k.split(".") and k.endswith(".weight"):
+                sd[k] = normal_like(sd[k])
 
     if init_cfg.get("time_step_embedder") == "normal":
         for k in sorted(sd):

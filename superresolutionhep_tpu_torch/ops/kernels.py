@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "fused_qkv.cu", "fused_mlp.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "fused_qkv.cu", "fused_mlp.cu", "attention_probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -45,6 +45,7 @@ LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_nomax": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "fused_qkv": 0, "fused_mlp": 0,
     "packed_fwd": 0, "packed_fwd_nomax": 0, "packed_bwd_dq": 0, "packed_bwd_dkv": 0,
+    "probe_variant": 0, "probe_exp_dtype": 0,
 }
 
 _lib = None
@@ -147,6 +148,10 @@ _SIGNATURES = {
     # q, attn, ga, a, b, gm, w0(Fh,F), b0, w1(F,Fh), b1, out, M, L, F, Fh,
     # per_cell, is_bf16, stream
     "srhep_fused_mlp": [_P] * 11 + [_I] * 6 + [_P],
+    # probes (B, H, L, D) bf16: q, k, v, out, B, H, L, D, mode, block_q, block_k, stream
+    "srhep_probe_variant": [_P] * 4 + [_I] * 7 + [_P],
+    # q, k, v, km, out, B, H, L, D, exp_bf16, block_q, block_k, stream
+    "srhep_probe_exp_dtype": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 

@@ -4,15 +4,18 @@
 # version, or does not build, never falls back to the plain version).
 #
 # Run from the repository root on a machine with the card and nvcc:
-#     bash superresolutionhep_tpu_torch/tools/mutation_check.sh
-# The broken copies are made in a fresh temporary directory, never in the
-# repository.  Prints one "MUTATION <name> exit=<code> ..." line per mutation;
-# every exit code must be non-zero and every ok_line count 0.
+#     bash superresolutionhep_tpu_torch/tools/mutation_check.sh [name ...]
+# (with names, only those mutations run).  The broken copies are made in a
+# fresh temporary directory, never in the repository.  Prints one
+# "MUTATION <name> exit=<code> ..." line per mutation; every exit code must be
+# non-zero and every ok_line count 0.
 ROOT=$(pwd)
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT
 status=0
+SELECTED="$*"
 run() {  # name, sed expression, file
+  if [ -n "$SELECTED" ] && [[ " $SELECTED " != *" $1 "* ]]; then return; fi
   rm -rf "$WORK/mut" && mkdir -p "$WORK/mut" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$WORK/mut/" && cd "$WORK/mut" || exit 9
   before=$(md5sum "$3" | cut -d' ' -f1)
   sed -i "$2" "$3"
@@ -34,4 +37,7 @@ run bwd_dq_sign_of_dl 's/\* (dp\[j\]\[0\] - dl0);/* (dp[j][0] + dl0);/' superres
 run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + (ia == kid0 ? 0.f : -kBig)) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run packed_fwd_ignores_segments 's/+= ia == qid0 ? 0.f : -kBig;/+= ia >= 0 ? 0.f : -kBig;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run packed_dkv_drops_ln2 's/    dk = (dk.float() \* LN2).to(k.dtype)/    dk = dk.to(k.dtype)/' superresolutionhep_tpu_torch/ops/flash_packed.py
+run k11_ignores_key_mask 's/kbias\[i\] = (km\[(size_t)b \* L + k0 + i\] - 1.0f) \* kBig;/kbias[i] = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run k10_full_without_running_max 's/const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);/const float mn0 = 0.f, mn1 = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run k10_full_exp_in_fp32 's/ex2_bf16x2(pack_bf16(s\[j\]\[\([02]\)\] - \(mn[01]\), s\[j\]\[\([13]\)\] - mn[01]))/pack_bf16(exp2f(s[j][\1] - \2), exp2f(s[j][\3] - \2))/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
 exit $status

@@ -71,6 +71,15 @@ class MetricsLogger:
                 continue
         self._fp.write(json.dumps(rec) + "\n")
 
+    def log_figure(self, fig, name: str):
+        """Save a matplotlib figure as ``<run_dir>/figures/<name>_<n>.png``."""
+        out = os.path.join(self.run_dir, "figures")
+        os.makedirs(out, exist_ok=True)
+        n = sum(f.startswith(f"{name}_") for f in os.listdir(out))
+        path = os.path.join(out, f"{name}_{n}.png")
+        fig.savefig(path)
+        return path
+
     def start_profile(self):
         """Trace CPU and (where present) CUDA activity until ``stop_profile``;
         the Chrome trace goes to ``<run_dir>/profile/trace.json``."""

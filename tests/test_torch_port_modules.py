@@ -147,11 +147,28 @@ def test_multihead_attention_matches_jax(impl, jimpl):
 def test_multihead_attention_unported_features_raise():
     tm = MultiheadAttention(32, 2)
     x = torch.zeros(1, 4, 32)
-    for kw in ({"k": x}, {"edges": x}, {"attn_bias": x}, {"attn_valid": x}):
+    for kw in ({"edges": x}, {"attn_bias": x}, {"attn_valid": x}):
         with pytest.raises(NotImplementedError):
             tm(x, **kw)
     with pytest.raises(ValueError):
         MultiheadAttention(32, 2, impl="xla")
+    # cross-attention is ported: Lq = 4 queries over 40 keys with both masks
+    # (the dense path, as the JAX package takes it) equals the JAX module
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(2, 4, 32)).astype(np.float32)
+    k = rng.normal(size=(2, 40, 32)).astype(np.float32)
+    q_valid, kv_valid = _valid(2, 4, [3, 1]), _valid(2, 40, [40, 17])
+    jm = JMHA(embed_dim=32, num_heads=2, impl="xla")
+    jkw = dict(k=jnp.asarray(k), q_valid=jnp.asarray(q_valid), kv_valid=jnp.asarray(kv_valid))
+    params = _randomize(_np_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(q), **jkw)["params"]), 6)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(q), **jkw))
+    sd = {}
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        convert._linear(sd, params[name], name)
+    tc = _load(MultiheadAttention(32, 2), sd)
+    with torch.no_grad():
+        got = tc(_t(q), k=_t(k), q_valid=_t(q_valid), kv_valid=_t(kv_valid))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     # segment ids are ported: two segments of a row attend as two separate rows
     xr = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 4, 32)).astype(np.float32))
     with torch.no_grad():
