@@ -115,6 +115,8 @@ REPLACES = {
     "fused_mlp": "superresolutionhep_tpu/ops/fused_mlp.py:141",
     "packed_fwd": "superresolutionhep_tpu/ops/flash_packed.py:237",
     "packed_fwd_nomax": "superresolutionhep_tpu/ops/flash_packed.py:237",
+    # not a pallas_call: the JAX package computes the band outside its kernel
+    "packed_band": "superresolutionhep_tpu/ops/flash_packed.py:79",
     "packed_bwd_dq": "superresolutionhep_tpu/ops/flash_packed.py:381",
     "packed_bwd_dkv": "superresolutionhep_tpu/ops/flash_packed.py:415",
     "probe_variant": "scripts/kernel_experiments.py:122",
@@ -129,6 +131,7 @@ SOURCE = {
     "fused_mlp": "superresolutionhep_tpu_torch/csrc/fused_mlp.cu",
     "packed_fwd": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
     "packed_fwd_nomax": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
+    "packed_band": "superresolutionhep_tpu_torch/csrc/flash_attention.cu",
     "packed_bwd_dq": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
     "packed_bwd_dkv": "superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu",
     "probe_variant": "superresolutionhep_tpu_torch/csrc/attention_probes.cu",
@@ -159,6 +162,23 @@ def time_ms(fn, reps, inner=8):
     from superresolutionhep_tpu_torch.scripts.common import graph_ms
 
     return graph_ms(fn, reps, chain=inner)
+
+
+def sfu_per_s():
+    """fp32 exponentials a second on the card: 16 a clock per SM (the
+    special-function units) at the maximum SM clock."""
+    return 16 * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_clock_hz()
+
+
+def fwd_bounds(flops, nbytes, exps, peak):
+    """The forward kernels' bound: the larger of the operations over the
+    tensor-core peak, the bytes over the memory rate, and one fp32 exp2 per
+    needed (query, key) pair over the special-function units' rate."""
+    t = {"operations": flops / peak, "bytes": nbytes / H100_BYTES_PER_S}
+    sfu = exps / sfu_per_s()
+    return {"bound_ms": max(t["operations"], t["bytes"], sfu) * 1e3,
+            "bound_by": "operations" if max(t["operations"], sfu) >= t["bytes"] else "bytes",
+            "operations_ms": t["operations"] * 1e3, "bytes_ms": t["bytes"] * 1e3, "sfu_bound_ms": sfu * 1e3}
 
 
 def ragged_valid(B, L, device):
@@ -247,8 +267,11 @@ def kernel_cases(reps):
                 case["library_ms"] = time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(qc, kc, vc, attn_mask=amask, scale=fa.LN2),
                     reps)
-                case["bound_ms"] = max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3
-                case["bound_by"] = "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"
+                if dtype == torch.bfloat16:
+                    case.update(fwd_bounds(flops, nbytes, H * sum(n * n for n in lens), peak))
+                else:
+                    case["bound_ms"] = max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3
+                    case["bound_by"] = "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"
                 case["ok"] = ok
                 cases.append(case)
                 emit({"phase": "kernel_case", **case})
@@ -350,6 +373,184 @@ def kernel_cases(reps):
         fail(f"{len(bad)} kernel case(s) disagree with the plain version: "
              + "; ".join(f"{c['kernel']}/{c['dtype']}/L={c['L']} err={c['max_abs_err']:.3g} tol={c['tol']}" for c in bad))
     return cases
+
+
+def band_rows():
+    """(3, 1024) segment ids whose bands at both tile heights have one key
+    tile (a 51-cell segment alone in the first 192 cells), several (a
+    segment of 809 cells), none (query tiles of padding, a row of padding),
+    and boundaries inside tiles (three segments at 0, 300, 584); 1024 is no
+    multiple of 192, so the last query tile is ragged."""
+    seg = np.full((3, 1024), -1, np.int32)
+    seg[0, :51], seg[0, 192:1001] = 0, 1
+    seg[1, :300], seg[1, 300:584], seg[1, 584:1000] = 0, 1, 2
+    return seg
+
+
+def fwd_tile_cases(reps):
+    """The bf16 forward body (K1, K2, K7) at head dims 16, 32 and 64 and at
+    both tile heights the wrapper can pick (64 and 192 rows), against the
+    plain versions on the same CUDA tensors: K1 with Lq != Lk and ragged
+    masks, K2 also against the robust plain version, K7 robust and no-max on
+    ``band_rows``; the band kernel against its plain version (``band_ranges``)
+    at both heights on ``band_rows`` and on the (8, 5120) packed layout,
+    where it is timed (the kernels line's ``packed_band`` entry)."""
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import flash_packed as fp
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    H = 4
+    tol, lse_tol = TOL[("flash", torch.bfloat16)], TOL[("lse", torch.bfloat16)]
+    x_tol = TOL[("nomax_vs_robust", torch.bfloat16)]
+    cases = []
+
+    def launched_once(name, before):
+        if kernels.LAUNCHES[name] != before + 1:
+            fail(f"{name}: the wrapper did not count its launch")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12)).item()
+
+    # ---- K1 / K2: Lq != Lk, ragged masks, (B, L, H, D) strided views of fused buffers
+    B, Lq, Lk = 3, 640, 896
+    qvalid, _ = ragged_valid(B, Lq, dev)
+    kvalid = torch.arange(Lk, device=dev)[None, :] < torch.tensor([Lk, 517, 70], device=dev)[:, None]
+    qm, km = qvalid.float().contiguous(), kvalid.float().contiguous()
+    for D in (16, 32, 64):
+        qb = (torch.randn(B, Lq, 2, H, D, generator=g, device=dev) * (2.0 / D ** 0.25)).to(torch.bfloat16)
+        kv = torch.randn(B, Lk, 3, H, D, generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qb[:, :, 1], kv[:, :, 0], kv[:, :, 2]
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        robust_ref, robust_lse = fa._ref_attention_base2(qh, kh, vh, qm[:, None], km[:, None], "max", with_lse=True)
+        nomax_ref = fa._ref_attention_base2(qh, kh, vh, qm[:, None], km[:, None], "nomax_clip")
+        for bq in (64, 192):
+            for name, nomax in (("flash_fwd", False), ("flash_fwd_nomax", True)):
+                before = kernels.LAUNCHES[name]
+                out, lse = fa._flash_fwd_cuda(q, k, v, qm, km, nomax=nomax, with_lse=not nomax, block_q=bq)
+                torch.cuda.synchronize()
+                launched_once(name, before)
+                out = out.permute(0, 2, 1, 3).float()
+                ref = nomax_ref if nomax else robust_ref
+                err = (out - ref.float()).abs().max().item()
+                case = {"kernel": name, "dtype": "bf16", "case": "tiles", "B": B, "H": H, "Lq": Lq, "L": Lk, "D": D,
+                        "block_q": bq, "max_abs_err": err, "tol": tol}
+                ok = bool(torch.isfinite(out).all()) and err <= tol
+                ok = ok and float(out.permute(0, 2, 1, 3)[~qvalid].abs().max()) == 0.0
+                if nomax:
+                    xerr = (out - robust_ref.float()).abs().max().item()
+                    case["vs_robust_max_abs_err"], case["vs_robust_tol"] = xerr, x_tol
+                    ok = ok and xerr <= x_tol
+                else:
+                    vq = qvalid[:, None, :].expand(B, H, Lq)
+                    lerr = (lse - robust_lse)[vq].abs().max().item()
+                    case["lse_max_abs_err"], case["lse_tol"] = lerr, lse_tol
+                    ok = ok and lerr <= lse_tol
+                case["ok"] = ok
+                cases.append(case)
+                emit({"phase": "kernel_case", **case})
+
+    # ---- the band table and K7 on rows with bands of one tile, several and none
+    seg_host = band_rows()
+    seg = torch.from_numpy(seg_host).to(dev)
+    Bs, S = seg.shape
+    pad = seg < 0
+    for bq in (64, 192):
+        before = kernels.LAUNCHES["packed_band"]
+        band = fp.packed_band(seg, bq)
+        torch.cuda.synchronize()
+        launched_once("packed_band", before)
+        want = fp.packed_band(seg.cpu(), bq)
+        lengths = sorted(set(want[..., 1].flatten().tolist()))
+        case = {"kernel": "packed_band", "dtype": "int32", "case": "band_rows", "B": Bs, "L": S, "block_q": bq,
+                "band_lengths": lengths, "max_abs_err": float((band.cpu() - want).abs().max()),
+                "ok": bool(torch.equal(band.cpu(), want)) and {0, 1}.issubset(lengths) and max(lengths) > 1}
+        cases.append(case)
+        emit({"phase": "kernel_case", **case})
+    for D in (16, 32, 64):
+        qkv = torch.randn(Bs, S, 3, H, D, generator=g, device=dev)
+        qkv[:, :, 0] *= 2.0 / D ** 0.25
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        robust_ref, robust_lse = fp._ref_packed_fwd(qh, kh, vh, seg, "max", with_lse=True)
+        nomax_ref = fp._ref_packed_fwd(qh, kh, vh, seg, "nomax_clip")
+        robust_ref, nomax_ref = robust_ref.permute(0, 2, 1, 3), nomax_ref.permute(0, 2, 1, 3)
+        for bq in (64, 192):
+            for name, nomax in (("packed_fwd", False), ("packed_fwd_nomax", True)):
+                before = kernels.LAUNCHES[name]
+                out, lse = fp._packed_fwd_cuda(q, k, v, seg, nomax=nomax, with_lse=not nomax, block_q=bq)
+                torch.cuda.synchronize()
+                launched_once(name, before)
+                ref = nomax_ref if nomax else robust_ref
+                err = rel(out, ref)
+                case = {"kernel": name, "dtype": "bf16", "case": "band_rows", "B": Bs, "H": H, "L": S, "D": D,
+                        "block_q": bq, "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                        "max_rel_err": err, "tol_rel": tol,
+                        "padding_exactly_zero": float(out.float()[pad].abs().max()) == 0.0}
+                ok = bool(torch.isfinite(out.float()).all()) and err <= tol and case["padding_exactly_zero"]
+                if nomax:
+                    xerr = (out.float() - robust_ref.float()).abs().max().item()
+                    case["vs_robust_max_abs_err"], case["vs_robust_tol"] = xerr, x_tol
+                    ok = ok and xerr <= x_tol
+                else:
+                    lerr = (lse - robust_lse)[(~pad)[:, None, :].expand(Bs, H, S)].abs().max().item()
+                    case["lse_max_abs_err_valid"], case["lse_tol"] = lerr, lse_tol
+                    ok = ok and lerr <= lse_tol
+                case["ok"] = ok
+                cases.append(case)
+                emit({"phase": "kernel_case", **case})
+
+    # ---- the band kernel on the (8, 5120) packed layout, timed
+    _, seg_np, _ = packed_layout()
+    seg = torch.from_numpy(seg_np).to(dev)
+    Bp, Sp = seg.shape
+    bq = fa.fwd_tile_rows(Bp, H, Sp, torch.cuda.get_device_properties(0).multi_processor_count)
+    band = fp.packed_band(seg, bq)
+    torch.cuda.synchronize()
+    want = fp.packed_band(seg.cpu(), bq)
+    nbytes = Bp * Sp * 4 + band.numel() * 4  # the ids read once, the table written once
+    case = {"kernel": "packed_band", "dtype": "int32", "case": "packed", "B": Bp, "L": Sp, "block_q": bq,
+            "max_abs_err": float((band.cpu() - want).abs().max()), "ok": bool(torch.equal(band.cpu(), want)),
+            "ms": time_ms(lambda: fp.packed_band(seg, bq), reps),
+            "plain_ms": time_ms(lambda: fp._ref_packed_band(seg, bq), max(3, reps // 5)),
+            "library_ms": None, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    cases.append(case)
+    emit({"phase": "kernel_case", **case})
+
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} forward tile case(s) disagree with the plain version: "
+             + "; ".join(f"{c['kernel']}/D={c.get('D')}/rows={c.get('block_q')}/{c['case']}" for c in bad))
+    return cases
+
+
+def ptxas_report():
+    """Registers and spills of every instantiation of the bf16 forward kernel,
+    from nvcc's -Xptxas -v log."""
+    import re
+
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    rows, name, spill = [], None, (None, None)
+    for line in (kernels.build_dir() / "nvcc_log.txt").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        inst = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])ELb([01])ELi(\d)E", name or "")
+        if inst is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if sp:
+            spill = (int(sp.group(1)), int(sp.group(2)))
+        reg = re.search(r"Used (\d+) registers", line)
+        if reg:
+            d, nomax, seg, nc = inst.groups()
+            rows.append({"D": int(d), "nomax": nomax == "1", "seg": seg == "1", "block_q": 64 * int(nc),
+                         "registers_at_launch": int(reg.group(1)), "spill_stores": spill[0], "spill_loads": spill[1]})
+            name = None
+    return rows
 
 
 def bwd_kernel_cases(reps):
@@ -623,8 +824,11 @@ def packed_kernel_cases(reps):
                 case["library_ms"] = time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(qc, kc, vc, attn_mask=amask,
                                                                              scale=fp.LN2), reps)
-                case["bound_ms"] = max(flops / peak, nbytes_fwd / H100_BYTES_PER_S) * 1e3
-                case["bound_by"] = "operations" if flops / peak >= nbytes_fwd / H100_BYTES_PER_S else "bytes"
+                if dtype == torch.bfloat16:
+                    case.update(fwd_bounds(flops, nbytes_fwd, H * sq, peak))
+                else:
+                    case["bound_ms"] = max(flops / peak, nbytes_fwd / H100_BYTES_PER_S) * 1e3
+                    case["bound_by"] = "operations" if flops / peak >= nbytes_fwd / H100_BYTES_PER_S else "bytes"
             case["ok"] = ok
             out_cases.append(case)
             emit({"phase": "kernel_case", **case})
@@ -958,7 +1162,8 @@ def packed_inference_phase():
     # ---- end of the counted window
     expect_fast = dict(zero, packed_fwd=n_layers,  # the self-check's robust model
                        packed_fwd_nomax=per_call * n_packed + n_layers, fused_qkv=per_call * n_packed + n_layers,
-                       fused_mlp=per_call * n_packed + n_layers)
+                       fused_mlp=per_call * n_packed + n_layers,
+                       packed_band=per_call * n_packed + 2 * n_layers)  # one per bf16 K7 launch
     checks["selfcheck_passed"] = inf.nomax_selfcheck_passed is True and inf.fast_softmax is True
     checks["launch_counts_fast"] = counts_fast == expect_fast
 
@@ -980,7 +1185,8 @@ def packed_inference_phase():
     torch.cuda.synchronize()
     counts_robust = dict(kernels.LAUNCHES)
     robust_s = time.time() - t0
-    checks["launch_counts_robust"] = counts_robust == dict(zero, packed_fwd=per_call * n_packed)
+    checks["launch_counts_robust"] = counts_robust == dict(zero, packed_fwd=per_call * n_packed,
+                                                           packed_band=per_call * n_packed)
     ht_f, ht_r = fast["High_Tree"], robust["High_Tree"]
     checks["predictions_finite"] = all(bool(np.isfinite(t["High_Tree"][k].flat).all()) for t in (fast, robust)
                                        for k in ("e_pred_raw", "raw_nn_pred"))
@@ -1016,6 +1222,7 @@ def packed_inference_phase():
     torch.cuda.synchronize()
     counts_mop = dict(kernels.LAUNCHES)
     expect_mop = dict(zero, packed_fwd=n_layers, packed_fwd_nomax=per_call * n_pk + n_layers,
+                      packed_band=per_call * n_pk + 2 * n_layers,
                       flash_fwd_nomax=per_call * n_mop, fused_qkv=per_call * (n_pk + n_mop) + n_layers,
                       fused_mlp=per_call * (n_pk + n_mop) + n_layers)
     checks["mopup_ran"] = n_pk > 0 and n_mop > 0 and counts_mop == expect_mop
@@ -1111,6 +1318,7 @@ def packed_train_phase(reps):
     hook.remove()
     expect = {k: 0 for k in kernels.LAUNCHES}
     expect.update(packed_fwd=2 * n_layers * calls["train"],  # remat: forward + recompute
+                  packed_band=2 * n_layers * calls["train"],  # one per bf16 K7 launch
                   packed_bwd_dq=n_layers * calls["train"], packed_bwd_dkv=n_layers * calls["train"],
                   flash_fwd=n_layers * calls["val"])  # validation stays bucketed
     lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
@@ -1812,15 +2020,17 @@ def main():
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
     t0 = time.time()
-    lib = kernels.build(verbose=args.ptxas)
+    lib = kernels.build(verbose=True)
     kernels.library()
     emit({"phase": "build", "library": str(lib.name), "seconds": round(time.time() - t0, 2),
           "nvcc_flags": list(kernels.NVCC_FLAGS)})
     if args.ptxas:
         print((kernels.build_dir() / "nvcc_log.txt").read_text(), flush=True)
+    if (kernels.build_dir() / "nvcc_log.txt").exists():  # absent when the library was built before, elsewhere
+        emit({"phase": "ptxas", "flash_fwd_wgmma_kernel": ptxas_report()})
 
-    cases = (kernel_cases(args.reps) + bwd_kernel_cases(args.reps) + packed_kernel_cases(args.reps)
-             + probe_kernel_cases(args.reps))
+    cases = (kernel_cases(args.reps) + fwd_tile_cases(args.reps) + bwd_kernel_cases(args.reps)
+             + packed_kernel_cases(args.reps) + probe_kernel_cases(args.reps))
     zero = {k: 0 for k in kernels.LAUNCHES}
     by_phase = {"probes": probes_phase(args.reps),
                 "serve": serve_phase() if not args.skip_serve else zero,
@@ -1843,12 +2053,14 @@ def main():
         if name == "probe_exp_dtype":
             return next(c for c in cases if c["kernel"] == name and c["L"] == 2048 and c.get("exp_bf16") is True
                         and c.get("mask") == "ones" and "ms" in c)
+        if name == "packed_band":
+            return next(c for c in cases if c["kernel"] == name and "ms" in c)
         L = PACKED_S if name.startswith("packed") else 2048
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["L"] == L and "ms" in c)
 
     entries = []
     for name in ("flash_fwd", "flash_fwd_nomax", "fused_qkv", "fused_mlp", "flash_bwd_dq", "flash_bwd_dkv",
-                 "packed_fwd", "packed_fwd_nomax", "packed_bwd_dq", "packed_bwd_dkv", "probe_variant",
+                 "packed_fwd", "packed_fwd_nomax", "packed_band", "packed_bwd_dq", "packed_bwd_dkv", "probe_variant",
                  "probe_exp_dtype"):
         c = entry_case(name)
         entries.append({
@@ -1857,7 +2069,7 @@ def main():
             "launches_by_phase": {ph: counts[name] for ph, counts in by_phase.items()},
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": {k: c[k] for k in ("B", "H", "L", "D", "F", "O", "Fh") if k in c}, "dtype": "bf16",
+            "shape": {k: c[k] for k in ("B", "H", "L", "D", "F", "O", "Fh") if k in c}, "dtype": c["dtype"],
             **({"sfu_bound_ms": c["sfu_bound_ms"]} if "sfu_bound_ms" in c else {}),
         })
     missing = [e["name"] for e in entries if e["launches"] == 0]

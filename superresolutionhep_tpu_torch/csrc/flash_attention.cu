@@ -23,240 +23,523 @@
 //
 // What is not carried over: the TPU grid's sequential key axis with a carry
 // in scratch memory becomes a loop inside the block (one block per batch row,
-// head and 64-query tile; m, l and the output accumulator live in registers);
+// head and query tile; m, l and the output accumulator live in registers);
 // the transposed (B, H, D, L) layout, which existed to fill a 128-lane matrix
 // unit, becomes (B, L, H, D) views with D contiguous and free strides for B, L
-// and H, so K/V tiles arrive with coalesced 16-byte loads straight out of the
-// fused projection's (B, L, 3F) buffer.  The packed kernel's band, which the
-// TPU computed outside the kernel at 512-wide blocks and fed by scalar
-// prefetch, is found by each block itself at its 64-query tile
-// (common.cuh::segment_band): tighter, and exact, so no segment-length cap
-// can cut a segment short.
+// and H, read by the TMA straight out of the fused projection's (B, L, 3F)
+// buffer.  The packed kernel's band, which the TPU computed outside the
+// kernel at 512-wide blocks and fed by scalar prefetch, is computed once per
+// call for all heads at the kernel's own tile sizes (packed_band_kernel,
+// exact: no segment-length cap can cut a segment short).
 //
-// What bounds it on the card: operations.  4*L*L*D flops per (b, h) against
-// 4*L*D elements moved: at L = 2048, D = 64 that is ~1000 flop/byte in bf16,
-// far above the H100's ~295.  What the design does about it: bf16 runs on the
-// tensor cores (mma.sync.m16n8k16, fp32 accumulate) with S, P and O kept in
-// registers in the instruction's fragment layout, so P goes from the S
-// accumulators into the PV product's A operand without touching shared memory;
-// K and V are staged as they lie in memory ([key][d], padded rows) and one
-// conflict-free ldmatrix (transposing, for V) delivers the B fragments of two
-// 8-wide tiles.  wgmma, TMA and a multi-stage pipeline are left to a later
-// pass.  The fp32 build (one thread per query row, FMA loops) exists to hold
-// the arithmetic tightly against the plain PyTorch version; it uses no tensor
-// cores.  Packed rows are bound the same way: 4*D flops per same-segment
-// (query, key) pair, sum over events of len^2, against one read of q, k, v
-// and one write of out; the band costs one extra pass over the row's int32
-// segment ids per block (20 KB at S = 5120, from L2).
+// What bounds it on the card: operations, and beside them the exponentials.
+// 4*D flops per visited (query, key) pair against one read of q, k, v and
+// one write of out: at L = 2048, D = 64 that is ~1000 flop/byte in bf16, far
+// above the H100's ~295.  One fp32 exp2 per pair runs on the special-function
+// units at 16 a clock per SM; at D = 64 that takes about as long as the two
+// products on the tensor cores.  The bf16 design (flash_fwd_wgmma_kernel):
+//   * warp specialisation: one producer warp keeps TMA loads of K/V tiles in
+//     flight through a ring of mbarrier full/empty pairs (5 stages, 3 where
+//     two blocks share an SM); NC consumer warpgroups of 64 query rows each
+//     run the products: NC = 3 (a K/V tile serves 192 queries) for large
+//     grids, NC = 1 (two blocks per SM) for small ones; setmaxnreg moves
+//     registers from the producer to the consumers.  128-row blocks (NC = 2)
+//     were never the fastest of the three on the H100 (PERF.md) and are not
+//     built;
+//   * S = Q K^T as wgmma.m64n64k16 from shared memory (Q and K K-major, TMA
+//     swizzle = the row's 32/64/128 bytes for D = 16/32/64, the same layout
+//     in the wgmma descriptors); O += P V with P in registers (the S
+//     accumulator repacked to bf16 pairs) and V read MN-major from its
+//     [key][d] tile.  Key tiles of 64: 128 measured no faster and spilled;
+//   * the exponentials under the products: each consumer issues S_{j+1}
+//     before P_j V_j and runs the softmax of tile j+1 while P_j V_j is on the
+//     tensor cores; the consumer warpgroups take turns to issue (named
+//     barriers), so that one's softmax overlaps another's products;
+//   * the producer reads each tile's key mask or segment ids (four tiles
+//     ahead), skips dead tiles itself and writes the ids and the tile's index
+//     into the stage, so consumers follow its sequence and never disagree
+//     with it; a stage with index -1 ends the sequence.
+// What holds it now (PERF.md): the softmax's instruction issue and the
+// special-function units, at 2.5-3.5x the operation bound.
+// The fp32 build (one thread per query row, FMA loops) exists to hold the
+// arithmetic tightly against the plain PyTorch version; it uses no tensor
+// cores and finds its packed band itself (common.cuh::segment_band).
 #include "common.cuh"
 
 namespace srhep {
 
 constexpr float kClipLo = -126.0f;
 constexpr float kClipHi = 80.0f;
+constexpr float kMaskedLogit = -1000.0f;  // no-max, bf16: 2^-1000 flushes to an exact 0
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  Block = 4 warps = 64 query rows (16 per warp), key
-// tiles of 64.  lane = 4*g + t: the thread holds rows g and g+8 of its warp's
-// 16, columns 2t, 2t+1 of every 8-wide fragment.
+// bf16: warp-specialised TMA + wgmma.  Block = NC consumer warpgroups (64
+// query rows each) + one producer warpgroup; key tiles of kBK.  In a consumer
+// warpgroup, lane = 4*g + t of warp w holds rows 16w + g and 16w + g + 8 of
+// the warpgroup's 64, columns 8j + 2t, 8j + 2t + 1 of every 8-wide slice
+// (accumulator element 4j + e: e & 2 picks the row, e & 1 the column).
 // ---------------------------------------------------------------------------
-template <int D, bool NOMAX, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      const void* __restrict__ qmask, const void* __restrict__ kmask, bf16* __restrict__ out,
-                      float* __restrict__ lse, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs) {
-  constexpr int BQ = 64, BK = 64;
-  constexpr int LDK = D + 8;    // row stride of Ks and Vs (elements)
-  constexpr int KSTEPS = D / 16;  // k-steps of the QK^T product
-  constexpr int DT = D / 8;       // 8-wide output fragments over D
-  __shared__ __align__(16) bf16 Ks[BK * LDK];  // [key][d]
-  __shared__ __align__(16) bf16 Vs[BK * LDK];  // [key][d]
-  __shared__ int kid[BK];                      // key ids of the staged tile (common.cuh)
+constexpr int kBK = 64;        // keys per tile: one TMA box, the N of the S product (m64n64k16)
+constexpr int kLookahead = 4;  // key tiles whose ids the producer has in flight
+constexpr int kTmaRows = 64;   // rows per TMA box (Q, K and V)
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
+static_assert(kBK == kTmaRows, "a K or V tile is one TMA box");
 
-  const bool val0 = r0 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r0);
-  const bool val1 = r1 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r1);
-  const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
-  const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
-  const int tile_has_query = __syncthreads_or(val0 || val1);
+template <int D> struct FwdTiles {
+  static constexpr int kRowBytes = 2 * D;           // one bf16 row: also the swizzle span
+  static constexpr int kTileBytes = 64 * kRowBytes; // a 64-row tile
+  static constexpr int kSwizzle = D == 64 ? 1 : (D == 32 ? 2 : 3);  // wgmma layout: 128, 64, 32 B
+};
 
-  bf16* o0p = out + (((size_t)b * Lq + r0) * H + h) * D;
-  bf16* o1p = out + (((size_t)b * Lq + r1) * H + h) * D;
+// K/V ring depth: 5 stages with one block per SM, 3 where two blocks share one
+template <int NC> __host__ __device__ constexpr int fwd_stages() { return NC == 1 ? 3 : 5; }
 
-  if (!tile_has_query) {  // block-uniform: nothing to attend from
+template <int NC> struct FwdRegs;  // setmaxnreg budgets: producer + NC * consumer = (NC + 1) * launch bound
+template <> struct FwdRegs<1> { static constexpr int kProducer = 24, kConsumer = 232, kMinBlocks = 2; };
+template <> struct FwdRegs<3> { static constexpr int kProducer = 32, kConsumer = 160, kMinBlocks = 1; };
+
+// bytes of dynamic shared memory: 1024 of alignment slack, Q, the K/V ring,
+// the ring's key ids and tile indices, the barriers
+template <int D, int NC> constexpr int fwd_smem_bytes() {
+  return 1024 + (NC + 2 * fwd_stages<NC>()) * FwdTiles<D>::kTileBytes + fwd_stages<NC>() * kBK * 4 + 32 +
+         (2 * fwd_stages<NC>() + 1) * 8;
+}
+
+template <int D> __device__ __forceinline__ void pv_mma(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_m64n64k16(o, a, db);
+  else if constexpr (D == 32) wgmma_rs_m64n32k16(o, a, db);
+  else wgmma_rs_m64n16k16(o, a, db);
+}
+
+// Shared-memory descriptors of every wgmma of one step, computed and pinned
+// before the step's wgmma.fence, so that no register a wgmma reads is defined
+// between its fence and its wait (ptxas then serialises every wgmma).
+template <int D> struct StepDescs {
+  uint64_t q[D / 16], k[D / 16], v[kBK / 16];
+};
+template <int D>
+__device__ __forceinline__ void make_descs(StepDescs<D>& d, uint32_t qs, uint32_t ks, uint32_t vs) {
+  constexpr int SBO = 8 * FwdTiles<D>::kRowBytes, SW = FwdTiles<D>::kSwizzle;
 #pragma unroll
-    for (int jd = 0; jd < DT; ++jd) {
-      const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
-      if (r0 < Lq) *reinterpret_cast<__nv_bfloat162*>(o0p + 8 * jd + 2 * t) = z;
-      if (r1 < Lq) *reinterpret_cast<__nv_bfloat162*>(o1p + 8 * jd + 2 * t) = z;
+  for (int st = 0; st < D / 16; ++st) {  // K-major: the next 16-deep k-step is 32 bytes further
+    d.q[st] = gmma_desc(qs + 32 * st, SBO, SW);
+    d.k[st] = gmma_desc(ks + 32 * st, SBO, SW);
+    asm volatile("" : "+l"(d.q[st]), "+l"(d.k[st]));
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {  // MN-major V: the next 16 keys are 16 rows further
+    d.v[kk] = gmma_desc(vs + 16 * kk * FwdTiles<D>::kRowBytes, SBO, SW);
+    asm volatile("" : "+l"(d.v[kk]));
+  }
+}
+
+// S = Q K^T for one warpgroup: (64 x D) x (kBK x D)^T, issued, not waited for
+template <int D> __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const StepDescs<D>& d) {
+#pragma unroll
+  for (int st = 0; st < D / 16; ++st) wgmma_ss_m64n64k16(s, d.q[st], d.k[st], st);
+}
+
+// O += P V for one warpgroup: P (64 x kBK) from registers, V (kBK x D) [key][d]
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kBK / 4], const StepDescs<D>& d) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    pv_mma<D>(o, a, d.v[kk]);
+  }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero: the
+// instruction exp2f compiles to, without its subnormal fix-up (a compare and
+// two multiplies per element, for results below 2^-126 that the no-max clip
+// never reaches and the robust softmax sums to nothing).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Softmax numerators of one S tile in place (this thread's rows r0, r1; kid
+// = the stage's key ids); l, m updated; al = the factor by which the
+// accumulator must be rescaled (robust only).
+template <bool NOMAX>
+__device__ __forceinline__ void tile_softmax(float (&s)[kBK / 2], const int* kid, int t, int qid0, int qid1, float& m0,
+                                             float& m1, float& l0, float& l1, float& al0, float& al1) {
+  // The softmax is bound by instruction issue (four to six per element
+  // beside the exponential), so the mask is a select, not an add or a
+  // multiply: robust, a masked logit becomes -1e30, which is what s - 1e30
+  // rounds to for every finite logit below 1e22; no-max, the clip's upper
+  // bound becomes kMaskedLogit, whose flushed exponential is the exact 0
+  // that the multiplication by the mask gave.
+  float ps0 = 0.f, ps1 = 0.f;
+  if (NOMAX) {
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      const int2 id = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * t);
+      s[4 * j] = ex2(fminf(fmaxf(s[4 * j], kClipLo), id.x == qid0 ? kClipHi : kMaskedLogit));
+      s[4 * j + 1] = ex2(fminf(fmaxf(s[4 * j + 1], kClipLo), id.y == qid0 ? kClipHi : kMaskedLogit));
+      s[4 * j + 2] = ex2(fminf(fmaxf(s[4 * j + 2], kClipLo), id.x == qid1 ? kClipHi : kMaskedLogit));
+      s[4 * j + 3] = ex2(fminf(fmaxf(s[4 * j + 3], kClipLo), id.y == qid1 ? kClipHi : kMaskedLogit));
+      ps0 += s[4 * j] + s[4 * j + 1];
+      ps1 += s[4 * j + 2] + s[4 * j + 3];
     }
-    if (lse != nullptr && t == 0) {
-      if (r0 < Lq) lse[((size_t)b * H + h) * Lq + r0] = kNegInf;
-      if (r1 < Lq) lse[((size_t)b * H + h) * Lq + r1] = kNegInf;
+    l0 += ps0;
+    l1 += ps1;
+    al0 = al1 = 1.f;
+  } else {
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      const int2 id = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * t);
+      s[4 * j] = id.x == qid0 ? s[4 * j] : kNegInf;
+      s[4 * j + 1] = id.y == qid0 ? s[4 * j + 1] : kNegInf;
+      s[4 * j + 2] = id.x == qid1 ? s[4 * j + 2] : kNegInf;
+      s[4 * j + 3] = id.y == qid1 ? s[4 * j + 3] : kNegInf;
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    al0 = ex2(m0 - mn0);
+    al1 = ex2(m1 - mn1);
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      s[4 * j] = ex2(s[4 * j] - mn0);
+      s[4 * j + 1] = ex2(s[4 * j + 1] - mn0);
+      s[4 * j + 2] = ex2(s[4 * j + 2] - mn1);
+      s[4 * j + 3] = ex2(s[4 * j + 3] - mn1);
+      ps0 += s[4 * j] + s[4 * j + 1];
+      ps1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+}
+
+// p (the PV product's A fragments) from the numerators in s: bf16 pairs, two
+// adjacent 8-wide slices per 16-deep k-step
+__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2], uint32_t (&p)[kBK / 4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// q, k, v: tensor maps over (D, L, H, B) with box (D, 64, 1, 1); band (SEG):
+// (B, gridDim.x, 2) int32 = (first key tile, count) per query tile.
+template <int D, bool NOMAX, bool SEG, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), FwdRegs<NC>::kMinBlocks)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const void* __restrict__ qmask,
+                       const void* __restrict__ kmask, const int* __restrict__ band, bf16* __restrict__ out,
+                       float* __restrict__ lse, int H, int Lq, int Lk) {
+  using T = FwdTiles<D>;
+  constexpr int BQ = 64 * NC, NS = fwd_stages<NC>();
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the period of the 128-byte swizzle, which TMA and wgmma both apply by address
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* Ks = Qs + NC * 64 * D;
+  bf16* Vs = Ks + NS * kBK * D;  // stage s: K at Ks + s * kBK * D, V at Vs + s * kBK * D
+  int* ids = reinterpret_cast<int*>(Vs + NS * kBK * D);  // [NS][kBK]
+  int* tile = ids + NS * kBK;                            // [NS], padded to 8
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile + 8);
+  uint64_t* empty = full + NS;
+  uint64_t* qfull = empty + NS;
+
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, q0 = qt * BQ;
+
+  bool row_valid = false;
+  if (tid < BQ) row_valid = q0 + tid < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + q0 + tid);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);           // the producer warp's lanes (lane 0 also brings the TMA bytes)
+      mbar_init(&empty[s], 128 * NC);    // every consumer thread
+    }
+    mbar_init(qfull, 1);
+    fence_mbar_init();
+  }
+  if (!__syncthreads_or(row_valid)) {  // block-uniform: nothing to attend from; no barrier is ever waited on
+    constexpr int V16 = D / 8;         // 16-byte pieces per row
+    for (int c = tid; c < BQ * V16; c += blockDim.x) {
+      const int r = q0 + c / V16;
+      if (r < Lq) *reinterpret_cast<uint4*>(out + (((size_t)b * Lq + r) * H + h) * D + 8 * (c % V16)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (lse != nullptr && tid < BQ && q0 + tid < Lq) lse[((size_t)b * H + h) * Lq + q0 + tid] = kNegInf;
     return;
   }
 
-  // Q fragments straight from device memory (read once per block)
-  uint32_t qa[KSTEPS][4];
-  {
-    const bf16* q0p = q + (size_t)b * qs.b + (size_t)r0 * qs.l + (size_t)h * qs.h + 2 * t;
-    const bf16* q1p = q + (size_t)b * qs.b + (size_t)r1 * qs.l + (size_t)h * qs.h + 2 * t;
+  // warp-uniform as far as the compiler can see, so that the wgmma descriptors
+  // derived from it live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == NC) {
+    // ======================= producer warpgroup =======================
+    warpgroup_reg_dealloc<FwdRegs<NC>::kProducer>();
+    if (tid % 128 < 32) {
+      const int lane = tid & 31;
+      int kt_first = 0, kt_last = (Lk + kBK - 1) / kBK - 1;
+      if (SEG) {
+        const int2 bd = *reinterpret_cast<const int2*>(band + 2 * ((size_t)b * gridDim.x + qt));
+        kt_first = bd.x;
+        kt_last = bd.x + bd.y - 1;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qfull, NC * T::kTileBytes);
 #pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-      qa[s][0] = r0 < Lq ? *reinterpret_cast<const uint32_t*>(q0p + 16 * s) : 0u;
-      qa[s][1] = r1 < Lq ? *reinterpret_cast<const uint32_t*>(q1p + 16 * s) : 0u;
-      qa[s][2] = r0 < Lq ? *reinterpret_cast<const uint32_t*>(q0p + 16 * s + 8) : 0u;
-      qa[s][3] = r1 < Lq ? *reinterpret_cast<const uint32_t*>(q1p + 16 * s + 8) : 0u;
+        for (int w = 0; w < NC; ++w) tma_load_4d(Qs + w * 64 * D, &tq, qfull, 0, q0 + 64 * w, h, b);
+      }
+      auto key = [&](int kpos) { return kpos < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + kpos) : kNoKey; };
+      // the ids of the next kLookahead tiles are in flight in registers: a
+      // tile's ids are needed (for the skip and the stage) only kLookahead
+      // tiles after their load was issued, so the loads' latency does not
+      // chain from tile to tile
+      constexpr int IPL = kBK / 32;  // ids per lane per tile
+      int qa[kLookahead][IPL];
+#pragma unroll
+      for (int i = 0; i < kLookahead; ++i)
+#pragma unroll
+        for (int c = 0; c < IPL; ++c) qa[i][c] = kt_first + i <= kt_last ? key((kt_first + i) * kBK + 32 * c + lane) : kNoKey;
+      int stage = 0;
+      unsigned phase = 0;
+      for (int kt = kt_first; kt <= kt_last; ++kt) {
+        int id[IPL];
+        bool live = false;
+#pragma unroll
+        for (int c = 0; c < IPL; ++c) {
+          id[c] = qa[0][c];
+          live = live || id[c] >= 0;
+        }
+#pragma unroll
+        for (int i = 0; i + 1 < kLookahead; ++i)
+#pragma unroll
+          for (int c = 0; c < IPL; ++c) qa[i][c] = qa[i + 1][c];
+        const int nk = kt + kLookahead;
+#pragma unroll
+        for (int c = 0; c < IPL; ++c) qa[kLookahead - 1][c] = nk <= kt_last ? key(nk * kBK + 32 * c + lane) : kNoKey;
+        if (!__any_sync(0xffffffffu, live)) continue;  // no live key in this tile
+        mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+        for (int c = 0; c < IPL; ++c) ids[stage * kBK + 32 * c + lane] = id[c];
+        if (lane == 0) {
+          tile[stage] = kt;
+          mbar_arrive_expect_tx(&full[stage], 2 * T::kTileBytes);
+          tma_load_4d(Ks + stage * kBK * D, &tk, &full[stage], 0, kt * kBK, h, b);
+          tma_load_4d(Vs + stage * kBK * D, &tv, &full[stage], 0, kt * kBK, h, b);
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == NS) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      mbar_wait(&empty[stage], phase ^ 1);  // the end of the sequence
+      if (lane == 0) tile[stage] = -1;
+      mbar_arrive(&full[stage]);
+    }
+  } else {
+    // ======================= consumer warpgroups =======================
+    warpgroup_reg_alloc<FwdRegs<NC>::kConsumer>();
+    const int warp = (tid % 128) >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const bool val0 = r0 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r0);
+    const bool val1 = r1 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r1);
+    const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
+    const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
+
+    float o[D / 2], s[kBK / 2];
+    uint32_t p[kBK / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0, r1 (robust only)
+    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+    float al0, al1;
+    const uint32_t qs = smem_u32(Qs + wg * 64 * D), ks0 = smem_u32(Ks), vs0 = smem_u32(Vs);
+
+    // Turns of the consumer warpgroups: each issues its products in turn
+    // (named barrier 1 + w: "warpgroup w may issue", passed on by the
+    // previous one after its own issue), so that one warpgroup's softmax runs
+    // while another's products hold the tensor cores, instead of all
+    // contending for the tensor cores and then all for the exponential units.
+    // Every warpgroup has the same number of turns (the producer's
+    // sequence), and warpgroup 0 takes one more at the end to match the
+    // first pass that warpgroup NC - 1 gives it.
+    constexpr bool kPingPong = NC > 1;
+    auto my_turn = [&]() {
+      if (kPingPong) named_bar_sync(1 + wg, 256);
+    };
+    auto pass_turn = [&]() {
+      if (kPingPong) named_bar_arrive(1 + (wg + 1 == NC ? 0 : wg + 1), 256);
+    };
+    if (kPingPong && wg == NC - 1) named_bar_arrive(1, 256);
+
+    mbar_wait(qfull, 0);
+    int stage = 0;
+    unsigned phase = 0;
+    mbar_wait(&full[0], 0);
+    if (tile[0] >= 0) {
+      StepDescs<D> dsc;
+      // S of the first tile and its softmax
+      make_descs<D>(dsc, qs, ks0, vs0);
+      my_turn();
+      wgmma_fence();
+      issue_qk<D>(s, dsc);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_operand(s);
+      tile_softmax<NOMAX>(s, ids, t, qid0, qid1, m0, m1, l0, l1, al0, al1);
+      pack_p(s, p);
+      // every further tile: S_{j+1} issued before P_j V_j, the softmax of
+      // j+1 while P_j V_j runs.  The loop body holds no branch between an
+      // issue and its wait, so that ptxas can keep the products in flight.
+      while (true) {
+        const int ns = stage + 1 == NS ? 0 : stage + 1;
+        const unsigned nph = ns == 0 ? phase ^ 1 : phase;
+        mbar_wait(&full[ns], nph);
+        if (tile[ns] < 0) break;
+        StepDescs<D> dq;  // K of the next tile, V of this one
+        make_descs<D>(dq, qs, ks0 + ns * kBK * T::kRowBytes, vs0 + stage * kBK * T::kRowBytes);
+        fence_operand(s);
+        fence_operand(o);
+        fence_operand(p);
+        my_turn();
+        wgmma_fence();
+        issue_qk<D>(s, dq);
+        wgmma_commit();
+        issue_pv<D>(o, p, dq);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<1>();
+        fence_operand(s);
+        tile_softmax<NOMAX>(s, ids + ns * kBK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);
+        wgmma_wait<0>();
+        fence_operand(o);
+        fence_operand(p);
+        // robust: rescale only where a row's max moved (al = 1 exactly elsewhere)
+        if (!NOMAX && !__all_sync(0xffffffffu, al0 == 1.f && al1 == 1.f)) {
+#pragma unroll
+          for (int i = 0; i < D / 2; i += 4) {
+            o[i] *= al0;
+            o[i + 1] *= al0;
+            o[i + 2] *= al1;
+            o[i + 3] *= al1;
+          }
+        }
+        mbar_arrive(&empty[stage]);
+        pack_p(s, p);
+        stage = ns;
+        phase = nph;
+      }
+      // the last tile's P V
+      make_descs<D>(dsc, qs, ks0, vs0 + stage * kBK * T::kRowBytes);
+      fence_operand(o);
+      fence_operand(p);
+      my_turn();
+      wgmma_fence();
+      issue_pv<D>(o, p, dsc);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_operand(o);
+    }
+    if (kPingPong && wg == 0) named_bar_sync(1, 256);
+
+    // row sums across the 4 threads that share a row
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const float f0 = val0 ? 1.f : 0.f, f1 = val1 ? 1.f : 0.f;
+    bf16* o0p = out + (((size_t)b * Lq + r0) * H + h) * D;
+    bf16* o1p = out + (((size_t)b * Lq + r1) * H + h) * D;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      if (r0 < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(o0p + 8 * jd + 2 * t) =
+            __floats2bfloat162_rn(o[4 * jd] / d0 * f0, o[4 * jd + 1] / d0 * f0);
+      if (r1 < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(o1p + 8 * jd + 2 * t) =
+            __floats2bfloat162_rn(o[4 * jd + 2] / d1 * f1, o[4 * jd + 3] / d1 * f1);
+    }
+    if (!NOMAX && lse != nullptr && t == 0) {
+      if (r0 < Lq) lse[((size_t)b * H + h) * Lq + r0] = m0 + log2f(d0);
+      if (r1 < Lq) lse[((size_t)b * H + h) * Lq + r1] = m1 + log2f(d1);
     }
   }
+}
 
-  float o[DT][4];
-#pragma unroll
-  for (int jd = 0; jd < DT; ++jd) o[jd][0] = o[jd][1] = o[jd][2] = o[jd][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0, r1 (robust only)
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-
-  // key tiles to visit: all of them, or the packed row's band
-  const int2 band = SEG ? segment_band<BK>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, qid0, val0, qid1, val1)
-                        : make_int2(0, (Lk + BK - 1) / BK - 1);
-  for (int kt = band.x; kt <= band.y; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile consumed
-    int my_kid = kNoKey;
-    if (tid < BK) {
-      my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
-      kid[tid] = my_kid;
-    }
-    if (!__syncthreads_or(my_kid >= 0)) continue;  // no live key in this tile
-
-    // stage K and V, both [key][d], with 16-byte loads
-    constexpr int CPR = D / 8;
-    for (int c = tid; c < BK * CPR; c += kThreads) {
-      const int r = c / CPR, cc = c % CPR;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < Lk) {
-        kv = *reinterpret_cast<const uint4*>(k + (size_t)b * ks.b + (size_t)(k0 + r) * ks.l + (size_t)h * ks.h + 8 * cc);
-        vv = *reinterpret_cast<const uint4*>(v + (size_t)b * vs.b + (size_t)(k0 + r) * vs.l + (size_t)h * vs.h + 8 * cc);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * LDK + 8 * cc]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[r * LDK + 8 * cc]) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T  (16 x 64 per warp, fp32)
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < KSTEPS; ++st) {
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {  // two 8-key tiles per ldmatrix
-        uint32_t kb[4];
-        ldmatrix_x4(kb, &Ks[16 * jp * LDK + 16 * st] + ldsm_b_offset(lane, LDK));
-        const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
-        mma_bf16_16816(s[2 * jp], qa[st], b0);
-        mma_bf16_16816(s[2 * jp + 1], qa[st], b1);
+// The band of every (row, BQ-query tile) of a segment-packed batch over BK-key
+// tiles, for all heads at once: band[b][qt] = (first key tile, count) of the
+// tiles whose [min, max] valid segment id overlaps the query tile's (the JAX
+// package's band_ranges; interior all-pad tiles lie inside, count 0 when the
+// query tile holds no valid cell; the last query tile may be ragged).  One
+// block per row: the row's ids are staged in shared memory with 16-byte
+// loads, a warp reduces each tile's [min, max] with shuffles, and a warp
+// finds each query tile's first and last overlapping key tile by ballot.
+// S a multiple of BK.  Bound by latency: one pass over the (B, S) ids.
+constexpr int kBandThreads = 256;
+__global__ void __launch_bounds__(kBandThreads) packed_band_kernel(const int* __restrict__ seg,
+                                                                   int* __restrict__ band, int S, int BQ, int BK) {
+  extern __shared__ int sh[];  // the row's S ids, then [min, max] of the nK key tiles and the nQ query tiles
+  const int b = blockIdx.x, nQ = (S + BQ - 1) / BQ, nK = S / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = kBandThreads / 32;
+  int* ids = sh;
+  int* kr = sh + S;       // [nK][2]
+  int* qr = kr + 2 * nK;  // [nQ][2]
+  constexpr int kBigId = 1 << 30;
+  const int4* row4 = reinterpret_cast<const int4*>(seg + (size_t)b * S);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < S / 4; i += kBandThreads) reinterpret_cast<int4*>(ids)[i] = row4[i];
+  __syncthreads();
+  for (int j = warp; j < nK + nQ; j += nw) {
+    const bool is_key = j < nK;
+    const int t0 = is_key ? j * BK : (j - nK) * BQ, n = is_key ? BK : min(BQ, S - t0);
+    int lo = kBigId, hi = -kBigId;
+    for (int i = lane; i < n; i += 32) {
+      const int x = ids[t0 + i];
+      if (x != kPadSeg) {
+        lo = min(lo, x);
+        hi = max(hi, x);
       }
     }
-
-    // softmax numerators in place: s becomes p
-    float ps0 = 0.f, ps1 = 0.f;
-    if (NOMAX) {
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int ia = kid[8 * j + 2 * t], ib = kid[8 * j + 2 * t + 1];
-        s[j][0] = exp2f(fminf(fmaxf(s[j][0], kClipLo), kClipHi)) * (ia == qid0 ? 1.f : 0.f);
-        s[j][1] = exp2f(fminf(fmaxf(s[j][1], kClipLo), kClipHi)) * (ib == qid0 ? 1.f : 0.f);
-        s[j][2] = exp2f(fminf(fmaxf(s[j][2], kClipLo), kClipHi)) * (ia == qid1 ? 1.f : 0.f);
-        s[j][3] = exp2f(fminf(fmaxf(s[j][3], kClipLo), kClipHi)) * (ib == qid1 ? 1.f : 0.f);
-        ps0 += s[j][0] + s[j][1];
-        ps1 += s[j][2] + s[j][3];
-      }
-      l0 += ps0;
-      l1 += ps1;
-    } else {
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        // additive bias of a masked pair: (eq - 1) * 1e30, as the TPU kernels
-        const int ia = kid[8 * j + 2 * t], ib = kid[8 * j + 2 * t + 1];
-        s[j][0] += ia == qid0 ? 0.f : -kBig;
-        s[j][1] += ib == qid0 ? 0.f : -kBig;
-        s[j][2] += ia == qid1 ? 0.f : -kBig;
-        s[j][3] += ib == qid1 ? 0.f : -kBig;
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        s[j][0] = exp2f(s[j][0] - mn0);
-        s[j][1] = exp2f(s[j][1] - mn0);
-        s[j][2] = exp2f(s[j][2] - mn1);
-        s[j][3] = exp2f(s[j][3] - mn1);
-        ps0 += s[j][0] + s[j][1];
-        ps1 += s[j][2] + s[j][3];
-      }
-      l0 = l0 * al0 + ps0;
-      l1 = l1 * al1 + ps1;
-#pragma unroll
-      for (int jd = 0; jd < DT; ++jd) {
-        o[jd][0] *= al0;
-        o[jd][1] *= al0;
-        o[jd][2] *= al1;
-        o[jd][3] *= al1;
-      }
-      m0 = mn0;
-      m1 = mn1;
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
     }
-
-    // O += P V: two adjacent 8-wide S fragments are the A operand of one k-step
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int jp = 0; jp < DT / 2; ++jp) {  // two 8-wide slices of D per (transposing) ldmatrix
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &Vs[16 * kk * LDK + 16 * jp] + ldsm_a_offset(lane, LDK));
-        const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
-        mma_bf16_16816(o[2 * jp], pa, b0);
-        mma_bf16_16816(o[2 * jp + 1], pa, b1);
-      }
+    if (lane == 0) {
+      int* r = is_key ? kr + 2 * j : qr + 2 * (j - nK);
+      r[0] = lo;
+      r[1] = hi;
     }
   }
-
-  // row sums across the 4 threads that share a row
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const float f0 = val0 ? 1.f : 0.f, f1 = val1 ? 1.f : 0.f;
-#pragma unroll
-  for (int jd = 0; jd < DT; ++jd) {
-    if (r0 < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(o0p + 8 * jd + 2 * t) =
-          __floats2bfloat162_rn(o[jd][0] / d0 * f0, o[jd][1] / d0 * f0);
-    if (r1 < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(o1p + 8 * jd + 2 * t) =
-          __floats2bfloat162_rn(o[jd][2] / d1 * f1, o[jd][3] / d1 * f1);
-  }
-  if (!NOMAX && lse != nullptr && t == 0) {
-    if (r0 < Lq) lse[((size_t)b * H + h) * Lq + r0] = m0 + log2f(d0);
-    if (r1 < Lq) lse[((size_t)b * H + h) * Lq + r1] = m1 + log2f(d1);
+  __syncthreads();
+  for (int qt = warp; qt < nQ; qt += nw) {
+    const int lo = qr[2 * qt], hi = qr[2 * qt + 1];
+    int first = -1, last = -1;
+    for (int j0 = 0; j0 < nK; j0 += 32) {
+      const int j = j0 + lane;
+      const unsigned m = __ballot_sync(0xffffffffu, j < nK && kr[2 * j] <= hi && kr[2 * j + 1] >= lo);
+      if (m) {
+        if (first < 0) first = j0 + __ffs(m) - 1;
+        last = j0 + 31 - __clz(m);
+      }
+    }
+    if (lane == 0) {
+      band[2 * ((size_t)b * nQ + qt)] = first < 0 ? 0 : first;
+      band[2 * ((size_t)b * nQ + qt) + 1] = first < 0 ? 0 : last - first + 1;
+    }
   }
 }
 
@@ -400,21 +683,117 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side of the bf16 kernel: tensor maps, shared-memory opt-in, launch
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded: the
+// library needs no -lcuda
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (B, L, H, D) bf16 view with D contiguous as a tiled map over (D, L, H, B):
+// byte strides of L, H and B, box (D, 64, 1, 1), swizzle = the row's 2*D
+// bytes, rows past L read as zeros.  ops/flash_attention.py::tensor_map_plan
+// states the same plan (and its checks) in Python.
+static bool encode_operand(CUtensorMap* map, const void* ptr, int D, int L, int H, int B, Strides st) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] % 16 || strides[i] >= (1ull << 40)) return false;
+  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)kTmaRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool NOMAX, bool SEG, int NC> static cudaError_t opt_in_smem() {
+  return cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, NOMAX, SEG, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              fwd_smem_bytes<D, NC>());
+}
+
+// Every instantiation's shared-memory opt-in, once per process, on the
+// first call (which the wrappers make eagerly, never inside a graph capture).
+template <int D> static cudaError_t opt_in_head_dim() {
+  cudaError_t e = cudaSuccess;
+#define SRHEP_OPT_IN(NM, SG)                                   \
+  if (e == cudaSuccess) e = opt_in_smem<D, NM, SG, 1>();      \
+  if (e == cudaSuccess) e = opt_in_smem<D, NM, SG, 3>();
+  SRHEP_OPT_IN(false, false)
+  SRHEP_OPT_IN(true, false)
+  SRHEP_OPT_IN(false, true)
+  SRHEP_OPT_IN(true, true)
+#undef SRHEP_OPT_IN
+  return e;
+}
+constexpr int kBandMaxSmem = 200 * 1024;  // rows of up to ~50k cells
+static cudaError_t opt_in_all() {
+  static cudaError_t done = cudaErrorNotReady;
+  if (done == cudaErrorNotReady) {
+    done = cudaFuncSetAttribute(packed_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBandMaxSmem);
+    if (done == cudaSuccess) done = opt_in_head_dim<16>();
+    if (done == cudaSuccess) done = opt_in_head_dim<32>();
+    if (done == cudaSuccess) done = opt_in_head_dim<64>();
+  }
+  return done;
+}
+
+template <int D, bool NOMAX, bool SEG>
+static int launch_flash_bf16(const void* q, const void* k, const void* v, const void* qmask, const void* kmask,
+                             const int* band, void* out, void* lse, int B, int H, int Lq, int Lk, Strides qs,
+                             Strides ks, Strides vs, int block_q, cudaStream_t stream) {
+  const cudaError_t opt = opt_in_all();
+  if (opt != cudaSuccess) return (int)opt;
+  CUtensorMap tq, tk, tv;
+  if (!encode_operand(&tq, q, D, Lq, H, B, qs) || !encode_operand(&tk, k, D, Lk, H, B, ks) ||
+      !encode_operand(&tv, v, D, Lk, H, B, vs))
+    return (int)cudaErrorInvalidValue;
+  if (block_q == 192) {
+    dim3 grid((Lq + 191) / 192, H, B);
+    flash_fwd_wgmma_kernel<D, NOMAX, SEG, 3><<<grid, 512, fwd_smem_bytes<D, 3>(), stream>>>(
+        tq, tk, tv, qmask, kmask, band, static_cast<bf16*>(out), static_cast<float*>(lse), H, Lq, Lk);
+  } else if (block_q == 64) {
+    dim3 grid((Lq + 63) / 64, H, B);
+    flash_fwd_wgmma_kernel<D, NOMAX, SEG, 1><<<grid, 256, fwd_smem_bytes<D, 1>(), stream>>>(
+        tq, tk, tv, qmask, kmask, band, static_cast<bf16*>(out), static_cast<float*>(lse), H, Lq, Lk);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool NOMAX, bool SEG>
 static int launch_flash(const void* q, const void* k, const void* v, const void* qmask, const void* kmask,
-                        void* out, void* lse, int B, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
-                        int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
-    dim3 grid((Lq + 63) / 64, H, B);
-    flash_fwd_bf16_kernel<D, NOMAX, SEG><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), qmask, kmask,
-        static_cast<bf16*>(out), static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
-  } else {
-    dim3 grid((Lq + kThreads - 1) / kThreads, H, B);
-    flash_fwd_f32_kernel<D, NOMAX, SEG><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qmask, kmask,
-        static_cast<float*>(out), static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
-  }
+                        const int* band, void* out, void* lse, int B, int H, int Lq, int Lk, Strides qs, Strides ks,
+                        Strides vs, int is_bf16, int block_q, cudaStream_t stream) {
+  if (is_bf16)
+    return launch_flash_bf16<D, NOMAX, SEG>(q, k, v, qmask, kmask, band, out, lse, B, H, Lq, Lk, qs, ks, vs, block_q,
+                                            stream);
+  dim3 grid((Lq + kThreads - 1) / kThreads, H, B);
+  flash_fwd_f32_kernel<D, NOMAX, SEG><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qmask, kmask,
+      static_cast<float*>(out), static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
   return (int)cudaGetLastError();
 }
 
@@ -423,20 +802,24 @@ static int launch_flash(const void* q, const void* k, const void* v, const void*
 // q (B, Lq, H, D), k, v (B, Lk, H, D) as strided views with D contiguous
 // (strides in elements, 16-byte aligned); qm (B, Lq), km (B, Lk) fp32;
 // out (B, Lq, H, D) contiguous; lse (B, H, Lq) fp32 or null.  D in {16, 32, 64}.
-// Returns cudaGetLastError().
+// block_q: query rows per block of the bf16 kernel (64 or 192; ignored in
+// fp32).  Returns cudaGetLastError().
 extern "C" int srhep_flash_fwd(const void* q, const void* k, const void* v, const void* qm, const void* km,
                                void* out, void* lse, int B, int H, int Lq, int Lk, int D, long long qsb,
                                long long qsl, long long qsh, long long ksb, long long ksl, long long ksh,
-                               long long vsb, long long vsl, long long vsh, int is_bf16, int nomax, void* stream) {
+                               long long vsb, long long vsl, long long vsh, int is_bf16, int nomax, int block_q,
+                               void* stream) {
   using namespace srhep;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (nomax && lse != nullptr) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SRHEP_FLASH_CASE(DD)                                                                               \
-  case DD:                                                                                                 \
-    return nomax ? launch_flash<DD, true, false>(q, k, v, qm, km, out, lse, B, H, Lq, Lk, qs, ks, vs, is_bf16, s) \
-                 : launch_flash<DD, false, false>(q, k, v, qm, km, out, lse, B, H, Lq, Lk, qs, ks, vs, is_bf16, s);
+#define SRHEP_FLASH_CASE(DD)                                                                                        \
+  case DD:                                                                                                          \
+    return nomax ? launch_flash<DD, true, false>(q, k, v, qm, km, nullptr, out, lse, B, H, Lq, Lk, qs, ks, vs,     \
+                                                 is_bf16, block_q, s)                                               \
+                 : launch_flash<DD, false, false>(q, k, v, qm, km, nullptr, out, lse, B, H, Lq, Lk, qs, ks, vs,    \
+                                                  is_bf16, block_q, s);
   switch (D) {
     SRHEP_FLASH_CASE(16)
     SRHEP_FLASH_CASE(32)
@@ -447,24 +830,44 @@ extern "C" int srhep_flash_fwd(const void* q, const void* k, const void* v, cons
 #undef SRHEP_FLASH_CASE
 }
 
+// The band table of a packed batch (K7's bf16 kernel): seg (B, S) int32,
+// band (B, S / block_q, 2) int32 = (first key tile, count) over block_k-wide
+// key tiles.  Returns cudaGetLastError().
+extern "C" int srhep_packed_band(const void* seg, void* band, int B, int S, int block_q, int block_k, void* stream) {
+  using namespace srhep;
+  if (B <= 0 || S <= 0 || block_q <= 0 || block_k <= 0 || S % block_k || S % 4) return (int)cudaErrorInvalidValue;
+  const size_t smem = (S + 2 * (S / block_k) + 2 * ((S + block_q - 1) / block_q)) * sizeof(int);
+  if (smem > kBandMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t opt = opt_in_all();
+  if (opt != cudaSuccess) return (int)opt;
+  packed_band_kernel<<<B, kBandThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(seg), static_cast<int*>(band), S, block_q, block_k);
+  return (int)cudaGetLastError();
+}
+
 // Segment-packed rows (K7): q, k, v (B, S, H, D) as strided views with D
 // contiguous (strides in elements, 16-byte aligned); seg (B, S) int32, -1 on
-// padding, valid ids nondecreasing along each row; out (B, S, H, D)
+// padding, valid ids nondecreasing along each row; band (bf16 only): the
+// srhep_packed_band table at block_q x 64 tiles; out (B, S, H, D)
 // contiguous, zero on padding; lse (B, H, S) fp32 or null (robust only).
 // D in {16, 32, 64}.  Returns cudaGetLastError().
-extern "C" int srhep_packed_fwd(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
-                                int B, int H, int S, int D, long long qsb, long long qsl, long long qsh,
-                                long long ksb, long long ksl, long long ksh, long long vsb, long long vsl,
-                                long long vsh, int is_bf16, int nomax, void* stream) {
+extern "C" int srhep_packed_fwd(const void* q, const void* k, const void* v, const void* seg, const void* band,
+                                void* out, void* lse, int B, int H, int S, int D, long long qsb, long long qsl,
+                                long long qsh, long long ksb, long long ksl, long long ksh, long long vsb,
+                                long long vsl, long long vsh, int is_bf16, int nomax, int block_q, void* stream) {
   using namespace srhep;
   if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (nomax && lse != nullptr) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && band == nullptr) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  const int* bd = static_cast<const int*>(band);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SRHEP_PACKED_CASE(DD)                                                                                \
-  case DD:                                                                                                   \
-    return nomax ? launch_flash<DD, true, true>(q, k, v, seg, seg, out, lse, B, H, S, S, qs, ks, vs, is_bf16, st) \
-                 : launch_flash<DD, false, true>(q, k, v, seg, seg, out, lse, B, H, S, S, qs, ks, vs, is_bf16, st);
+#define SRHEP_PACKED_CASE(DD)                                                                                      \
+  case DD:                                                                                                         \
+    return nomax ? launch_flash<DD, true, true>(q, k, v, seg, seg, bd, out, lse, B, H, S, S, qs, ks, vs, is_bf16, \
+                                                block_q, st)                                                       \
+                 : launch_flash<DD, false, true>(q, k, v, seg, seg, bd, out, lse, B, H, S, S, qs, ks, vs,         \
+                                                 is_bf16, block_q, st);
   switch (D) {
     SRHEP_PACKED_CASE(16)
     SRHEP_PACKED_CASE(32)

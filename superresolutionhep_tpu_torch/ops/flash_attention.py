@@ -31,6 +31,8 @@ CUDA tensor they launch the kernel or raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import kernels
@@ -48,6 +50,12 @@ LN2 = 0.6931471805599453
 
 # head dims the CUDA source instantiates
 KERNEL_HEAD_DIMS = (16, 32, 64)
+
+# tiling of the bf16 forward kernel (csrc/flash_attention.cu): keys per tile,
+# rows per TMA box, query rows per consumer warpgroup
+FWD_BLOCK_K = 64
+FWD_TMA_ROWS = 64
+FWD_ROWS_PER_WARPGROUP = 64
 
 
 def flash_shapes_ok(Lq: int, Lk: int, d: int) -> bool:
@@ -189,10 +197,70 @@ def _strides(*ts):
     return [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
+# ---------------------------------------------------------------------------
+# host-side plan of the bf16 forward kernel (pure functions of shapes and
+# strides: what the wrapper picks and what the C side encodes)
+# ---------------------------------------------------------------------------
+
+
+def fwd_tile_rows(B: int, H: int, Lq: int, sm_count: int) -> int:
+    """Query rows per block of the bf16 forward kernel: 192 (three consumer
+    warpgroups, so that each K/V tile serves 192 queries) while the grid then
+    still holds two blocks per SM, else 64 (one consumer warpgroup, two
+    blocks resident per SM), so that a small grid such as a serve bucket
+    still spreads over the card.  (128 rows, two consumer warpgroups, was
+    never the fastest of the three on the H100 and is not built.)"""
+    return 192 if B * H * -(-Lq // 192) >= 2 * sm_count else 64
+
+
+def tensor_map_plan(t) -> dict:
+    """The TMA tensor map ``csrc/flash_attention.cu::encode_operand`` builds
+    for a (B, L, H, D) bf16 view with D contiguous: dims (D, L, H, B)
+    innermost first, byte strides of L, H and B, box (D, 64, 1, 1), swizzle
+    the row's 2*D bytes (the layout the kernel's wgmma descriptors assume);
+    rows past L read as zeros.  Raises ValueError for a view the TMA cannot
+    take: another dtype or head dim, D not contiguous, a base address or a
+    stride that is not a multiple of 16 bytes."""
+    if t.dim() != 4:
+        raise ValueError(f"tensor map: expected a (B, L, H, D) view, got shape {tuple(t.shape)}")
+    B, L, H, D = t.shape
+    if t.dtype != torch.bfloat16 or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"tensor map: the bf16 kernel takes bfloat16 with D in {KERNEL_HEAD_DIMS}, got {t.dtype}, D={D}")
+    if t.stride(3) != 1:
+        raise ValueError(f"tensor map: the head dim must be contiguous, strides {t.stride()}")
+    esz = t.element_size()
+    strides = tuple(t.stride(i) * esz for i in (1, 2, 0))
+    if t.data_ptr() % 16 or any(st % 16 or st >= 2**40 for st in strides):
+        raise ValueError(f"tensor map: base address and the byte strides {strides} of L, H, B must be multiples of 16")
+    return {"dims": (D, L, H, B), "strides_bytes": strides, "box": (D, FWD_TMA_ROWS, 1, 1), "swizzle_bytes": D * esz}
+
+
+def fwd_plan(q_pre, k, v, sm_count: int) -> dict:
+    """The bf16 forward kernel's launch on (B, L, H, D) views: tile height,
+    grid, threads per block (the consumer warpgroups and one producer
+    warpgroup) and the three tensor maps."""
+    B, Lq, H, _ = q_pre.shape
+    block_q = fwd_tile_rows(B, H, Lq, sm_count)
+    return {"block_q": block_q, "block_k": FWD_BLOCK_K, "grid": (-(-Lq // block_q), H, B),
+            "threads": 128 * (block_q // FWD_ROWS_PER_WARPGROUP + 1),
+            "maps": {"q": tensor_map_plan(q_pre), "k": tensor_map_plan(k), "v": tensor_map_plan(v)}}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool, block_q: int = None):
     """q_pre, k, v: (B, L, H, D) views (D contiguous) on one CUDA device;
     qm (B, Lq), km (B, Lk) float32.  Returns out (B, Lq, H, D) contiguous
-    and the base-2 LSE (B, H, Lq) fp32 or None."""
+    and the base-2 LSE (B, H, Lq) fp32 or None.  ``block_q`` (bf16 only)
+    overrides the tile height ``fwd_tile_rows`` picks (64 or 192)."""
     if nomax and with_lse:
         raise ValueError("the no-max kernel emits no LSE (inference only)")
     q_pre, k, v = _cuda_operands(q_pre, k, v, qm, km)
@@ -201,13 +269,14 @@ def _flash_fwd_cuda(q_pre, k, v, qm, km, nomax: bool, with_lse: bool):
     dev, dt = q_pre.device, q_pre.dtype
     out = torch.empty((B, Lq, H, D), dtype=dt, device=dev)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=dev) if with_lse else None
+    block_q = (block_q or fwd_tile_rows(B, H, Lq, sm_count(dev))) if dt == torch.bfloat16 else 0
     lib = kernels.library()
     with torch.cuda.device(dev):
         rc = lib.srhep_flash_fwd(
             q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), qm.data_ptr(), km.data_ptr(),
             out.data_ptr(), lse.data_ptr() if with_lse else None,
             B, H, Lq, Lk, D, *_strides(q_pre, k, v),
-            int(dt == torch.bfloat16), int(nomax),
+            int(dt == torch.bfloat16), int(nomax), block_q,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     name = "flash_fwd_nomax" if nomax else "flash_fwd"

@@ -17,12 +17,15 @@ Three kernels:
 
 The TPU kernels walk, per 512-wide query block, a band of key blocks computed
 outside the kernel (``band_ranges``) and capped at ``max_segment_len``.  The
-Hopper kernels find the exact band of each 64-row tile themselves, so the
-entries take no block arguments; ``PACKED_DEFAULTS`` and
-``set_packed_defaults`` are kept for parity with the JAX package's API and
-change nothing here.  As in the TPU kernels' mask (segment equality alone),
-padding cells attend each other: their output is zeroed, but their LSE is
-finite and depends on the tiling, so it is compared at valid queries only.
+Hopper kernels walk the exact band at their own tiles: the bf16 forward reads
+it from a table that ``packed_band`` computes once per call for all heads
+(one launch of its own kernel), the fp32 forward and the backward kernels
+find it per block; so the entries take no block arguments.
+``PACKED_DEFAULTS`` and ``set_packed_defaults`` are kept for parity with the
+JAX package's API and change nothing here.  As in the TPU kernels' mask
+(segment equality alone), padding cells attend each other: their output is
+zeroed, but their LSE is finite and depends on the tiling, so it is compared
+at valid queries only.
 
 ``_PackedAttention`` is the ``torch.autograd.Function`` (the JAX package's
 ``_packed_attention`` custom VJP): forward K7 with LSE, backward K8 then K9.
@@ -33,6 +36,8 @@ raise.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import kernels
@@ -40,12 +45,15 @@ from .flash_attention import (
     BIG,
     CLIP_HI,
     CLIP_LO,
+    FWD_BLOCK_K,
     KERNEL_HEAD_DIMS,
     LN2,
     LOG2E,
     _check_operand,
     _heads_first,
     _strides,
+    fwd_tile_rows,
+    sm_count,
 )
 
 PAD_SEG = -1  # segment id of padding cells
@@ -55,7 +63,7 @@ PAD_SEG = -1  # segment id of padding cells
 SEG_ALIGN = 128
 
 # the JAX package's tuning knobs of the TPU kernels' blocking, kept for API
-# parity: the Hopper kernels tile by 64 and walk the exact band per tile
+# parity: the Hopper kernels pick their own tiles and walk the exact band
 PACKED_DEFAULTS = {"block_q": 512, "block_k": 512, "max_segment_len": None}
 
 _UNSET = object()
@@ -84,7 +92,7 @@ def band_ranges(seg, BQ: int, BK: int):
     int32 (B, nQ); interior all-pad blocks lie inside the band."""
     B, S = seg.shape
     nQ, nK = S // BQ, S // BK
-    big = torch.tensor(2**30, dtype=seg.dtype, device=seg.device)
+    big = 2**30  # a Python scalar: no host-to-device copy (the function runs inside CUDA graphs)
     segq = seg.reshape(B, nQ, BQ)
     vq = segq != PAD_SEG
     qmin = torch.where(vq, segq, big).amin(-1)
@@ -100,6 +108,38 @@ def band_ranges(seg, BQ: int, BK: int):
     kstart = torch.where(any_ov, first, 0).to(torch.int32)
     kcnt = torch.where(any_ov, last - first + 1, 0).to(torch.int32)
     return kstart, kcnt
+
+
+def _ref_packed_band(seg, block_q: int, block_k: int = FWD_BLOCK_K):
+    """Plain version of the band kernel: ``band_ranges`` on the row padded
+    with padding cells to a length both tilings divide (a ragged last query
+    tile; the padding adds only all-pad key tiles past the end, and those
+    overlap no band).  (B, ceil(S / block_q), 2) int32."""
+    S = seg.shape[1]
+    step = math.lcm(block_q, block_k)
+    padded = torch.nn.functional.pad(seg, (0, -(-S // step) * step - S), value=PAD_SEG)
+    return torch.stack(band_ranges(padded, block_q, block_k), -1)[:, : -(-S // block_q)]
+
+
+def packed_band(seg, block_q: int, block_k: int = FWD_BLOCK_K):
+    """The band table of the bf16 K7 kernel: (B, ceil(S / block_q), 2) int32
+    = (first key tile, count) per (row, query tile) over block_k-wide key
+    tiles, for all heads at once.  On a CUDA tensor one launch of
+    ``csrc/flash_attention.cu::packed_band_kernel`` (counted as
+    ``packed_band``); on a CPU tensor its plain version."""
+    B, S = seg.shape
+    if not seg.is_cuda:
+        return _ref_packed_band(seg, block_q, block_k)
+    if seg.dtype != torch.int32 or not seg.is_contiguous() or S % block_k:
+        raise ValueError(f"packed band: seg must be contiguous int32 with S a multiple of {block_k}")
+    band = torch.empty((B, -(-S // block_q), 2), dtype=torch.int32, device=seg.device)
+    lib = kernels.library()
+    with torch.cuda.device(seg.device):
+        rc = lib.srhep_packed_band(seg.data_ptr(), band.data_ptr(), B, S, block_q, block_k,
+                                   torch.cuda.current_stream(seg.device).cuda_stream)
+    kernels.check(rc, "packed_band")
+    kernels.LAUNCHES["packed_band"] += 1
+    return band
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +238,10 @@ def _cuda_packed_operands(q_pre, k, v, seg, g=None):
     return ops
 
 
-def _packed_fwd_cuda(q_pre, k, v, seg, nomax: bool, with_lse: bool):
+def _packed_fwd_cuda(q_pre, k, v, seg, nomax: bool, with_lse: bool, block_q: int = None):
     """K7: out (B, S, H, D) contiguous and the base-2 LSE (B, H, S) fp32 or
-    None."""
+    None.  bf16: one ``packed_band`` launch for the band table, then the
+    kernel; ``block_q`` overrides the tile height ``fwd_tile_rows`` picks."""
     if nomax and with_lse:
         raise ValueError("the no-max kernel emits no LSE (inference only)")
     q_pre, k, v = _cuda_packed_operands(q_pre, k, v, seg)
@@ -208,12 +249,19 @@ def _packed_fwd_cuda(q_pre, k, v, seg, nomax: bool, with_lse: bool):
     dev, dt = q_pre.device, q_pre.dtype
     out = torch.empty((B, S, H, D), dtype=dt, device=dev)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) if with_lse else None
+    band = None
+    if dt == torch.bfloat16:
+        block_q = block_q or fwd_tile_rows(B, H, S, sm_count(dev))
+        band = packed_band(seg, block_q)
+    else:  # the fp32 kernel finds its band itself
+        block_q = 0
     lib = kernels.library()
     with torch.cuda.device(dev):
         rc = lib.srhep_packed_fwd(
-            q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
+            q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            band.data_ptr() if band is not None else None, out.data_ptr(),
             lse.data_ptr() if with_lse else None, B, H, S, D, *_strides(q_pre, k, v),
-            int(dt == torch.bfloat16), int(nomax), torch.cuda.current_stream(dev).cuda_stream,
+            int(dt == torch.bfloat16), int(nomax), block_q, torch.cuda.current_stream(dev).cuda_stream,
         )
     name = "packed_fwd_nomax" if nomax else "packed_fwd"
     kernels.check(rc, name)

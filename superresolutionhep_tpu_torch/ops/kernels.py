@@ -44,7 +44,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_nomax": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "fused_qkv": 0, "fused_mlp": 0,
-    "packed_fwd": 0, "packed_fwd_nomax": 0, "packed_bwd_dq": 0, "packed_bwd_dkv": 0,
+    "packed_fwd": 0, "packed_fwd_nomax": 0, "packed_band": 0, "packed_bwd_dq": 0, "packed_bwd_dkv": 0,
     "probe_variant": 0, "probe_exp_dtype": 0,
 }
 
@@ -129,16 +129,18 @@ _L = ctypes.c_longlong
 # int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
     # q, k, v, qm, km, out, lse, B, H, Lq, Lk, D, strides (b, l, h) of q, k, v,
-    # is_bf16, nomax, stream
-    "srhep_flash_fwd": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _I, _P],
+    # is_bf16, nomax, block_q, stream
+    "srhep_flash_fwd": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _I, _I, _P],
     # q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, D, strides (b, l, h) of
     # q, k, v, g, is_bf16, stream
     "srhep_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, _P],
     # the same with dk, dv in place of dq
     "srhep_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I, _P],
-    # segment-packed rows: q, k, v, seg, out, lse, B, H, S, D, strides (b, l, h)
-    # of q, k, v, is_bf16, nomax, stream
-    "srhep_packed_fwd": [_P] * 6 + [_I] * 4 + [_L] * 9 + [_I, _I, _P],
+    # segment-packed rows: q, k, v, seg, band, out, lse, B, H, S, D, strides
+    # (b, l, h) of q, k, v, is_bf16, nomax, block_q, stream
+    "srhep_packed_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_I, _I, _I, _P],
+    # seg, band, B, S, block_q, block_k, stream
+    "srhep_packed_band": [_P, _P, _I, _I, _I, _I, _P],
     # q, k, v, g, lse, dl, seg, dq, B, H, S, D, strides of q, k, v, g, is_bf16, stream
     "srhep_packed_bwd_dq": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
     # the same with dk, dv in place of dq

@@ -29,13 +29,15 @@ run() {  # name, sed expression, file
   if [ "$rc" = "0" ] || [ "$oks" != "0" ]; then status=1; fi
   cd "$ROOT" || exit 9
 }
-run nomax_drops_key_mask 's/kClipHi)) \* (ia == qid\([01]\) ? 1.f : 0.f);/kClipHi));/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run nomax_drops_key_mask 's/id\.\([xy]\) == qid\([01]\) ? kClipHi : kMaskedLogit/kClipHi/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run lrelu_slope 's/kLreluSlope = 0.01f/kLreluSlope = 0.02f/' superresolutionhep_tpu_torch/csrc/common.cuh
 run qkv_forgets_bias 's/from_float<T>(acc\[i\] + bias\[n0 + c\])/from_float<T>(acc[i])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
 run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/common.cuh
 run bwd_dq_sign_of_dl 's/\* (dp\[j\]\[0\] - dl0);/* (dp[j][0] + dl0);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + (ia == kid0 ? 0.f : -kBig)) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
-run packed_fwd_ignores_segments 's/+= ia == qid0 ? 0.f : -kBig;/+= ia >= 0 ? 0.f : -kBig;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run packed_fwd_ignores_segments 's/= id\.\([xy]\) == qid\([01]\) ? s\[/= id.\1 >= 0 ? s[/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run fwd_band_drops_last_tile 's/kt_last = bd.x + bd.y - 1;/kt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run fwd_ring_reads_wrong_stage 's/make_descs<D>(dq, qs, ks0 + ns \* kBK/make_descs<D>(dq, qs, ks0 + (ns + 1) % NS * kBK/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run packed_dkv_drops_ln2 's/    dk = (dk.float() \* LN2).to(k.dtype)/    dk = dk.to(k.dtype)/' superresolutionhep_tpu_torch/ops/flash_packed.py
 run k11_ignores_key_mask 's/kbias\[i\] = (km\[(size_t)b \* L + k0 + i\] - 1.0f) \* kBig;/kbias[i] = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
 run k10_full_without_running_max 's/const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);/const float mn0 = 0.f, mn1 = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
