@@ -7,8 +7,10 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written CUDA kernels from ``superresolutionhep_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card (K1-K9 at the SR and PF shapes, the attention probes K10/K11 at the
-measuring scripts' shapes), runs the two ported measuring scripts' own sweeps
+card (K1-K9 at the SR and PF shapes, K3/K4 also with the per-segment
+modulation rows of the packed sampler's (80, 5120) batch, the attention
+probes K10/K11 at the measuring scripts' shapes), runs the two ported
+measuring scripts' own sweeps
 (``scripts/kernel_experiments.py``, ``scripts/probe_exp_dtype.py`` of the
 package; the probes phase), then drives the port's main paths at the full
 width of the multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
@@ -21,6 +23,8 @@ width of the multi-particle model (h=256, 6 DiT layers, 4 heads of 64):
   * train: ``SRTrainer.fit`` (bf16 compute, fp32 parameters, per-layer remat,
     unfused, dopri5 validation, checkpoints, resume), flash-vs-dense and
     fused-vs-unfused gradients in fp32, train-step times;
+  * dopri5 ensemble: ``generate_ensemble(method="dopri5")``, each member
+    against the others' noise drawn anew and against its own run alone;
   * packed train: ``SRTrainer.fit`` with ``packed: true``, resumed; fp32
     gradients of a packed row against the same events unpacked; the step time
     at (8, 5120);
@@ -38,9 +42,11 @@ just after, that they really went through the kernels.  Weights are random
 (seeded); events are synthetic (seeded).
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
-``kernel_case`` lines, the scripts' own lines and ``probes``, ``serve``,
-``packed_inference``, ``train``, ``packed_train``, ``pf_inference``,
-``pf_train``), then the card's name and power limit as nvidia-smi gives them,
+``ptxas`` (registers, spills and serialised wgmma of the bf16 forward and
+fused kernels; any spill or serialisation fails the run), ``kernel_case``
+lines, the scripts' own lines and ``probes``, ``serve``,
+``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
+``pf_inference``, ``pf_train``), then the card's name and power limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths), then,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and
@@ -48,7 +54,7 @@ prints no ``ok`` line.  Without a CUDA device it exits 2.
 
 Options (for development; the default run does everything):
     --skip-serve      no serve, packed and pf inference phases (exits 1 by design)
-    --skip-train      no train, packed and pf train phases (exits 1 by design)
+    --skip-train      no train, dopri5 ensemble, packed and pf train phases (exits 1 by design)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
 """
@@ -196,10 +202,91 @@ def ragged_valid(B, L, device):
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(reps):
-    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+def fused_bounds(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def fused_cases(dtype, B, L, F, Fh, form, reps, randn, timed=True):
+    """K3 and K4 against their plain versions on the same CUDA tensors, with
+    the modulation rows per batch row, per cell, or per segment (a
+    ``packed_layout`` row set repeated for the ten ensemble members, tables
+    (B, E + 1, F) whose last row is the padding cells').  The bound counts what
+    the form reads: the per-segment tables and ids, not per-cell rows.  Also
+    a yardstick: ``torch.matmul`` of the same products alone (no single
+    PyTorch call computes K3 or K4, so ``library_ms`` is None)."""
     from superresolutionhep_tpu_torch.ops import fused_mlp as fm
     from superresolutionhep_tpu_torch.ops import fused_qkv as fq
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+    isz, peak, tol = (2 if dtype == torch.bfloat16 else 4), H100_FLOPS[dtype], TOL[("fused", dtype)]
+    M, seg, O = B * L, None, 3 * F
+    if form == "segment":
+        _, seg_np, _ = packed_layout()
+        seg = torch.from_numpy(np.tile(seg_np, (B // seg_np.shape[0], 1))).to(dev)
+        E1 = L // 128 + 1  # the packer's segments (S / SEG_ALIGN) and the zero row
+        shape = (B, E1, F)
+    else:
+        shape = {"batch": (B, F), "cell": (B, L, F)}[form]
+    n_rows = int(np.prod(shape))
+    seg_bytes = M * 4 if seg is not None else 0
+    cases = []
+
+    def case(kernel, out, ref, flops, nbytes, call, plain, mm, **shape_kw):
+        err = (out.float() - ref.float()).abs().max().item()
+        c = {"kernel": kernel, "dtype": dname, "B": B, "L": L, **shape_kw, "rows": form, "max_abs_err": err,
+             "tol": tol, "library_ms": None, **fused_bounds(flops, nbytes, peak),
+             "ok": bool(torch.isfinite(out.float()).all()) and err <= tol}
+        if timed:
+            c["ms"] = time_ms(call, reps)
+            c["plain_ms"] = time_ms(plain, max(3, reps // 5))
+            c["matmul_yardstick_ms"] = time_ms(mm, reps)
+        emit({"phase": "kernel_case", **c})
+        cases.append(c)
+
+    # ---- K3: LN + modulate + QKV projection
+    x = randn(B, L, F, dtype=dtype)
+    w_t = randn(O, F, scale=0.03, dtype=dtype)  # (O, F) as a Linear weight; w = its transposed view
+    bias = randn(O, scale=0.1)
+    ea, eb = 1.0 + randn(*shape, scale=0.1), randn(*shape, scale=0.1)
+    before = kernels.LAUNCHES["fused_qkv"]
+    out = fq.fused_ln_mod_proj(x, ea, eb, w_t.t(), bias, segment_ids=seg)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["fused_qkv"] != before + 1:
+        fail("fused_qkv: the wrapper did not count its launch")
+    ref = fq._ref_ln_mod_proj_rows(x, ea, eb, w_t.t(), bias, seg)
+    x2, w2 = x.reshape(M, F), w_t.t()
+    case("fused_qkv", out, ref, 2.0 * M * F * O, (M * F + M * O + O * F) * isz + (2 * n_rows + O) * 4 + seg_bytes,
+         lambda: fq.fused_ln_mod_proj(x, ea, eb, w_t.t(), bias, segment_ids=seg),
+         lambda: fq._ref_ln_mod_proj_rows(x, ea, eb, w_t.t(), bias, seg), lambda: torch.matmul(x2, w2), F=F, O=O)
+    del x, out, ref, x2
+
+    # ---- K4: the MLP half-layer
+    q = randn(B, L, F, scale=0.5, dtype=dtype)
+    att = randn(B, L, F, scale=0.5, dtype=dtype)
+    w0_t = randn(Fh, F, scale=0.06, dtype=dtype)
+    w1_t = randn(F, Fh, scale=0.06, dtype=dtype)
+    b0, b1 = randn(Fh, scale=0.1), randn(F, scale=0.1)
+    ga, gm = randn(*shape, scale=0.5), randn(*shape, scale=0.5)
+    args = (q, att, ga, ea, eb, gm, w0_t.t(), b0, w1_t.t(), b1)
+    before = kernels.LAUNCHES["fused_mlp"]
+    out = fm.fused_dit_mlp(*args, segment_ids=seg)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["fused_mlp"] != before + 1:
+        fail("fused_mlp: the wrapper did not count its launch")
+    ref = fm._ref_dit_mlp_rows(*args, seg)
+    q2, hid = q.reshape(M, F), torch.empty(M, Fh, dtype=dtype, device=dev)
+    case("fused_mlp", out, ref, 4.0 * M * F * Fh,
+         (3 * M * F + 2 * F * Fh) * isz + (4 * n_rows + F + Fh) * 4 + seg_bytes,
+         lambda: fm.fused_dit_mlp(*args, segment_ids=seg), lambda: fm._ref_dit_mlp_rows(*args, seg),
+         lambda: torch.matmul(torch.matmul(q2, w0_t.t(), out=hid), w1_t.t()), F=F, Fh=Fh)
+    return cases
+
+
+def kernel_cases(reps):
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
     from superresolutionhep_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
@@ -276,59 +363,13 @@ def kernel_cases(reps):
                 cases.append(case)
                 emit({"phase": "kernel_case", **case})
 
-            # ---- K3: LN + modulate + QKV projection (per-batch rows; per-cell rows at L=512)
-            x = randn(B, L, F, dtype=dtype)
-            w_t = randn(3 * F, F, scale=0.03, dtype=dtype)  # (O, F) as a Linear weight; w = its transposed view
-            bias = randn(3 * F, scale=0.1)
-            for per_cell in ((False, True) if L == 512 else (False,)):
-                shape = (B, L, F) if per_cell else (B, F)
-                ea, eb = 1.0 + randn(*shape, scale=0.1), randn(*shape, scale=0.1)
-                out = fq.fused_ln_mod_proj(x, ea, eb, w_t.t(), bias)
-                torch.cuda.synchronize()
-                ref = fq._ref_ln_mod_proj(x, ea, eb, w_t.t(), bias)
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = TOL[("fused", dtype)]
-                flops3 = 2.0 * B * L * F * 3 * F
-                bytes3 = (B * L * F + B * L * 3 * F + 3 * F * F) * isz + (2 * ea.numel() + 3 * F) * 4
-                case = {"kernel": "fused_qkv", "dtype": dname, "B": B, "L": L, "F": F, "O": 3 * F,
-                        "per_cell": per_cell, "max_abs_err": err, "tol": tol,
-                        "ms": time_ms(lambda: fq.fused_ln_mod_proj(x, ea, eb, w_t.t(), bias), reps),
-                        "plain_ms": time_ms(lambda: fq._ref_ln_mod_proj(x, ea, eb, w_t.t(), bias), max(3, reps // 5)),
-                        "library_ms": None,
-                        "bound_ms": max(flops3 / peak, bytes3 / H100_BYTES_PER_S) * 1e3,
-                        "bound_by": "operations" if flops3 / peak >= bytes3 / H100_BYTES_PER_S else "bytes",
-                        "ok": bool(torch.isfinite(out.float()).all()) and err <= tol}
-                cases.append(case)
-                emit({"phase": "kernel_case", **case})
+            # ---- K3 / K4: per-batch rows; per-cell rows at L=512
+            for form in (("batch", "cell") if L == 512 else ("batch",)):
+                cases += fused_cases(dtype, B, L, F, Fh, form, reps, randn)
 
-            # ---- K4: MLP half-layer
-            q = randn(B, L, F, scale=0.5, dtype=dtype)
-            att = randn(B, L, F, scale=0.5, dtype=dtype)
-            w0_t = randn(Fh, F, scale=0.06, dtype=dtype)
-            w1_t = randn(F, Fh, scale=0.06, dtype=dtype)
-            b0, b1 = randn(Fh, scale=0.1), randn(F, scale=0.1)
-            for per_cell in ((False, True) if L == 512 else (False,)):
-                shape = (B, L, F) if per_cell else (B, F)
-                ga, gm = randn(*shape, scale=0.5), randn(*shape, scale=0.5)
-                ea, eb = 1.0 + randn(*shape, scale=0.1), randn(*shape, scale=0.1)
-                args = (q, att, ga, ea, eb, gm, w0_t.t(), b0, w1_t.t(), b1)
-                out = fm.fused_dit_mlp(*args)
-                torch.cuda.synchronize()
-                ref = fm._ref_dit_mlp(*args)
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = TOL[("fused", dtype)]
-                flops4 = 4.0 * B * L * F * Fh
-                bytes4 = (3 * B * L * F + 2 * F * Fh) * isz + (4 * ga.numel() + F + Fh) * 4
-                case = {"kernel": "fused_mlp", "dtype": dname, "B": B, "L": L, "F": F, "Fh": Fh,
-                        "per_cell": per_cell, "max_abs_err": err, "tol": tol,
-                        "ms": time_ms(lambda: fm.fused_dit_mlp(*args), reps),
-                        "plain_ms": time_ms(lambda: fm._ref_dit_mlp(*args), max(3, reps // 5)),
-                        "library_ms": None,
-                        "bound_ms": max(flops4 / peak, bytes4 / H100_BYTES_PER_S) * 1e3,
-                        "bound_by": "operations" if flops4 / peak >= bytes4 / H100_BYTES_PER_S else "bytes",
-                        "ok": bool(torch.isfinite(out.float()).all()) and err <= tol}
-                cases.append(case)
-                emit({"phase": "kernel_case", **case})
+        # ---- K3 / K4 on the packed batch of the ensemble sampler, rows (80, 5120): per-segment rows
+        cases += fused_cases(dtype, 10 * PACKED_ROWS, PACKED_S, F, Fh, "segment", reps, randn,
+                             timed=dtype == torch.bfloat16)
 
     # the PF stage's head dim (16), bf16 and fp32 (PF's default precision):
     # a small case and the PF encoder's shape class, (32, 640) with 4 heads
@@ -527,30 +568,48 @@ def fwd_tile_cases(reps):
 
 
 def ptxas_report():
-    """Registers and spills of every instantiation of the bf16 forward kernel,
-    from nvcc's -Xptxas -v log."""
+    """Registers and spills of every instantiation of the bf16 forward kernel
+    and of the bf16 fused kernels, and the functions whose wgmma ptxas
+    serialised (warnings C751x), from nvcc's -Xptxas -v log."""
     import re
 
     from superresolutionhep_tpu_torch.ops import kernels
 
-    rows, name, spill = [], None, (None, None)
+    patterns = {
+        "flash_fwd_wgmma_kernel": (r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])ELb([01])ELi(\d)E",
+                                   lambda m: {"D": int(m[0]), "nomax": m[1] == "1", "seg": m[2] == "1",
+                                              "block_q": 64 * int(m[3])}),
+        "fused_qkv_wgmma_kernel": (r"fused_qkv_wgmma_kernelILi(\d+)E", lambda m: {"F": int(m[0])}),
+        "fused_mlp_wgmma_kernel": (r"fused_mlp_wgmma_kernelILi(\d+)ELi(\d+)E",
+                                   lambda m: {"F": int(m[0]), "Fh": int(m[1])}),
+    }
+    rows = {k: [] for k in patterns}
+    serialised = []
+    name, spill = None, (None, None)
     for line in (kernels.build_dir() / "nvcc_log.txt").read_text().splitlines():
+        ser = re.search(r"\((C751\d)\).*function '(\S+?)'", line)
+        if ser:
+            serialised.append({"code": ser.group(1), "function": ser.group(2)})
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-        inst = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])ELb([01])ELi(\d)E", name or "")
-        if inst is None:
-            continue
-        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if sp:
-            spill = (int(sp.group(1)), int(sp.group(2)))
-        reg = re.search(r"Used (\d+) registers", line)
-        if reg:
-            d, nomax, seg, nc = inst.groups()
-            rows.append({"D": int(d), "nomax": nomax == "1", "seg": seg == "1", "block_q": 64 * int(nc),
-                         "registers_at_launch": int(reg.group(1)), "spill_stores": spill[0], "spill_loads": spill[1]})
-            name = None
-    return rows
+        for kind, (pat, fields) in patterns.items():
+            inst = re.search(pat, name or "")
+            if inst is None:
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if sp:
+                spill = (int(sp.group(1)), int(sp.group(2)))
+            reg = re.search(r"Used (\d+) registers", line)
+            if reg:
+                rows[kind].append({**fields(inst.groups()), "registers_at_launch": int(reg.group(1)),
+                                   "spill_stores": spill[0], "spill_loads": spill[1],
+                                   "serialised": [s["code"] for s in serialised if s["function"] == name]})
+                name = None
+    ok = (all(rows.values()) and all(r["spill_stores"] == 0 and r["spill_loads"] == 0 and not r["serialised"]
+                                     for rs in rows.values() for r in rs)
+          and not any(re.search(r"wgmma_kernel", s["function"]) for s in serialised))
+    return {**rows, "serialised_wgmma": serialised, "ok": ok}
 
 
 def bwd_kernel_cases(reps):
@@ -1264,6 +1323,80 @@ def packed_inference_phase():
     if not line["ok"]:
         fail("packed inference checks failed: " + ", ".join(k for k, v in checks.items() if not v))
     return counts_fast
+
+
+# ---------------------------------------------------------------------------
+# phase: dopri5 over a folded ensemble
+# ---------------------------------------------------------------------------
+
+# dopri5 over a folded ensemble (fp32, the flash kernels): a member's result may
+# not depend on the other members (same batch shape, so the same kernels and
+# the same rounding: bitwise, held to 1e-6 of the largest |x|); against the
+# member run alone (other shapes, so other GEMM roundings, ~1e-6, which can
+# flip a step decision near err = 1 and move a grid value by the solver's
+# tolerance): 1e-3 of the largest |x|
+DOPRI5_TOL = {"independent": 1e-6, "single": 1e-3}
+
+
+def dopri5_ensemble_phase():
+    """One ``generate_ensemble(method="dopri5")`` call of the multipart model
+    (random weights, fp32, flash kernels) on two synthetic events with three
+    members, and again with the other members' noise drawn anew: member 0
+    must not move, as each member keeps its own step-size control (a control
+    shared by the members moves it by the solver's tolerance, ~1e-4).  Then
+    each member against ``generate_samples`` of that member alone."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV
+    from superresolutionhep_tpu_torch.data.packing import aligned_len
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS, collate
+    from superresolutionhep_tpu_torch.flow.sampling import generate_ensemble, generate_samples
+    from superresolutionhep_tpu_torch.inference.sr import batch_to_device
+    from superresolutionhep_tpu_torch.models.flow_model import FlowModel
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+
+    dev = torch.device("cuda")
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    flow_cfg = cfg_mv["flow_model"]
+    model = FlowModel(flow_cfg).to(dev)
+    model.load_reference_state_dict(params_from_jax(init_params_jax_layout(flow_cfg, seed=0), flow_cfg))
+    model.eval().requires_grad_(False)
+    ds = multipart_dataset(cfg_mv, 8, 41)
+    small = sorted(range(len(ds)), key=lambda i: ds.cell_count_high[i])[:2]
+    events = [ds.get_event(i) for i in small]
+    batch = batch_to_device(collate(events, aligned_len(max(ds.cell_count_high[i] for i in small))), dev,
+                            MODEL_BATCH_KEYS)
+    E, n_steps = 3, 6
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x0 = torch.randn((E, *batch["e_proxy"].shape), generator=gen, device=dev)
+    x0b = x0.clone()
+    x0b[1:] = torch.randn(x0b[1:].shape, generator=gen, device=dev)
+    calls = [0]
+
+    def apply(b, x, t):
+        calls[0] += 1
+        return model(b, x, t)
+
+    t0 = time.time()
+    ens = generate_ensemble(apply, batch, E, n_steps, method="dopri5", ret_seq=False, x0=x0)
+    torch.cuda.synchronize()
+    ens_s, ens_calls = time.time() - t0, calls[0]
+    ens_b = generate_ensemble(apply, batch, E, n_steps, method="dopri5", ret_seq=False, x0=x0b)
+    valid = batch["q_mask"]
+    scale = float(ens[:, valid].abs().max())
+    indep = float((ens[0] - ens_b[0])[valid].abs().max())
+    single = [float((ens[e] - generate_samples(apply, batch, n_steps, method="dopri5", x0=x0[e]))[valid].abs().max())
+              for e in range(E)]
+    checks = {"finite": bool(torch.isfinite(ens).all()),
+              "member_independent_of_the_others": indep <= DOPRI5_TOL["independent"] * scale,
+              "members_match_single_runs": max(single) <= DOPRI5_TOL["single"] * scale}
+    line = {"phase": "dopri5_ensemble", "members": E, "events_cells": [int(ds.cell_count_high[i]) for i in small],
+            "n_steps": n_steps, "model_evaluations": ens_calls, "seconds": round(ens_s, 2), "scale": scale,
+            "member0_max_abs_change_when_others_change": indep, "max_abs_err_vs_single_by_member": single,
+            "tol_rel": DOPRI5_TOL, "checks": checks, "ok": all(checks.values())}
+    emit(line)
+    if not line["ok"]:
+        fail("dopri5 ensemble checks failed: " + ", ".join(k for k, v in checks.items() if not v))
 
 
 # ---------------------------------------------------------------------------
@@ -2027,7 +2160,10 @@ def main():
     if args.ptxas:
         print((kernels.build_dir() / "nvcc_log.txt").read_text(), flush=True)
     if (kernels.build_dir() / "nvcc_log.txt").exists():  # absent when the library was built before, elsewhere
-        emit({"phase": "ptxas", "flash_fwd_wgmma_kernel": ptxas_report()})
+        report = ptxas_report()
+        emit({"phase": "ptxas", **report})
+        if not report["ok"]:
+            fail("ptxas: a wgmma kernel spills, or ptxas serialised its wgmma instructions")
 
     cases = (kernel_cases(args.reps) + fwd_tile_cases(args.reps) + bwd_kernel_cases(args.reps)
              + packed_kernel_cases(args.reps) + probe_kernel_cases(args.reps))
@@ -2036,6 +2172,7 @@ def main():
                 "serve": serve_phase() if not args.skip_serve else zero,
                 "packed_inference": packed_inference_phase() if not args.skip_serve else zero,
                 "train": train_phase(args.reps) if not args.skip_train else zero,
+                "dopri5_ensemble": dopri5_ensemble_phase() or zero if not args.skip_train else zero,
                 "packed_train": packed_train_phase(args.reps) if not args.skip_train else zero}
     if not (args.skip_serve and args.skip_train):
         trees = sr_predicted_trees()
@@ -2072,6 +2209,10 @@ def main():
             "shape": {k: c[k] for k in ("B", "H", "L", "D", "F", "O", "Fh") if k in c}, "dtype": c["dtype"],
             **({"sfu_bound_ms": c["sfu_bound_ms"]} if "sfu_bound_ms" in c else {}),
         })
+        if name in ("fused_qkv", "fused_mlp"):  # the packed sampler's instance: per-segment rows at (80, 5120)
+            c = next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["rows"] == "segment")
+            entries[-1]["segment_rows"] = {k: c[k] for k in ("B", "L", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "matmul_yardstick_ms")}
     missing = [e["name"] for e in entries if e["launches"] == 0]
     if missing and not (args.skip_serve or args.skip_train):
         fail(f"kernel(s) never launched on their main path: {missing}")

@@ -1,7 +1,9 @@
 """Shared CLI plumbing: the JAX package's argument surface (training:
 ``-cmv``, ``-ct``, ``--run_dir``, ``--resume``, ``--profile``; inference:
 ``-i``, ``-bm``, ``-estart``, ``-estop``; both: ``--precision``,
-``--device``) mapped onto PyTorch."""
+``--device``) mapped onto PyTorch.  The training CLIs also take the
+reference's ``-ekey/--exp_key`` and ``-d/--debug_mode``: the port has no
+external logger, so both are accepted and change nothing."""
 
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ def _add_runtime_args(parser: argparse.ArgumentParser):
 def add_train_args(parser: argparse.ArgumentParser):
     parser.add_argument("--config_mv", "-cmv", type=str, required=True)
     parser.add_argument("--config_t", "-ct", type=str, required=True)
+    parser.add_argument("--exp_key", "-ekey", type=str, default=None,
+                        help="experiment key of an external logger; accepted for the reference's surface, unused")
+    parser.add_argument("--debug_mode", "-d", action="store_true",
+                        help="local run without an external logger (the port has none: always so)")
     _add_runtime_args(parser)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--run_dir", type=str, default=None)

@@ -1,16 +1,17 @@
 // Shared device helpers for the hand-written Hopper kernels of the PyTorch
-// port: element conversion, the parameter-free LayerNorm of rows held across a
-// warp, the raw bf16 tensor-core instruction, asynchronous weight-slab copies
-// with a two-slab pipeline, and a 64x64 block-level tile product from shared
-// memory in two flavours:
-//   * bf16 : mma.sync.m16n8k16 with fp32 accumulation (tensor cores);
-//   * fp32 : register-tiled FMA loops (no tensor cores: TF32 would keep only
-//            ~3 decimal digits, and the fp32 build exists so that the kernels
-//            can be held tightly against their plain PyTorch versions).
-// Both keep 32 fp32 accumulators per thread; coord() says which (row, col) of
-// the 64x64 tile accumulator i of this thread belongs to, so epilogues are
-// written once.  At the end, raw PTX for Hopper's asynchronous machinery
-// (mbarrier, TMA, wgmma, setmaxnreg), which the bf16 attention forward uses.
+// port: four-element loads and stores, the parameter-free LayerNorm of rows
+// held across a warp, the modulation row of a cell in the fused kernels'
+// three row forms, the raw bf16 mma.sync instruction and ldmatrix (the
+// probes and the backward), asynchronous weight-slab copies with a two-slab
+// pipeline and a 64x64 block-level fp32 tile product from shared memory
+// (register-tiled FMA loops, no tensor cores: TF32 would keep only ~3
+// decimal digits, and the fp32 builds exist so that the kernels can be held
+// tightly against their plain PyTorch versions; 32 accumulators per thread,
+// coord() says which (row, col) of the tile accumulator i belongs to).  At
+// the end, raw PTX for Hopper's asynchronous machinery (mbarrier, TMA loads
+// and stores, wgmma, setmaxnreg, proxy fences), the tiling of the bf16 fused
+// kernels and the host's tensor-map encoder, which the bf16 attention
+// forward and the bf16 fused kernels use.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: nothing here links against the driver)
@@ -108,20 +109,37 @@ __device__ __forceinline__ int2 segment_band(const int* __restrict__ seg_row, in
 // bytes apart modulo 128, so the 8 row reads of an ldmatrix hit distinct banks.
 template <typename T> struct Pad { static constexpr int value = 16 / (int)sizeof(T); };
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
-
 __device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : kLreluSlope * x; }
 
-// Four consecutive elements at a time: 8-byte accesses for bf16, 16-byte for fp32.
+// The modulation row of cell `row` (of M = B * L) in the fused kernels' three
+// forms (ops/fused_qkv.py): one row per batch row (B, F), one per cell
+// (M, F), or per segment: a table (B, e1, F) and the cells' segment ids, an id
+// outside [0, e1 - 1) (padding's -1) taking the table's last row, the zero
+// modulation that the one-hot scatter gives such a cell.
+constexpr int kRowsPerBatch = 0, kRowsPerCell = 1, kRowsPerSegment = 2;
+// the same given the cell's segment id s (read by the caller, so that the
+// read can be issued early; unused unless mode is kRowsPerSegment)
+__device__ __forceinline__ size_t mod_row_of(int row, int L, int mode, int s, int e1) {
+  if (mode == kRowsPerCell) return (size_t)row;
+  const int b = row / L;
+  if (mode == kRowsPerBatch) return (size_t)b;
+  return (size_t)b * e1 + ((unsigned)s < (unsigned)(e1 - 1) ? s : e1 - 1);
+}
+__device__ __forceinline__ int seg_of(int row, int mode, const int* __restrict__ seg) {
+  return mode == kRowsPerSegment ? seg[row] : 0;
+}
+__device__ __forceinline__ size_t mod_row(int row, int L, int mode, const int* __restrict__ seg, int e1) {
+  return mod_row_of(row, L, mode, seg_of(row, mode, seg), e1);
+}
+
+// Four consecutive elements at a time: 16-byte fp32 accesses, and four bf16
+// (8 bytes, as loaded) to fp32.
 template <typename T> __device__ __forceinline__ void load4(const T* p, float (&o)[4]);
 template <> __device__ __forceinline__ void load4<float>(const float* p, float (&o)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
 }
-template <> __device__ __forceinline__ void load4<bf16>(const bf16* p, float (&o)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ void bf16x4_to_float(uint2 raw, float (&o)[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
@@ -129,12 +147,6 @@ template <> __device__ __forceinline__ void load4<bf16>(const bf16* p, float (&o
 template <typename T> __device__ __forceinline__ void store4(T* p, const float (&v)[4]);
 template <> __device__ __forceinline__ void store4<float>(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-template <> __device__ __forceinline__ void store4<bf16>(bf16* p, const float (&v)[4]) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Parameter-free LayerNorm of R rows of F values, each spread over the warp in
@@ -240,37 +252,9 @@ __device__ __forceinline__ int ldsm_b_offset(int lane, int ld) {
 
 // acc(64x64) += As(64 x K, row stride lda) * Bs(64 x K, row stride ldb)^T,
 // both in shared memory; Bs is "n-major": row n holds the K weights of
-// output column n (the layout of a torch Linear weight).
+// output column n (the layout of a torch Linear weight).  fp32 only (the
+// fused kernels' fp32 bodies); their bf16 bodies use wgmma.
 template <typename T> struct TileMma;
-
-template <> struct TileMma<bf16> {
-  // warp w owns rows 16w..16w+15; lane = 4*g + t.  Per 16-deep k-step: one
-  // ldmatrix for the A tile, one per pair of 8-wide column tiles of B.
-  static __device__ __forceinline__ void run(const bf16* As, int lda, const bf16* Bs, int ldb, int K,
-                                             float (&acc)[32]) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const bf16* ap = As + 16 * warp * lda + ldsm_a_offset(lane, lda);
-    const bf16* bp = Bs + ldsm_b_offset(lane, ldb);
-    for (int k = 0; k < K; k += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, ap + k);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b[4];
-        ldmatrix_x4(b, bp + 16 * jp * ldb + k);
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        mma_bf16_16816(*reinterpret_cast<float(*)[4]>(&acc[8 * jp]), a, b0);
-        mma_bf16_16816(*reinterpret_cast<float(*)[4]>(&acc[8 * jp + 4]), a, b1);
-      }
-    }
-  }
-  static __device__ __forceinline__ void coord(int i, int& r, int& c) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int j = i >> 2, e = i & 3;
-    r = 16 * warp + g + ((e & 2) ? 8 : 0);
-    c = 8 * j + 2 * t + (e & 1);
-  }
-};
 
 template <> struct TileMma<float> {
   // thread (ty, tx) = (tid / 8, tid % 8) owns rows 4*ty + i, cols tx + 8*j
@@ -424,6 +408,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// TMA: one box of a 2-d tiled tensor map (c0 the inner coordinate)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA: a shared-memory tile into one box of a 2-d tiled tensor map (rows and
+// columns past the map's end are not written); the stores of a thread form
+// bulk groups: commit closes one, wait_read<N> returns once all but N groups
+// have finished reading shared memory, wait<N> once they have finished
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma reading an operand the threads wrote); a barrier follows
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
 // setmaxnreg: all four warps of a warpgroup execute it together
 template <int R> __device__ __forceinline__ void warpgroup_reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -501,6 +514,160 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 64, fp32) += A(64 x 16, bf16 pairs in registers) * B(16 x 64), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n64k16_kmajor(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 128, fp32) (+)= A(64 x 16) * B(16 x 128), A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 fused kernels (fused_qkv.cu, fused_mlp.cu): persistent blocks of
+// kFusedNC consumer warpgroups of 64 rows each and two producer warps (one
+// thread of the first issues the TMA loads of the weight slabs, one of the
+// second those of activation tiles); the weights stream through a ring of
+// [kFusedBN output columns][kFusedBK depth] slabs, 128-byte swizzled, the
+// layout a K-major wgmma operand takes.  No setmaxnreg: ptxas allocated the
+// consumers no more than the launch bound's 168 registers with it either
+// (a block of ten warps puts three on an SM sub-partition: 16K / 96), and
+// the bodies are written to fit that.
+// ---------------------------------------------------------------------------
+constexpr int kFusedNC = 2;                             // consumer warpgroups: 128-row tiles
+constexpr int kFusedRows = 64 * kFusedNC;               // rows of a tile
+constexpr int kFusedThreads = 128 * kFusedNC + 64;      // + two producer warps
+constexpr int kFusedBN = 128;                           // output columns of one product chunk (wgmma N)
+constexpr int kFusedBK = 64;                            // depth of a slab: 128 bytes of bf16, the swizzle span
+constexpr int kFusedSlabBytes = kFusedBN * kFusedBK * 2;  // 16 KB
+
+// Cycle counters of the bf16 fused kernels' stages, per consumer warpgroup
+// and tile, compiled in only with -DSRHEP_FUSED_CLOCKS (tools/fused_variants.py
+// builds that variant; the counters slow the kernels): slot 0 counts tiles,
+// the others the cycles of one stage each, summed over tiles and warpgroups.
+#ifdef SRHEP_FUSED_CLOCKS
+__device__ unsigned long long srhep_fused_clocks[8];
+#define FUSED_CLOCKS long long clk_[8] = {0, 0, 0, 0, 0, 0, 0, 0}
+#define FUSED_TIC(v) const long long v = clock64()
+#define FUSED_TOC(slot, v) clk_[slot] += clock64() - (v)
+#define FUSED_TILE_DONE() clk_[0] += 1
+#define FUSED_CLOCKS_FLUSH()                                                                          \
+  if ((threadIdx.x & 127) == 0)                                                                       \
+    for (int i_ = 0; i_ < 8; ++i_) atomicAdd(&srhep_fused_clocks[i_], (unsigned long long)clk_[i_])
+#else
+#define FUSED_CLOCKS
+#define FUSED_TIC(v)
+#define FUSED_TOC(slot, v)
+#define FUSED_TILE_DONE()
+#define FUSED_CLOCKS_FLUSH()
+#endif
+
+// shared-memory accesses by 32-bit address (a generic pointer takes two
+// registers, which the bf16 fused MLP kernel's epilogue cannot spare)
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_u2(uint32_t addr, uint2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y) : "memory");
+}
+__device__ __forceinline__ void sts_f4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+// four floats as bf16 into 8 bytes of shared memory
+__device__ __forceinline__ void sts_bf16x4(uint32_t addr, const float (&v)[4]) {
+  sts_u2(addr, make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));
+}
+
+// byte offset of element (r, f) in a swizzled bf16 A tile of 64 rows: F/64
+// panels of [64 rows][128 bytes], the 16-byte chunk index XORed with r % 8
+__device__ __forceinline__ uint32_t swz_a_offset(int r, int f) {
+  return (uint32_t)((f >> 6) * 8192 + r * 128 + ((((f & 63) >> 3) ^ (r & 7)) << 4) + ((f & 7) << 1));
+}
+// byte offset of 16-byte chunk c (of 16: 8 columns each) of row r in a
+// [64][128] bf16 output staging tile: two TMA boxes of [64 rows][64 columns]
+// in the 128-byte swizzle, as the TMA store reads them (the accumulator
+// layout's row-pair writes fall into distinct banks)
+__device__ __forceinline__ uint32_t swz_c_offset(int r, int c) {
+  return (uint32_t)((c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// ---------------------------------------------------------------------------
+// host: cuTensorMapEncodeTiled from the driver the runtime already loaded
+// (the library needs no -lcuda)
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix as a 2-d tiled map with box
+// (box_cols, box_rows): in the 128-byte swizzle (box_cols * 2 must be 128),
+// or plain rows (swizzle128 false); boxes past the end read zeros
+static inline bool encode_matrix_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                                      int box_cols, bool swizzle128 = true) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || (cols * 2) % 16 || (box_cols * 2) % 16 ||
+      box_cols > 256 || box_rows > 256 || (swizzle128 && box_cols * 2 != 128))
+    return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// one opt-in per kernel to more than 48 KB of dynamic shared memory, on the
+// first launch (which the wrappers make eagerly, never inside a graph capture)
+template <typename K> static inline cudaError_t opt_in_once(K kernel, int smem, int& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
+// streaming multiprocessors of the current device (queried once)
+static inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
 }
 
 }  // namespace srhep

@@ -686,27 +686,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 // ---------------------------------------------------------------------------
 // host side of the bf16 kernel: tensor maps, shared-memory opt-in, launch
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded: the
-// library needs no -lcuda
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A (B, L, H, D) bf16 view with D contiguous as a tiled map over (D, L, H, B):
 // byte strides of L, H and B, box (D, 64, 1, 1), swizzle = the row's 2*D
 // bytes, rows past L read as zeros.  ops/flash_attention.py::tensor_map_plan

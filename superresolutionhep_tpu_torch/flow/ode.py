@@ -10,7 +10,8 @@ is a handful of kernel launches.  heun, rk4 and ab3 are not ported yet and
 raise.
 
 All integrators share the signature ``odeint(f, y0, ts)`` with
-``f(t, y) -> dy/dt`` (t a 0-dim tensor) and return the trajectory at the
+``f(t, y) -> dy/dt`` (t a 0-dim tensor; for dopri5 a (groups,) tensor, one
+time per group of rows) and return the trajectory at the
 requested grid points, shape (T, *y0.shape), with ``y[0] == y0``.
 """
 
@@ -154,21 +155,32 @@ def _rms_norm(x):
     return torch.sqrt(torch.mean(x * x))
 
 
+def _group_rms_norm(x, groups: int):
+    """(groups,) root mean squares, each over one group's rows of x (the
+    groups are consecutive blocks of rows: an ensemble folded member-major
+    into the batch axis).  One group: the plain ``_rms_norm``."""
+    if groups == 1:
+        return _rms_norm(x).reshape(1)
+    return torch.stack([_rms_norm(xg) for xg in x.reshape(groups, -1)])
+
+
 def _tensordot0(w, K):
     """sum_j w[..., j] * K[j] with w (..., S) and K (S, *y): the stage
     combination, in fp32 (the JAX package asks for HIGHEST precision)."""
     return torch.tensordot(w, K, dims=1)
 
 
-def _initial_step(f, t0, y0, f0, t1, atol, rtol):
-    """scipy ``_select_initial_step`` heuristic, as the JAX package."""
+def _initial_step(f, t0, y0, f0, t1, atol, rtol, rows):
+    """scipy ``_select_initial_step`` heuristic, as the JAX package, for each
+    group of rows (``rows(v)`` spreads a (groups,) value over its rows)."""
+    G = t0.shape[0]
     scale = atol + torch.abs(y0) * rtol
-    d0 = _rms_norm(y0 / scale)
-    d1 = _rms_norm(f0 / scale)
+    d0 = _group_rms_norm(y0 / scale, G)
+    d1 = _group_rms_norm(f0 / scale, G)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
-    y1 = y0 + h0 * f0
+    y1 = y0 + rows(h0) * f0
     f1 = f(t0 + h0, y1)
-    d2 = _rms_norm((f1 - f0) / scale) / h0
+    d2 = _group_rms_norm((f1 - f0) / scale, G) / h0
     h1 = torch.where(
         (d1 <= 1e-15) & (d2 <= 1e-15),
         torch.clamp_min(h0 * 1e-3, 1e-6),
@@ -177,69 +189,91 @@ def _initial_step(f, t0, y0, f0, t1, atol, rtol):
     return torch.minimum(torch.minimum(100 * h0, h1), t1 - t0)
 
 
-def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 10_000):
+def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 10_000,
+                  groups: int = 1):
     """Adaptive DOPRI5 with dense output at the grid points ``ts``: the JAX
     package's step-size control and quartic interpolation, step for step.
     The solver's own arithmetic (times, step sizes, error norms, stage
-    combinations) runs in fp32 whatever the state's dtype; the accept/reject
-    decision and the loop condition are read on the host each step."""
+    combinations) runs in fp32 whatever the state's dtype; whether any group
+    is still integrating is read on the host each step.
+
+    ``groups``: y0's rows are that many independent problems in consecutive
+    blocks (an ensemble folded member-major into the batch axis).  Each group
+    keeps its own t, h, accept and error norm over its own rows, as the JAX
+    package's vmap over the members gives; ``f`` is then called with a
+    (groups,) tensor of times.  A group that has reached the end keeps its
+    state while the others go on."""
     dev = y0.device
+    G = int(groups)
+    if G < 1 or y0.shape[0] % G:
+        raise ValueError(f"dopri5: {y0.shape[0]} rows do not split into {G} groups")
+    n_rows = y0.shape[0] // G
     ts = torch.as_tensor(ts, dtype=torch.float32, device=dev)
     C = torch.tensor(_C, dtype=torch.float32, device=dev)
     Bw = torch.tensor(_B, dtype=torch.float32, device=dev)
     Ew = torch.tensor(_E, dtype=torch.float32, device=dev)
     Pm = torch.tensor(_P, dtype=torch.float32, device=dev)
     A = [torch.tensor(a, dtype=torch.float32, device=dev) for a in _A]
-    t0, t1 = ts[0], ts[-1]
+
+    def rows(v):  # (G,) -> broadcastable onto y's rows
+        return v.repeat_interleave(n_rows).reshape((-1,) + (1,) * (y0.ndim - 1))
+
+    t0, t1 = ts[0].expand(G).clone(), ts[-1]
     f0 = f(t0, y0)
-    h = _initial_step(f, t0, y0, f0, t1, atol, rtol)
+    h = _initial_step(f, t0, y0, f0, t1, atol, rtol, rows)
 
     n_out = ts.shape[0]
     ys = torch.zeros((n_out, *y0.shape), dtype=y0.dtype, device=dev)
     ys[0] = y0
     t, y, k1 = t0, y0, f0
     for _ in range(max_steps):
-        if not bool(t < t1):
+        active = t < t1
+        if not bool(active.any()):
             break
         h = torch.minimum(h, t1 - t)
+        hr = rows(h)
         ks = [k1]
         for i in range(5):
-            yi = y + h * _tensordot0(A[i], torch.stack(ks))
+            yi = y + hr * _tensordot0(A[i], torch.stack(ks))
             ks.append(f(t + C[i + 1] * h, yi))
-        y_new = y + h * _tensordot0(Bw, torch.stack(ks))
+        y_new = y + hr * _tensordot0(Bw, torch.stack(ks))
         ks.append(f(t + h, y_new))
         K = torch.stack(ks)  # (7, *y.shape)
-        err = h * _tensordot0(Ew, K)
+        err = hr * _tensordot0(Ew, K)
         scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
-        err_norm = _rms_norm(err / scale)
-        accept = bool(err_norm <= 1.0)
-
-        if bool(err_norm == 0.0):
-            factor = torch.full_like(err_norm, _MAX_FACTOR)
-        else:
-            factor = torch.clamp(_SAFETY * err_norm**_ORDER_EXP, _MIN_FACTOR, _MAX_FACTOR)
-        if not accept:
-            factor = torch.clamp_max(factor, 1.0)
+        err_norm = _group_rms_norm(err / scale, G)
+        accept = err_norm <= 1.0
+        factor = torch.where(err_norm == 0.0, torch.full_like(err_norm, _MAX_FACTOR),
+                             torch.clamp(_SAFETY * err_norm**_ORDER_EXP, _MIN_FACTOR, _MAX_FACTOR))
+        factor = torch.where(accept, factor, torch.clamp_max(factor, 1.0))
         h_next = h * factor
+        accept = accept & active
 
-        if accept:
-            # dense output at every grid point inside (t, t + h]
-            t_new = t + h
-            theta = torch.clamp((ts - t) / torch.clamp_min(h, 1e-30), 0.0, 1.0)  # (T,)
+        # dense output at every grid point inside (t, t + h] of each accepting group
+        t_new = t + h
+        for g in range(G):
+            sl = slice(g * n_rows, (g + 1) * n_rows)
+            theta = torch.clamp((ts - t[g]) / torch.clamp_min(h[g], 1e-30), 0.0, 1.0)  # (T,)
             powers = torch.stack([theta, theta**2, theta**3, theta**4], dim=-1)  # (T, 4)
             w = powers @ Pm.T  # (T, 7)
-            dense = y[None] + h * _tensordot0(w, K)
-            in_window = (ts > t) & (ts <= t_new + 1e-12)
+            dense = y[sl][None] + h[g] * _tensordot0(w, K[:, sl])
+            in_window = (ts > t[g]) & (ts <= t_new[g] + 1e-12) & accept[g]
             mask = in_window.reshape((n_out,) + (1,) * y.ndim)
-            ys = torch.where(mask, dense.to(ys.dtype), ys)
-            t, y, k1 = t_new, y_new, K[6]  # FSAL
-        h = h_next
+            ys[:, sl] = torch.where(mask, dense.to(ys.dtype), ys[:, sl])
+        acc_rows = rows(accept)
+        t = torch.where(accept, t_new, t)
+        y = torch.where(acc_rows, y_new, y)
+        k1 = torch.where(acc_rows, K[6], k1)  # FSAL
+        h = torch.where(active, h_next, h)
     return ys
 
 
-def odeint(f, y0, ts, method: str = "ab2e", rtol: float = 1e-4, atol: float = 1e-4):
+def odeint(f, y0, ts, method: str = "ab2e", rtol: float = 1e-4, atol: float = 1e-4, groups: int = 1):
+    """``groups``: independent problems in consecutive blocks of y0's rows;
+    only the adaptive dopri5 reads it (fixed-step solvers treat every row
+    alike)."""
     if method == "dopri5":
-        return odeint_dopri5(f, y0, ts, rtol=rtol, atol=atol)
+        return odeint_dopri5(f, y0, ts, rtol=rtol, atol=atol, groups=groups)
     if method in FIXED_STEP_METHODS:
         return odeint_fixed(f, y0, ts, method)
     if method == "ab2":

@@ -4,7 +4,9 @@ Integrate the learned vector field from x0 ~ N(0, I) over t in
 linspace(0, 1, n_steps).  Where the JAX package vmaps the sampler over
 ensemble noise keys, the ensemble is folded into the batch axis here: the
 batch rows are repeated E times (member-major), one sampler call runs all
-E*B rows, and the result is reshaped to (E, S, B, N, 1).
+E*B rows, and the result is reshaped to (E, S, B, N, 1).  The adaptive
+dopri5 keeps each member's own step-size control over its own rows
+(``groups``), as the vmap does.
 
 Noise: drawn on the batch's device from an explicit ``torch.Generator``, or
 passed in as ``x0`` (tests fill it from numpy so that both packages
@@ -35,8 +37,10 @@ def generate_samples(
     store_indices=None,
     generator: Optional[torch.Generator] = None,
     x0: Optional[torch.Tensor] = None,
+    groups: int = 1,
 ):
-    """apply_fn(batch, noisy, t) -> v_t.
+    """apply_fn(batch, noisy, t) -> v_t.  ``groups``: independent problems in
+    consecutive blocks of the batch rows (a folded ensemble), for dopri5.
 
     Returns the final sample (B,N,1); with ``ret_seq`` the full trajectory
     (n_steps,B,N,1); with ``store_indices`` only the selected grid states
@@ -49,8 +53,11 @@ def generate_samples(
 
     def vector_field(t, x):
         # the state stays in x0's dtype (fp32): a bf16 velocity is promoted
-        # before it meets the fp32 step sizes, as in the JAX package
-        return apply_fn(batch, x, t.to(x.dtype).expand(x.shape[0])).to(x.dtype)
+        # before it meets the fp32 step sizes, as in the JAX package; t is one
+        # time, or one per group of rows (dopri5 over a folded ensemble)
+        t_rows = t.to(x.dtype).reshape(-1)
+        t_rows = t_rows.repeat_interleave(x.shape[0] // t_rows.shape[0])
+        return apply_fn(batch, x, t_rows).to(x.dtype)
 
     with torch.no_grad():
         if store_indices is not None and method in ("ab2", "ab2e"):
@@ -58,7 +65,7 @@ def generate_samples(
             return odeint_ab2(vector_field, x0, ts, store_idx=store_indices, bootstrap=boot)
         if store_indices is not None and method in FIXED_STEP_METHODS:
             return odeint_fixed_store(vector_field, x0, ts, store_indices, method)
-        traj = odeint(vector_field, x0, ts, method=method)
+        traj = odeint(vector_field, x0, ts, method=method, groups=groups)
     if store_indices is not None:
         return traj[sorted(set(int(i) for i in store_indices))]
     return traj if ret_seq else traj[-1]
@@ -91,7 +98,7 @@ def generate_ensemble(
     folded = {k: v.repeat(E, *([1] * (v.ndim - 1))) for k, v in batch.items()}
     out = generate_samples(
         apply_fn, folded, n_steps=n_steps, method=method, ret_seq=ret_seq,
-        store_indices=store_indices, x0=x0.reshape(E * B, *e_proxy.shape[1:]),
+        store_indices=store_indices, x0=x0.reshape(E * B, *e_proxy.shape[1:]), groups=E,
     )
     if out.ndim == e_proxy.ndim:  # final state only: (E*B, N, 1)
         return out.reshape(E, B, *out.shape[1:])

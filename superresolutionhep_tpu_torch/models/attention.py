@@ -17,10 +17,14 @@ raise ``NotImplementedError``.
     softmax); the dense block-diagonal formulation is taken only on the CPU;
   * ``impl``: 'flash' (running-max kernel) | 'flash_nomax' (inference-only
     clipped-exp2 kernel) | 'einsum' (dense scores) | 'auto' (flash when the
-    tensor is on CUDA, einsum on the CPU);
+    tensor is on CUDA, einsum on the CPU); a shape takes a kernel only where
+    both the JAX package's gate and the kernel's capacity gate admit it
+    (``flash_kernel_ok``, ``fused_qkv_capacity_ok``), else the dense or
+    unfused formulation, on the CPU and the card alike;
   * ``fused_ln=(eff_a, eff_b)``: the input arrives RAW (pre-norm) and
     LayerNorm + adaLN modulate + the QKV projections run as one kernel
-    (ops/fused_qkv.py) straight into the flash kernel's layout.
+    (ops/fused_qkv.py) straight into the flash kernel's layout; with
+    ``segment_ids`` the rows are per-segment tables (B, E + 1, F).
 """
 
 from __future__ import annotations
@@ -33,12 +37,13 @@ import torch.nn as nn
 
 from ..ops.flash_attention import (
     LOG2E,
+    flash_kernel_ok,
     flash_shapes_ok,
     masked_flash_attention,
     masked_flash_attention_T,
 )
 from ..ops.flash_packed import packed_flash_attention, packed_flash_attention_T, packed_shapes_ok
-from ..ops.fused_qkv import _ln_noaffine, fused_ln_mod_proj, fused_qkv_ok
+from ..ops.fused_qkv import _ln_noaffine, cell_rows, fused_ln_mod_proj, fused_qkv_capacity_ok, fused_qkv_ok
 from ..ops.masked import masked_softmax, merge_masks
 from .dense import Linear, xavier_uniform_
 
@@ -133,7 +138,7 @@ class MultiheadAttention(nn.Module):
                 return out.reshape(B, Lq, self.embed_dim)
             # plain block-diagonal formulation (CPU): same segment, valid key
             attn_valid = (segment_ids[:, :, None] == segment_ids[:, None, :]) & (segment_ids >= 0)[:, None, :]
-        elif self._use_flash(q_p) and flash_shapes_ok(Lq, Lk, HD):
+        elif self._use_flash(q_p) and flash_shapes_ok(Lq, Lk, HD) and flash_kernel_ok(HD):
             out = masked_flash_attention(
                 q_p, k_p, v_p, q_valid, kv_valid, scale=1.0 / scale, softmax=self._softmax
             )
@@ -176,20 +181,21 @@ class MultiheadAttention(nn.Module):
     def _fused_self_attention(self, x, valid, fused_ln, segment_ids=None):
         """Fused-prologue self-attention: LN + modulate + QKV in one kernel
         straight into the flash kernel: the padding-masked one, or the
-        segment-packed one when ``segment_ids`` is given (eff_a/eff_b are then
-        per-cell (B, L, F) rows).  Takes an equivalent unfused formulation
-        when the shape gates fail or the impl is not a flash one, so the
+        segment-packed one when ``segment_ids`` is given (eff_a/eff_b are
+        then per-segment tables (B, E + 1, F), ``ops/masked.py::
+        segment_table``).  Takes an equivalent unfused formulation when a
+        shape or capacity gate fails or the impl is not a flash one, so the
         caller never needs a second code path."""
         eff_a, eff_b = fused_ln
         B, L, F = x.shape
         H, HD = self.num_heads, self.embed_dim // self.num_heads
         dt = self.linear_q.dtype
         packed = segment_ids is not None
-        kernel_ok = packed_shapes_ok(L, HD) if packed else flash_shapes_ok(L, L, HD)
+        kernel_ok = packed_shapes_ok(L, HD) if packed else flash_shapes_ok(L, L, HD) and flash_kernel_ok(HD)
 
-        if self._use_flash(x) and fused_qkv_ok(L, F) and kernel_ok:
+        if self._use_flash(x) and fused_qkv_ok(L, F) and fused_qkv_capacity_ok(F, dt) and kernel_ok:
             w, bias = self._folded_qkv()
-            qkvT = fused_ln_mod_proj(x.to(dt), eff_a, eff_b, w, bias)  # (B, 3F, L)
+            qkvT = fused_ln_mod_proj(x.to(dt), eff_a, eff_b, w, bias, segment_ids=segment_ids)  # (B, 3F, L)
             qkvT = qkvT.reshape(B, 3, H, HD, L)
             if packed:
                 outT = packed_flash_attention_T(qkvT[:, 0], qkvT[:, 1], qkvT[:, 2], segment_ids, softmax=self._softmax)
@@ -200,6 +206,8 @@ class MultiheadAttention(nn.Module):
             out = outT.permute(0, 3, 1, 2).reshape(B, L, self.embed_dim)
         else:
             xhat = _ln_noaffine(x.float())
+            if packed:  # per-segment tables -> per-cell rows
+                eff_a, eff_b = cell_rows(eff_a, segment_ids), cell_rows(eff_b, segment_ids)
             a3 = eff_a if eff_a.ndim == 3 else eff_a[:, None, :]
             b3 = eff_b if eff_b.ndim == 3 else eff_b[:, None, :]
             y = (xhat * a3 + b3).to(dt)

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused_mlp import fused_dit_mlp, fused_mlp_ok, mlp_config_fusable
+from ..ops.fused_mlp import fused_dit_mlp, fused_mlp_capacity_ok, fused_mlp_ok, mlp_config_fusable
+from ..ops.masked import gather_segment_rows, segment_table
 from .attention import MultiheadAttention
 from .dense import Dense, LayerNorm, Linear, cast, xavier_uniform_
 
@@ -35,11 +36,13 @@ def _gate(g, x):
     return (g if g.ndim == x.ndim else g[:, None, :]) * x
 
 
-def scatter_segments(seg_onehot, per_segment):
-    """(B, S, E) one-hot x (B, E, F) per-segment rows -> (B, S, F) per-cell
-    rows, in the promoted dtype of the two (as the JAX package's einsum)."""
+def scatter_segments(seg_onehot, per_segment, segment_ids):
+    """(B, E, F) per-segment rows -> (B, S, F) per-cell rows, in the promoted
+    dtype of the (B, S, E) one-hot and the rows, as the JAX package's einsum
+    ``bse,bef->bsf``; computed as a gather by ``segment_ids`` (bit for bit the
+    einsum for finite rows; padding cells get zeros)."""
     dt = torch.promote_types(seg_onehot.dtype, per_segment.dtype)
-    return torch.einsum("bse,bef->bsf", seg_onehot.to(dt), per_segment.to(dt))
+    return gather_segment_rows(segment_table(per_segment.to(dt)), segment_ids)
 
 
 def adaln_modulation(context_size: int, out_features: int, dtype=None) -> nn.Sequential:
@@ -74,18 +77,24 @@ class DiTLayer(nn.Module):
 
     def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, context_seg=None, seg_onehot=None,
                 attn_valid=None, attn_bias=None, segment_ids=None):
-        # packed rows (context_seg (B, E, C) + seg_onehot (B, S, E)): the
-        # context is constant within a segment, so the modulation net runs per
-        # segment and its output is scattered per cell by one (S x E) product
+        # packed rows (context_seg (B, E, C), seg_onehot (B, S, E), segment_ids
+        # (B, S)): the context is constant within a segment, so the modulation
+        # net runs per segment
         mod = self.adaLN_modulation(context_seg if context_seg is not None else context)
-        if context_seg is not None:
-            mod = scatter_segments(seg_onehot, mod)
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-
-        # packed rows fuse too: the per-cell modulation rows go into the fused
-        # kernels, and attention takes the packed kernel
+        # packed rows fuse too: attention takes the packed kernel, and the
+        # fused kernels take per-segment tables and gather each cell's row
         fuse = (self.fused_prologue and k is None and attn_valid is None and attn_bias is None
                 and (segment_ids is None) == (context_seg is None))
+        seg_table = fuse and context_seg is not None
+        if seg_table:
+            # (B, E + 1, 6F) in the einsum's promoted dtype; row E (zeros) is
+            # the padding cells'.  The folds below run per segment: the same
+            # elementwise arithmetic on the same values as per cell.
+            mod = segment_table(mod.to(torch.promote_types(seg_onehot.dtype, mod.dtype)))
+        elif context_seg is not None:
+            mod = scatter_segments(seg_onehot, mod, segment_ids)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+
         if fuse:
             # fold norm1's gamma/beta with the adaLN shift/scale, in fp32, into
             # the two affine rows the fused kernel consumes
@@ -106,19 +115,24 @@ class DiTLayer(nn.Module):
 
         if fuse and self.mlp_cfg is not None:
             Fh = (self.mlp_cfg.get("hidden_layers") or [0])[0]
-            if mlp_config_fusable(self.mlp_cfg) and fused_mlp_ok(q.shape[1], self.embed_dim, Fh):
+            dt = self.dense.linears[0].dtype
+            if (mlp_config_fusable(self.mlp_cfg) and fused_mlp_ok(q.shape[1], self.embed_dim, Fh)
+                    and fused_mlp_capacity_ok(self.embed_dim, Fh, dt)):
                 # both residuals, norm2 + modulate, the MLP's own LN and the
                 # two MLP products as ONE kernel (ops/fused_mlp.py)
                 lin0, lin1 = self.dense.linears
                 one_mlp = 1.0 + scale_mlp.float()
                 eff2_a = self.norm2.weight.float() * one_mlp
                 eff2_b = self.norm2.bias.float() * one_mlp + shift_mlp.float()
-                dt = lin0.dtype
                 return fused_dit_mlp(
                     q.to(dt), q_attn.to(dt), gate_msa.float(), eff2_a, eff2_b, gate_mlp.float(),
                     cast(lin0.weight, dt).t(), lin0.bias, cast(lin1.weight, dt).t(), lin1.bias,
+                    segment_ids=segment_ids if seg_table else None,
                 )
 
+        if seg_table:  # the unfused MLP half takes per-cell rows
+            gate_msa, shift_mlp, scale_mlp, gate_mlp = (
+                gather_segment_rows(r, segment_ids) for r in (gate_msa, shift_mlp, scale_mlp, gate_mlp))
         q = q + _gate(gate_msa, q_attn)
         if self.mlp_cfg is not None:
             q_mlp = self.dense(modulate(self.norm2(q), shift_mlp, scale_mlp), context=context)

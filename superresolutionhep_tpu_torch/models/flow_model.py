@@ -148,7 +148,7 @@ class FlowModel(nn.Module):
             # Dense concat paths
             B, E = seg_onehot.shape[0], seg_onehot.shape[2]
             context_seg = torch.cat([time_emb[:, None, :].expand(B, E, time_emb.shape[-1]), cond_seg], dim=-1)
-            context = scatter_segments(seg_onehot, context_seg)
+            context = scatter_segments(seg_onehot, context_seg, seg)
             seg_kw = dict(context_seg=context_seg, seg_onehot=seg_onehot, segment_ids=seg)
         else:
             context_seg = None
@@ -166,7 +166,7 @@ class FlowModel(nn.Module):
         if self.final_modulation:
             mod = self.v_t_adaLN_modulation(context_seg if context_seg is not None else context)
             if context_seg is not None:
-                mod = scatter_segments(seg_onehot, mod)
+                mod = scatter_segments(seg_onehot, mod, seg)
             v_t_shift, v_t_scale = mod.chunk(2, dim=-1)
             feat = modulate(self.norm_v_t(feat), v_t_shift, v_t_scale)
 

@@ -64,6 +64,13 @@ def flash_shapes_ok(Lq: int, Lk: int, d: int) -> bool:
     return Lq >= 128 and Lq % 128 == 0 and Lk >= 128 and Lk % 128 == 0 and d % 8 == 0
 
 
+def flash_kernel_ok(d: int) -> bool:
+    """Capacity gate: a head dim the kernels are built for.  The model
+    consults it beside ``flash_shapes_ok`` and takes the dense formulation
+    where it fails, on every device alike."""
+    return d in KERNEL_HEAD_DIMS
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------

@@ -145,11 +145,12 @@ _SIGNATURES = {
     "srhep_packed_bwd_dq": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
     # the same with dk, dv in place of dq
     "srhep_packed_bwd_dkv": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_I, _P],
-    # x, a, b, w(O,F), bias, out, M, L, F, O, per_cell, is_bf16, stream
-    "srhep_fused_qkv": [_P] * 6 + [_I] * 6 + [_P],
-    # q, attn, ga, a, b, gm, w0(Fh,F), b0, w1(F,Fh), b1, out, M, L, F, Fh,
-    # per_cell, is_bf16, stream
-    "srhep_fused_mlp": [_P] * 11 + [_I] * 6 + [_P],
+    # x, a, b, w(O,F), bias, seg, out, M, L, F, O, rows mode, table rows
+    # (E + 1), shared memory bytes, is_bf16, stream
+    "srhep_fused_qkv": [_P] * 7 + [_I] * 8 + [_P],
+    # q, attn, ga, a, b, gm, w0(Fh,F), b0, w1(F,Fh), b1, seg, out, M, L, F,
+    # Fh, rows mode, table rows, shared memory bytes, is_bf16, stream
+    "srhep_fused_mlp": [_P] * 12 + [_I] * 8 + [_P],
     # probes (B, H, L, D) bf16: q, k, v, out, B, H, L, D, mode, block_q, block_k, stream
     "srhep_probe_variant": [_P] * 4 + [_I] * 7 + [_P],
     # q, k, v, km, out, B, H, L, D, exp_bf16, block_q, block_k, stream

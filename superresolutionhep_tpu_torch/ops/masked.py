@@ -85,6 +85,30 @@ def segment_onehot(seg, n_seg: int, dtype):
     return (seg[..., None] == torch.arange(n_seg, device=seg.device)[None, None, :]).to(dtype)
 
 
+def segment_table(per_segment):
+    """(B, E, F) per-segment rows -> (B, E + 1, F): row E is the zero row,
+    the one a padding cell gets (its one-hot row is all zeros)."""
+    B, _, F = per_segment.shape
+    return torch.cat([per_segment, per_segment.new_zeros(B, 1, F)], dim=1)
+
+
+def segment_index(seg, n_seg: int):
+    """(B, S) segment ids -> row indices into a ``segment_table``: the id for
+    0 <= id < n_seg, else n_seg (the zero row), as ``segment_onehot`` gives
+    an all-zero row to every id outside [0, n_seg)."""
+    return torch.where((seg >= 0) & (seg < n_seg), seg, n_seg).long()
+
+
+def gather_segment_rows(table, seg):
+    """Per-cell rows (B, S, F) from a ``segment_table`` (B, E + 1, F): each
+    cell's segment row by a gather.  For finite rows this equals the one-hot
+    product ``einsum("bse,bef->bsf", segment_onehot(seg, E), rows)`` bit for
+    bit (one exact 1 times the row, plus exact zeros); it differs only where
+    a row holds inf or nan, which the product spreads over every cell."""
+    idx = segment_index(seg, table.shape[1] - 1)
+    return torch.gather(table, 1, idx[..., None].expand(-1, -1, table.shape[-1]))
+
+
 def segment_mean(x, onehot):
     """Per-segment mean of ``x`` (B, S, C) given a segment_onehot (B, S, E):
     returns (B, E, C); empty segments are zero."""

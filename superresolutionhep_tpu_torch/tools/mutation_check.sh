@@ -31,7 +31,7 @@ run() {  # name, sed expression, file
 }
 run nomax_drops_key_mask 's/id\.\([xy]\) == qid\([01]\) ? kClipHi : kMaskedLogit/kClipHi/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run lrelu_slope 's/kLreluSlope = 0.01f/kLreluSlope = 0.02f/' superresolutionhep_tpu_torch/csrc/common.cuh
-run qkv_forgets_bias 's/from_float<T>(acc\[i\] + bias\[n0 + c\])/from_float<T>(acc[i])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
+run qkv_forgets_bias 's/pack_bf16(acc\[4 \* j\] + bb\[j\].x, acc\[4 \* j + 1\] + bb\[j\].y)/pack_bf16(acc[4 * j], acc[4 * j + 1])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
 run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/common.cuh
 run bwd_dq_sign_of_dl 's/\* (dp\[j\]\[0\] - dl0);/* (dp[j][0] + dl0);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + (ia == kid0 ? 0.f : -kBig)) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
@@ -42,4 +42,8 @@ run packed_dkv_drops_ln2 's/    dk = (dk.float() \* LN2).to(k.dtype)/    dk = dk
 run k11_ignores_key_mask 's/kbias\[i\] = (km\[(size_t)b \* L + k0 + i\] - 1.0f) \* kBig;/kbias[i] = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
 run k10_full_without_running_max 's/const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);/const float mn0 = 0.f, mn1 = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
 run k10_full_exp_in_fp32 's/ex2_bf16x2(pack_bf16(s\[j\]\[\([02]\)\] - \(mn[01]\), s\[j\]\[\([13]\)\] - mn[01]))/pack_bf16(exp2f(s[j][\1] - \2), exp2f(s[j][\3] - \2))/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run segment_rows_pad_to_row0 's/? s : e1 - 1);/? s : 0);/' superresolutionhep_tpu_torch/csrc/common.cuh
+run qkv_ring_reads_wrong_stage 's/const uint32_t slab = ring_s + stage \* kFusedSlabBytes;/const uint32_t slab = ring_s + (stage + 1) % kQkvStages * kFusedSlabBytes;/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
+run mlp_ring_reads_wrong_stage 's/    return ring_s + stage \* kFusedSlabBytes;/    return ring_s + (stage + 1) % kMlpStages * kFusedSlabBytes;/' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
+run mlp_drops_second_layernorm 's/      warp_layernorm_rows<R>(v, NCH, F);  \/\/ u2 = LN(u)//' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
 exit $status
