@@ -42,10 +42,11 @@ just after, that they really went through the kernels.  Weights are random
 (seeded); events are synthetic (seeded).
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
-``ptxas`` (registers, spills and serialised wgmma of the bf16 forward and
-fused kernels; any spill or serialisation fails the run), ``kernel_case``
-lines, the scripts' own lines and ``probes``, ``serve``,
-``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
+``ptxas`` (registers, spills and serialised wgmma of the bf16 forward,
+backward and fused kernels; any spill or serialisation fails the run),
+``kernel_case`` lines (the bf16 backward also at head dims 16/32/64 and
+both tile heights, launched twice and equal bit for bit), the scripts' own
+lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
 ``pf_inference``, ``pf_train``), then the card's name and power limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths), then,
@@ -568,9 +569,9 @@ def fwd_tile_cases(reps):
 
 
 def ptxas_report():
-    """Registers and spills of every instantiation of the bf16 forward kernel
-    and of the bf16 fused kernels, and the functions whose wgmma ptxas
-    serialised (warnings C751x), from nvcc's -Xptxas -v log."""
+    """Registers and spills of every instantiation of the bf16 forward and
+    backward kernels and of the bf16 fused kernels, and the functions whose
+    wgmma ptxas serialised (warnings C751x), from nvcc's -Xptxas -v log."""
     import re
 
     from superresolutionhep_tpu_torch.ops import kernels
@@ -582,6 +583,10 @@ def ptxas_report():
         "fused_qkv_wgmma_kernel": (r"fused_qkv_wgmma_kernelILi(\d+)E", lambda m: {"F": int(m[0])}),
         "fused_mlp_wgmma_kernel": (r"fused_mlp_wgmma_kernelILi(\d+)ELi(\d+)E",
                                    lambda m: {"F": int(m[0]), "Fh": int(m[1])}),
+        "flash_bwd_dq_wgmma_kernel": (r"flash_bwd_dq_wgmma_kernelILi(\d+)ELb([01])ELi(\d)E",
+                                      lambda m: {"D": int(m[0]), "seg": m[1] == "1", "block_rows": 64 * int(m[2])}),
+        "flash_bwd_dkv_wgmma_kernel": (r"flash_bwd_dkv_wgmma_kernelILi(\d+)ELb([01])ELi(\d)E",
+                                       lambda m: {"D": int(m[0]), "seg": m[1] == "1", "block_rows": 64 * int(m[2])}),
     }
     rows = {k: [] for k in patterns}
     serialised = []
@@ -696,6 +701,8 @@ def bwd_kernel_cases(reps):
                         "library_ms": library_ms, "library_covers": "dq+dk+dv",
                         "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
                         "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"}
+                if dtype == torch.bfloat16:  # one exp2 per live pair, as the forward's bound counts them
+                    case["sfu_bound_ms"] = H * pairs / sfu_per_s() * 1e3
                 case["ok"] = bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol and rows_ok
                 cases.append(case)
                 emit({"phase": "kernel_case", **case})
@@ -726,6 +733,100 @@ def bwd_kernel_cases(reps):
     if bad:
         fail(f"{len(bad)} backward case(s) disagree with the plain version: "
              + "; ".join(f"{c['kernel']}/{c['dtype']}/L={c['L']}" for c in bad))
+    return cases
+
+
+def bwd_tile_cases():
+    """The bf16 backward bodies (K5/K6 masked, K8/K9 packed) at head dims 16,
+    32 and 64 and at both tile heights the wrappers can pick (64 and 128
+    rows), against the plain versions on the same CUDA tensors, from the
+    forward kernel's own LSE: masked with Lq != Lk, neither a multiple of 64
+    (Lq no multiple of 4 either, so lse and dl reach the kernel padded), ragged
+    query and key masks; packed on ``band_rows`` (bands of one key tile,
+    several and none, segment boundaries inside tiles, fully padded tiles).
+    Every output is held at each output's max to the backward's bound,
+    padding exactly 0, and a second launch on the same inputs must equal the
+    first bit for bit (no atomics)."""
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import flash_packed as fp
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    H = 4
+    tol = TOL[("flash_bwd", torch.bfloat16)]
+    cases = []
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12)).item()
+
+    def check(kernel, case, fn, refs, zero_rows):
+        before = kernels.LAUNCHES[kernel]
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[kernel] != before + 2:
+            fail(f"{kernel}: the wrapper did not count its launches")
+        got, again = (x if isinstance(x, tuple) else (x,) for x in (got, again))
+        errs = [rel(a, b) for a, b in zip(got, refs)]
+        case.update({"kernel": kernel, "dtype": "bf16", "max_rel_err": max(errs), "tol_rel": tol,
+                     "max_abs_err": max((a.float() - b.float()).abs().max().item() for a, b in zip(got, refs)),
+                     "deterministic": all(torch.equal(a, b) for a, b in zip(got, again)),
+                     "padding_exactly_zero": all(float(t.float()[zero_rows].abs().max()) == 0.0 for t in got)})
+        case["ok"] = (bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol
+                      and case["deterministic"] and case["padding_exactly_zero"])
+        cases.append(case)
+        emit({"phase": "kernel_case", **case})
+
+    # ---- K5 / K6: Lq != Lk, neither a multiple of 64, ragged masks, strided views of fused buffers
+    B, Lq, Lk = 3, 602, 1000
+    qvalid, _ = ragged_valid(B, Lq, dev)
+    kvalid = torch.arange(Lk, device=dev)[None, :] < torch.tensor([Lk, 517, 70], device=dev)[:, None]
+    qm, km = qvalid.float().contiguous(), kvalid.float().contiguous()
+    for D in (16, 32, 64):
+        qb = (torch.randn(B, Lq, 2, H, D, generator=g, device=dev) * (2.0 / D ** 0.25)).to(torch.bfloat16)
+        kv = torch.randn(B, Lk, 3, H, D, generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qb[:, :, 1], kv[:, :, 0], kv[:, :, 2]
+        out, lse = fa._flash_fwd_cuda(q, k, v, qm, km, nomax=False, with_lse=True)
+        gr = torch.randn(B, Lq, H, D, generator=g, device=dev).to(torch.bfloat16) * qvalid[:, :, None, None]
+        dl = (out.float() * gr.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, gr, lse, dl, qm, km)
+        ref_args = (*fa._heads_first(q, k, v, gr), lse, dl, km[:, None])
+        ref_dq = fa._ref_flash_bwd_dq(*ref_args).permute(0, 2, 1, 3)
+        ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fa._ref_flash_bwd_dkv(*ref_args))
+        for rows in (64, 128):
+            shape = {"case": "tiles", "B": B, "H": H, "Lq": Lq, "L": Lk, "D": D, "block_rows": rows}
+            check("flash_bwd_dq", dict(shape), lambda: fa._flash_bwd_dq_cuda(*args, block_rows=rows), (ref_dq,),
+                  ~qvalid)
+            check("flash_bwd_dkv", dict(shape), lambda: fa._flash_bwd_dkv_cuda(*args, block_rows=rows),
+                  (ref_dk, ref_dv), ~kvalid)
+
+    # ---- K8 / K9 on rows with bands of one tile, several and none
+    seg = torch.from_numpy(band_rows()).to(dev)
+    Bs, S = seg.shape
+    pad = seg < 0
+    for D in (16, 32, 64):
+        qkv = torch.randn(Bs, S, 3, H, D, generator=g, device=dev)
+        qkv[:, :, 0] *= 2.0 / D ** 0.25
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out, lse = fp._packed_fwd_cuda(q, k, v, seg, nomax=False, with_lse=True)
+        gr = torch.randn(Bs, S, H, D, generator=g, device=dev).to(torch.bfloat16) * (~pad)[:, :, None, None]
+        dl = (out.float() * gr.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, gr, lse, dl, seg)
+        ref_args = (*fa._heads_first(q, k, v, gr), lse, dl, seg)
+        ref_dq = fp._ref_packed_bwd_dq(*ref_args).permute(0, 2, 1, 3)
+        ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fp._ref_packed_bwd_dkv(*ref_args))
+        for rows in (64, 128):
+            shape = {"case": "band_rows", "B": Bs, "H": H, "L": S, "D": D, "block_rows": rows}
+            check("packed_bwd_dq", dict(shape), lambda: fp._packed_bwd_dq_cuda(*args, block_rows=rows), (ref_dq,), pad)
+            check("packed_bwd_dkv", dict(shape), lambda: fp._packed_bwd_dkv_cuda(*args, block_rows=rows),
+                  (ref_dk, ref_dv), pad)
+
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} backward tile case(s) disagree with the plain version or are not deterministic: "
+             + "; ".join(f"{c['kernel']}/D={c['D']}/rows={c['block_rows']}/{c['case']}" for c in bad))
     return cases
 
 
@@ -938,6 +1039,8 @@ def packed_kernel_cases(reps):
                              "library_ms": library_ms, "library_covers": "dq+dk+dv",
                              "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
                              "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"})
+                if dtype == torch.bfloat16:
+                    case["sfu_bound_ms"] = H * sq / sfu_per_s() * 1e3
             case["ok"] = bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol and zeros
             out_cases.append(case)
             emit({"phase": "kernel_case", **case})
@@ -1451,7 +1554,7 @@ def packed_train_phase(reps):
     hook.remove()
     expect = {k: 0 for k in kernels.LAUNCHES}
     expect.update(packed_fwd=2 * n_layers * calls["train"],  # remat: forward + recompute
-                  packed_band=2 * n_layers * calls["train"],  # one per bf16 K7 launch
+                  packed_band=4 * n_layers * calls["train"],  # one per bf16 K7, K8 and K9 launch
                   packed_bwd_dq=n_layers * calls["train"], packed_bwd_dkv=n_layers * calls["train"],
                   flash_fwd=n_layers * calls["val"])  # validation stays bucketed
     lines = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
@@ -2166,7 +2269,7 @@ def main():
             fail("ptxas: a wgmma kernel spills, or ptxas serialised its wgmma instructions")
 
     cases = (kernel_cases(args.reps) + fwd_tile_cases(args.reps) + bwd_kernel_cases(args.reps)
-             + packed_kernel_cases(args.reps) + probe_kernel_cases(args.reps))
+             + bwd_tile_cases() + packed_kernel_cases(args.reps) + probe_kernel_cases(args.reps))
     zero = {k: 0 for k in kernels.LAUNCHES}
     by_phase = {"probes": probes_phase(args.reps),
                 "serve": serve_phase() if not args.skip_serve else zero,

@@ -2,16 +2,17 @@
 // port: four-element loads and stores, the parameter-free LayerNorm of rows
 // held across a warp, the modulation row of a cell in the fused kernels'
 // three row forms, the raw bf16 mma.sync instruction and ldmatrix (the
-// probes and the backward), asynchronous weight-slab copies with a two-slab
+// probes), asynchronous weight-slab copies with a two-slab
 // pipeline and a 64x64 block-level fp32 tile product from shared memory
 // (register-tiled FMA loops, no tensor cores: TF32 would keep only ~3
 // decimal digits, and the fp32 builds exist so that the kernels can be held
 // tightly against their plain PyTorch versions; 32 accumulators per thread,
 // coord() says which (row, col) of the tile accumulator i belongs to).  At
 // the end, raw PTX for Hopper's asynchronous machinery (mbarrier, TMA loads
-// and stores, wgmma, setmaxnreg, proxy fences), the tiling of the bf16 fused
-// kernels and the host's tensor-map encoder, which the bf16 attention
-// forward and the bf16 fused kernels use.
+// and stores, wgmma, setmaxnreg, proxy fences), the tiles and helpers the
+// bf16 attention forward and backward share, the tiling of the bf16 fused
+// kernels and the host's tensor-map encoders, which the bf16 attention and
+// fused kernels use.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: nothing here links against the driver)
@@ -537,6 +538,63 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
 }
 
 // ---------------------------------------------------------------------------
+// The bf16 attention kernels (flash_attention.cu, flash_attention_bwd.cu): a
+// 64-row tile of head dim D as the TMA writes it (rows of 2*D bytes, swizzled
+// over that span, which is also the wgmma descriptors' layout), the O += P V
+// product shape for each D, and the exponential.
+// ---------------------------------------------------------------------------
+template <int D> struct FwdTiles {
+  static constexpr int kRowBytes = 2 * D;           // one bf16 row: also the swizzle span
+  static constexpr int kTileBytes = 64 * kRowBytes; // a 64-row tile
+  static constexpr int kSwizzle = D == 64 ? 1 : (D == 32 ? 2 : 3);  // wgmma layout: 128, 64, 32 B
+};
+
+// byte offset of element (r, c) in a 64-row tile of FwdTiles<D>: the TMA's
+// 128/64/32-byte swizzle XORs address bits 4.. with bits 7.. (the tile's base
+// is aligned to 1024 bytes)
+template <int D> __device__ __forceinline__ uint32_t swz_tile_offset(int r, int c) {
+  const uint32_t off = (uint32_t)(r * 2 * D + 2 * c);
+  return off ^ ((off >> 3) & (uint32_t)((D / 8 - 1) << 4));
+}
+
+template <int D> __device__ __forceinline__ void pv_mma(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_m64n64k16(o, a, db);
+  else if constexpr (D == 32) wgmma_rs_m64n32k16(o, a, db);
+  else wgmma_rs_m64n16k16(o, a, db);
+}
+
+// the A fragments of a (64 x 16k) x (16k x N) wgmma from a 64 x 64 fp32
+// accumulator tile (P of the forward's P V, P and dS of the backward): bf16
+// pairs, two adjacent 8-wide slices per 16-deep k-step
+__device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[16]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero: the
+// instruction exp2f compiles to, without its subnormal fix-up (a compare and
+// two multiplies per element, for results below 2^-126 that the no-max clip
+// never reaches and the robust softmax sums to nothing).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// TMA: a shared-memory tile into one box of a 4-d tiled tensor map (rows past
+// the map's end are not written); a bulk group, as tma_store_2d
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // The bf16 fused kernels (fused_qkv.cu, fused_mlp.cu): persistent blocks of
 // kFusedNC consumer warpgroups of 64 rows each and two producer warps (one
 // thread of the first issues the TMA loads of the weight slabs, one of the
@@ -648,6 +706,44 @@ static inline bool encode_matrix_bf16(CUtensorMap* map, const void* ptr, int row
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B, L, H, D) bf16 view with D contiguous as a tiled map over (D, L, H, B):
+// byte strides of L, H and B, box (D, 64, 1, 1), swizzle = the row's 2*D
+// bytes, rows past L read as zeros (and are not written by a store).
+// ops/flash_attention.py::tensor_map_plan states the same plan (and its
+// checks) in Python.
+static inline bool encode_operand(CUtensorMap* map, const void* ptr, int D, int L, int H, int B, Strides st) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] % 16 || strides[i] >= (1ull << 40)) return false;
+  const cuuint32_t box[4] = {(cuuint32_t)D, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Rows of L 32-bit values, fp32 or int32 (row stride ld elements, a multiple
+// of 4) as a 2-d tiled map with box (64, 1): one attention row's 64 values of
+// a tile; values past L read as zeros
+static inline bool encode_rows_32(CUtensorMap* map, const void* ptr, int L, int rows, int ld, bool is_int) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 4 || ld < L) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {64, 1};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, is_int ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+            dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // one opt-in per kernel to more than 48 KB of dynamic shared memory, on the

@@ -85,12 +85,6 @@ constexpr int kTmaRows = 64;   // rows per TMA box (Q, K and V)
 
 static_assert(kBK == kTmaRows, "a K or V tile is one TMA box");
 
-template <int D> struct FwdTiles {
-  static constexpr int kRowBytes = 2 * D;           // one bf16 row: also the swizzle span
-  static constexpr int kTileBytes = 64 * kRowBytes; // a 64-row tile
-  static constexpr int kSwizzle = D == 64 ? 1 : (D == 32 ? 2 : 3);  // wgmma layout: 128, 64, 32 B
-};
-
 // K/V ring depth: 5 stages with one block per SM, 3 where two blocks share one
 template <int NC> __host__ __device__ constexpr int fwd_stages() { return NC == 1 ? 3 : 5; }
 
@@ -103,12 +97,6 @@ template <> struct FwdRegs<3> { static constexpr int kProducer = 32, kConsumer =
 template <int D, int NC> constexpr int fwd_smem_bytes() {
   return 1024 + (NC + 2 * fwd_stages<NC>()) * FwdTiles<D>::kTileBytes + fwd_stages<NC>() * kBK * 4 + 32 +
          (2 * fwd_stages<NC>() + 1) * 8;
-}
-
-template <int D> __device__ __forceinline__ void pv_mma(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_m64n64k16(o, a, db);
-  else if constexpr (D == 32) wgmma_rs_m64n32k16(o, a, db);
-  else wgmma_rs_m64n16k16(o, a, db);
 }
 
 // Shared-memory descriptors of every wgmma of one step, computed and pinned
@@ -147,16 +135,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
     pv_mma<D>(o, a, d.v[kk]);
   }
-}
-
-// 2^x on the special-function unit, subnormal results flushed to zero: the
-// instruction exp2f compiles to, without its subnormal fix-up (a compare and
-// two multiplies per element, for results below 2^-126 that the no-max clip
-// never reaches and the robust softmax sums to nothing).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Softmax numerators of one S tile in place (this thread's rows r0, r1; kid
@@ -218,18 +196,6 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kBK / 2], const int* kid
     l1 = l1 * al1 + ps1;
     m0 = mn0;
     m1 = mn1;
-  }
-}
-
-// p (the PV product's A fragments) from the numerators in s: bf16 pairs, two
-// adjacent 8-wide slices per 16-deep k-step
-__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2], uint32_t (&p)[kBK / 4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -686,27 +652,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 // ---------------------------------------------------------------------------
 // host side of the bf16 kernel: tensor maps, shared-memory opt-in, launch
 // ---------------------------------------------------------------------------
-// A (B, L, H, D) bf16 view with D contiguous as a tiled map over (D, L, H, B):
-// byte strides of L, H and B, box (D, 64, 1, 1), swizzle = the row's 2*D
-// bytes, rows past L read as zeros.  ops/flash_attention.py::tensor_map_plan
-// states the same plan (and its checks) in Python.
-static bool encode_operand(CUtensorMap* map, const void* ptr, int D, int L, int H, int B, Strides st) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
-  for (int i = 0; i < 3; ++i)
-    if (strides[i] % 16 || strides[i] >= (1ull << 40)) return false;
-  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)kTmaRows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool NOMAX, bool SEG, int NC> static cudaError_t opt_in_smem() {
   return cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, NOMAX, SEG, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               fwd_smem_bytes<D, NC>());

@@ -9,7 +9,7 @@
 // ::_packed_bwd_dkv_kernel (through _packed_bwd) with SEG = true.  What they
 // compute is kept:
 //   * logits are base 2 (Q arrives pre-scaled by scale*log2(e)); padded keys
-//     get the additive -1e30 bias;
+//     get the -1e30 bias;
 //   * p = exp2(min(s - lse, 0)): the cap keeps a row whose LSE is ~-1e30 (a
 //     dead query tile of the forward) finite; its cotangent is zero, so the
 //     capped p never contributes;
@@ -29,290 +29,727 @@
 //
 // What is not carried over: the TPU's sequential innermost grid axis with a
 // carry in scratch memory becomes a loop inside the block (dq: one block per
-// batch row, head and 64-query tile, looping over key tiles; dk/dv: one block
-// per batch row, head and 64-key tile, looping over query tiles).  No atomics:
+// batch row, head and query tile, looping over key tiles; dk/dv: one block
+// per batch row, head and key tile, looping over query tiles).  No atomics:
 // every output element is written by the one block that owns it, so the
 // result is deterministic.  The transposed (B, H, D, L) layout becomes
 // (B, L, H, D) views with D contiguous, as in the forward kernel, so the
 // unfused path's q/k/v projections arrive without a copy.  The packed band is
-// found by each block at its own 64-row tile (common.cuh::segment_band), not
-// fed in at 512-wide blocks as on the TPU: exact, so no segment-length cap
-// can cut a segment short.
+// a table computed once per call for all heads at the kernel's own tiles
+// (flash_attention.cu::packed_band_kernel, the same table for dq and dk/dv,
+// since queries and keys share the segment ids), not fed in at 512-wide
+// blocks as on the TPU: exact, so no segment-length cap can cut a segment
+// short.
 //
 // What bounds it on the card: operations (dq: 3 products of 2*D flops per
 // live (query, key) pair; dk/dv: 4 products), ~1000 flop per byte moved at
-// L = 2048, D = 64 in bf16, far above the H100's ~295.  What the design does
-// about it: bf16 runs on the tensor cores (mma.sync.m16n8k16, fp32
-// accumulate).  Each warp owns 16 rows; S and dP (16 x 64 per warp) stay in
-// registers in the instruction's accumulator layout, which is also the A
-// operand layout of the next product, so P and dS never touch shared memory.
-// The streamed operand tile (K and V for dq; Q and G for dk/dv) is staged as
-// it lies in memory ([row][d], padded rows); a plain ldmatrix gives the B
-// fragments of S = A B^T and a transposing one those of acc += P B.
-// wgmma, TMA and a multi-stage pipeline are left to a later pass.  The fp32
-// build (FMA loops, two threads per row, no tensor cores) exists to hold the
-// arithmetic tightly against the plain PyTorch version.  Packed rows: 6*D
-// (dq) and 8*D (dk, dv) flops per same-segment pair, sum over events of len^2;
-// bound by operations in the same way.
+// L = 2048, D = 64 in bf16, far above the H100's ~295; beside them one exp2
+// per pair on the special-function units and ~7 CUDA-core instructions per
+// pair (the mask select, - lse, min, - dl, the multiply, the bf16 packs).
+// The bf16 design (flash_bwd_{dq,dkv}_wgmma_kernel):
+//   * a TMA-fed ring: NC consumer warpgroups of 64 rows each (NC = 2 for
+//     large grids, so that each streamed tile serves 128 rows; NC = 1, two
+//     blocks an SM, for small ones: ops/flash_attention.py::bwd_tile_rows).
+//     The block's own rows are loaded once by TMA (K and V for dk/dv, Q and
+//     G for dq: the A operands of S and dP, read from shared memory); the
+//     other axis's tiles (Q and G with their lse and dl rows; K and V)
+//     stream through a ring of mbarrier full/empty pairs, and the producer
+//     alone decides their sequence, skipping dead tiles.  dq: a producer
+//     warp of its own reads each key tile's ids four tiles ahead and writes
+//     them into the stage.  dk/dv has no room for a producer warp (see
+//     bwd_min_blocks): the block first marks its live query tiles (one bit
+//     each), and thread 0 refills the ring between its own products by TMA
+//     alone (segment ids too);
+//   * dk/dv: S^T = K Q^T and dP^T = V G^T as wgmma.m64n64k16 from shared
+//     memory; P^T and dS^T stay in registers, repacked to bf16 A fragments
+//     for dV += P^T G and dK += dS^T Q with the streamed tile read MN-major
+//     (as the forward's P V).  dq: S = Q K^T, dP = G V^T, dQ += dS K; lse
+//     and dl of the block's own rows in registers;
+//   * the elementwise part under the products: each consumer issues tile
+//     j+1's S and dP before tile j's accumulating products and runs tile
+//     j+1's elementwise part while those run; with two consumer warpgroups
+//     they take turns to issue (named barriers), so that one's elementwise
+//     part overlaps the other's products;
+//   * the outputs leave in the input dtype through the block's own (no
+//     longer needed) tiles as swizzled staging, one TMA store each.
+// The fp32 build (FMA loops, two threads per row, no tensor cores) exists to
+// hold the arithmetic tightly against the plain PyTorch version; it finds its
+// packed band itself (common.cuh::segment_band).
 #include "common.cuh"
 
 namespace srhep {
 
-namespace bwd {
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma.  Block = NC consumer warpgroups (64 rows each: queries
+// for dq, keys for dk/dv; dq has one producer warp more).  In a consumer
+// warpgroup, lane = 4*g + t of warp w
+// holds rows 16w + g and 16w + g + 8 of the warpgroup's 64, columns 8j + 2t,
+// 8j + 2t + 1 of every 8-wide slice (accumulator element 4j + e: e & 2 picks
+// the row, e & 1 the column).
+// ---------------------------------------------------------------------------
+constexpr int kBwdBT = 64;         // rows of a streamed tile: one TMA box, the N of the S and dP products
+constexpr int kBwdLookahead = 4;   // dq: key tiles whose ids the producer warp has in flight
+constexpr bool kBwdTurns = true;   // two consumer warpgroups issue their products in turns
+constexpr int kBwdMaxTiles = 2048; // dk/dv: query tiles whose liveness a block scans; past that, all count as live
 
-constexpr int BR = 64;  // rows per block (queries for dq, keys for dk/dv), bf16 and fp32
-constexpr int BT = 64;  // streamed tile (keys for dq, queries for dk/dv), bf16
+// Ring depth: one block an SM (NC = 2) takes 7 stages, two blocks (NC = 1)
+// 5 each.
+template <int NC> __host__ __device__ constexpr int bwd_stages() { return NC == 1 ? 5 : 7; }
 
-// A fragments (m16n8k16, rows r0 = 16*warp + g and r1 = r0 + 8 of the block)
-// of the warp's 16 rows of a strided (B, L, H, D) operand, straight from
-// device memory.  Rows past L read as zeros.
-template <int D>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const bf16* __restrict__ base, Strides s,
-                                            int b, int h, int r0, int r1, int L, int t) {
-  const bf16* p0 = base + (size_t)b * s.b + (size_t)r0 * s.l + (size_t)h * s.h + 2 * t;
-  const bf16* p1 = base + (size_t)b * s.b + (size_t)r1 * s.l + (size_t)h * s.h + 2 * t;
+// Registers, not shared memory, shape the blocks: ptxas compiles a kernel to
+// its launch bound's register budget (setmaxnreg does not raise it), and a
+// block of 9-12 warps puts three warps on an SM sub-partition, which leaves
+// at most 168 registers a thread.  dq fits that and has a producer warp of
+// its own (NC consumer warpgroups + 1 warp); dk/dv needs ~240 (S^T and dP^T
+// of one tile, P^T and dS^T of the one before, the dK and dV accumulators),
+// so its blocks are 8 warps (NC = 2) or two blocks of 4 an SM, and thread 0
+// feeds its ring between its own products.
+template <int NC> constexpr int bwd_min_blocks() { return NC == 1 ? 2 : 1; }
+
+// Dynamic shared memory, in bytes from a 1024-aligned base: the block's own
+// rows (A: K for dk/dv, Q for dq; B: V, G; NC tiles each, at the end the
+// outputs' staging), the ring of streamed tiles (A: Q for dk/dv, K for dq;
+// B: G, V), with LSE (dk/dv) the stages' lse and dl rows, the stages' ids
+// and tile indices, with LSE a bit per query tile (live or not), the
+// barriers (full[NS], empty[NS], own rows).
+template <int D, int NC, bool LSE> struct BwdSmem {
+  static constexpr int kTile = FwdTiles<D>::kTileBytes, NS = bwd_stages<NC>(), kRow = kBwdBT * 4;
+  static constexpr int kOwnA = 0, kOwnB = NC * kTile, kRingA = 2 * NC * kTile, kRingB = kRingA + NS * kTile;
+  static constexpr int kLse = kRingB + NS * kTile;
+  static constexpr int kDl = kLse + (LSE ? NS * kRow : 0);
+  static constexpr int kIds = kDl + (LSE ? NS * kRow : 0);
+  static constexpr int kTileIdx = kIds + NS * kRow;
+  static constexpr int kBits = kTileIdx + 32;
+  static constexpr int kBars = kBits + (LSE ? kBwdMaxTiles / 8 : 0);
+  static constexpr int kBytes = 1024 + kBars + (2 * NS + 1) * 8;  // + 1024 of alignment slack
+};
+
+// wgmma descriptors of a 64-row tile, computed and pinned before the
+// products' wgmma.fence (a register a wgmma reads, defined between its fence
+// and its wait, makes ptxas serialise every wgmma of the kernel):
+// K-major, the D/16 k-steps 32 bytes apart ...
+template <int D> __device__ __forceinline__ void kmajor_descs(uint64_t (&d)[D / 16], uint32_t tile) {
+  using T = FwdTiles<D>;
 #pragma unroll
   for (int st = 0; st < D / 16; ++st) {
-    a[st][0] = r0 < L ? *reinterpret_cast<const uint32_t*>(p0 + 16 * st) : 0u;
-    a[st][1] = r1 < L ? *reinterpret_cast<const uint32_t*>(p1 + 16 * st) : 0u;
-    a[st][2] = r0 < L ? *reinterpret_cast<const uint32_t*>(p0 + 16 * st + 8) : 0u;
-    a[st][3] = r1 < L ? *reinterpret_cast<const uint32_t*>(p1 + 16 * st + 8) : 0u;
+    d[st] = gmma_desc(tile + 32 * st, 8 * T::kRowBytes, T::kSwizzle);
+    asm volatile("" : "+l"(d[st]));
+  }
+}
+// ... and MN-major (the tile read as [k][n]), the 4 k-steps 16 rows apart
+template <int D> __device__ __forceinline__ void mnmajor_descs(uint64_t (&d)[kBwdBT / 16], uint32_t tile) {
+  using T = FwdTiles<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBwdBT / 16; ++kk) {
+    d[kk] = gmma_desc(tile + 16 * kk * T::kRowBytes, 8 * T::kRowBytes, T::kSwizzle);
+    asm volatile("" : "+l"(d[kk]));
   }
 }
 
-// Stage rows row0 .. row0+BT-1 of a strided (B, L, H, D) operand into shared
-// memory as [row][d] (row stride D + 8) with 16-byte loads; rows past L are zeros.
+// acc (64 x 64) = A (64 x D) B (64 x D)^T, both K-major: issued, not waited for
 template <int D>
-__device__ __forceinline__ void stage_rows(bf16* S, const bf16* __restrict__ base, Strides s, int b, int h,
-                                           int row0, int L) {
-  constexpr int CPR = D / 8, LDS = D + 8;
-  for (int c = threadIdx.x; c < BT * CPR; c += kThreads) {
-    const int r = c / CPR, cc = c % CPR;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L)
-      x = *reinterpret_cast<const uint4*>(base + (size_t)b * s.b + (size_t)(row0 + r) * s.l + (size_t)h * s.h + 8 * cc);
-    *reinterpret_cast<uint4*>(&S[r * LDS + 8 * cc]) = x;
+__device__ __forceinline__ void issue_abt(float (&acc)[kBwdBT / 2], const uint64_t (&a)[D / 16],
+                                          const uint64_t (&b)[D / 16]) {
+#pragma unroll
+  for (int st = 0; st < D / 16; ++st) wgmma_ss_m64n64k16(acc, a[st], b[st], st);
+}
+
+// acc (64 x D) += P (64 x 64, bf16 A fragments) B (64 x D) with B MN-major
+template <int D>
+__device__ __forceinline__ void issue_pb(float (&acc)[D / 2], const uint32_t (&p)[kBwdBT / 4],
+                                         const uint64_t (&b)[kBwdBT / 16]) {
+#pragma unroll
+  for (int kk = 0; kk < kBwdBT / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    pv_mma<D>(acc, a, b[kk]);
   }
 }
 
-// s (16 x 64 per warp, fp32) = A (the warp's 16 rows, fragments) * S^T, S the
-// staged [row][d] tile: S is "n-major", so a plain ldmatrix delivers the B
-// fragments of two 8-wide column tiles at once.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(float (&s)[BT / 8][4], const uint32_t (&a)[D / 16][4],
-                                                  const bf16* S, int lane) {
-  constexpr int LDS = D + 8;
+// The block's own rows: NC tiles each of the maps own_a and own_b from row
+// row0, onto the `own` barrier (one thread)
+template <int D, int NC, bool LSE>
+__device__ __forceinline__ void load_own_rows(unsigned char* base, const CUtensorMap* own_a, const CUtensorMap* own_b,
+                                              int row0, int h, int b) {
+  using T = FwdTiles<D>;
+  using M = BwdSmem<D, NC, LSE>;
+  uint64_t* own = reinterpret_cast<uint64_t*>(base + M::kBars) + 2 * M::NS;
+  mbar_arrive_expect_tx(own, 2 * NC * T::kTileBytes);
 #pragma unroll
-  for (int j = 0; j < BT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int w = 0; w < NC; ++w) {
+    tma_load_4d(base + M::kOwnA + w * T::kTileBytes, own_a, own, 0, row0 + 64 * w, h, b);
+    tma_load_4d(base + M::kOwnB + w * T::kTileBytes, own_b, own, 0, row0 + 64 * w, h, b);
+  }
+}
+
+// dq's producer warp: streams key tiles kt_first .. kt_last through the
+// ring, throttled by it: each tile's key ids are read kBwdLookahead tiles
+// ahead, a tile with no live key is skipped, and a live tile's ids and index
+// go into its stage before lane 0 starts the TMA loads of its K and V.  A
+// stage with index -1 ends the sequence.  The producer alone decides the
+// sequence; the consumers follow the stages.
+template <int D, int NC, bool SEG>
+__device__ __forceinline__ void dq_produce(unsigned char* base, const CUtensorMap* tk, const CUtensorMap* tv,
+                                           const void* kmask, int b, int h, int Lk, int kt_first, int kt_last) {
+  using T = FwdTiles<D>;
+  using M = BwdSmem<D, NC, false>;
+  constexpr int NS = M::NS, IPL = kBwdBT / 32;  // ids per lane per tile
+  int* ids = reinterpret_cast<int*>(base + M::kIds);
+  int* tile = reinterpret_cast<int*>(base + M::kTileIdx);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + M::kBars);
+  uint64_t* empty = full + NS;
+  const int lane = threadIdx.x & 31;
+  auto key = [&](int t, int c) {
+    const int pos = t * kBwdBT + 32 * c + lane;
+    return t <= kt_last && pos < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + pos) : kNoKey;
+  };
+  int la[kBwdLookahead][IPL];
 #pragma unroll
-  for (int st = 0; st < D / 16; ++st) {
+  for (int i = 0; i < kBwdLookahead; ++i)
 #pragma unroll
-    for (int jp = 0; jp < BT / 16; ++jp) {
-      uint32_t fb[4];
-      ldmatrix_x4(fb, S + 16 * jp * LDS + 16 * st + ldsm_b_offset(lane, LDS));
-      const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
-      mma_bf16_16816(s[2 * jp], a[st], b0);
-      mma_bf16_16816(s[2 * jp + 1], a[st], b1);
+    for (int c = 0; c < IPL; ++c) la[i][c] = key(kt_first + i, c);
+  int stage = 0;
+  unsigned phase = 0;
+  for (int t = kt_first; t <= kt_last; ++t) {
+    int id[IPL];
+    bool live = false;
+#pragma unroll
+    for (int c = 0; c < IPL; ++c) {
+      id[c] = la[0][c];
+      live = live || id[c] >= 0;
+    }
+#pragma unroll
+    for (int i = 0; i + 1 < kBwdLookahead; ++i)
+#pragma unroll
+      for (int c = 0; c < IPL; ++c) la[i][c] = la[i + 1][c];
+#pragma unroll
+    for (int c = 0; c < IPL; ++c) la[kBwdLookahead - 1][c] = key(t + kBwdLookahead, c);
+    if (!__any_sync(0xffffffffu, live)) continue;  // no live key in this tile
+    mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+    for (int c = 0; c < IPL; ++c) ids[stage * kBwdBT + 32 * c + lane] = id[c];
+    if (lane == 0) {
+      tile[stage] = t;
+      mbar_arrive_expect_tx(&full[stage], 2 * T::kTileBytes);
+      tma_load_4d(base + M::kRingA + stage * T::kTileBytes, tk, &full[stage], 0, t * kBwdBT, h, b);
+      tma_load_4d(base + M::kRingB + stage * T::kTileBytes, tv, &full[stage], 0, t * kBwdBT, h, b);
+    } else {
+      mbar_arrive(&full[stage]);
+    }
+    if (++stage == NS) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  mbar_wait(&empty[stage], phase ^ 1);  // the end of the sequence
+  if (lane == 0) tile[stage] = -1;
+  mbar_arrive(&full[stage]);
 }
 
-// acc (16 x D per warp) += P (16 x 64, fp32 accumulators, rounded to bf16 here)
-// * S, S the staged [row][d] tile read as [k][n]: two adjacent 8-wide
-// accumulator tiles of P are the A operand of one k-step, a transposing
-// ldmatrix gives the B fragments of two 8-wide slices of D.
-template <int D>
-__device__ __forceinline__ void acc_p_times_tile(float (&acc)[D / 8][4], const float (&p)[BT / 8][4], const bf16* S,
-                                                 int lane) {
-  constexpr int LDS = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int jp = 0; jp < D / 16; ++jp) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, S + 16 * kk * LDS + 16 * jp + ldsm_a_offset(lane, LDS));
-      const uint32_t b0[2] = {fb[0], fb[1]}, b1[2] = {fb[2], fb[3]};
-      mma_bf16_16816(acc[2 * jp], pa, b0);
-      mma_bf16_16816(acc[2 * jp + 1], pa, b1);
+// dk/dv's feeder: thread 0, between its own products.  The block first marks
+// which query tiles of qt_first .. qt_last hold a valid query (one bit each,
+// all threads at once, while the own rows load); then each fill() puts the
+// next such tile into the next stage of the ring, once every consumer has
+// released the stage's previous tile, by TMA alone: Q and G, the tile's lse
+// and dl rows, and with SEG its segment ids.  After the last live tile, a
+// stage with index -1 ends the sequence.  The feeder alone decides the
+// sequence; the consumers follow the stages.  It keeps NS - 2 stages filled
+// ahead: a stage is released after its tile's last products and refilled
+// two tiles later, so that it rarely waits for the other warpgroup.
+template <int D, int NC, bool SEG> struct BwdQueryFeeder {
+  using T = FwdTiles<D>;
+  using M = BwdSmem<D, NC, true>;
+  unsigned char* base;
+  const CUtensorMap *tq, *tg, *tlse, *tdl, *tids;
+  int b, h, H, next, last;
+  bool all_live;
+  int stage = 0;
+  unsigned phase = 0;
+  bool ended = false;
+
+  __device__ __forceinline__ void fill() {
+    if (ended) return;
+    const uint32_t* bits = reinterpret_cast<const uint32_t*>(base + M::kBits);
+    while (next <= last && !all_live && !((bits[next >> 5] >> (next & 31)) & 1u)) ++next;  // no valid query
+    int* tile = reinterpret_cast<int*>(base + M::kTileIdx);
+    uint64_t* full = reinterpret_cast<uint64_t*>(base + M::kBars);
+    uint64_t* empty = full + M::NS;
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (next <= last) {
+      const int t = next++;
+      tile[stage] = t;
+      mbar_arrive_expect_tx(&full[stage], 2 * T::kTileBytes + (SEG ? 3 : 2) * kBwdBT * 4);
+      tma_load_4d(base + M::kRingA + stage * T::kTileBytes, tq, &full[stage], 0, t * kBwdBT, h, b);
+      tma_load_4d(base + M::kRingB + stage * T::kTileBytes, tg, &full[stage], 0, t * kBwdBT, h, b);
+      tma_load_2d(base + M::kLse + stage * kBwdBT * 4, tlse, &full[stage], t * kBwdBT, b * H + h);
+      tma_load_2d(base + M::kDl + stage * kBwdBT * 4, tdl, &full[stage], t * kBwdBT, b * H + h);
+      if (SEG) tma_load_2d(base + M::kIds + stage * kBwdBT * 4, tids, &full[stage], t * kBwdBT, b);
+    } else {  // the end of the sequence
+      tile[stage] = -1;
+      mbar_arrive(&full[stage]);
+      ended = true;
     }
+    if (++stage == M::NS) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Turns of the consumer warpgroups (as in the forward kernel): each issues
+// its products in turn (named barrier 1 + w: "warpgroup w may issue", passed
+// on by the other after its own issue), so that one's elementwise part runs
+// while the other's products hold the tensor cores.  Both take the same
+// number of turns (the producer's sequence), and warpgroup 0 takes one more
+// at the end to match the first pass that warpgroup NC - 1 gives it.
+template <int NC> struct BwdTurns {
+  static constexpr bool kOn = kBwdTurns && NC > 1;
+  int wg;
+  __device__ __forceinline__ void start() const {
+    if (kOn && wg == NC - 1) named_bar_arrive(1, 128 * NC);
+  }
+  __device__ __forceinline__ void mine() const {
+    if (kOn) named_bar_sync(1 + wg, 128 * NC);
+  }
+  __device__ __forceinline__ void pass() const {
+    if (kOn) named_bar_arrive(1 + (wg + 1 == NC ? 0 : wg + 1), 128 * NC);
+  }
+  __device__ __forceinline__ void finish() const {
+    if (kOn && wg == 0) named_bar_sync(1, 128 * NC);
+  }
+};
+
+// dk/dv: s = S^T (this thread's key rows, kid0/kid1; the stage's query
+// columns 8j + 2t, +1 with their lse and dl, and with SEG their segment ids)
+// becomes P^T in place, dp = dP^T becomes dS^T = P^T * (dP^T - dl).  SEG:
+// a pair of different segments is masked by a select (the logit becomes
+// -1e30, which is what s - 1e30 rounds to for every finite logit below
+// 1e22).  Padding masks need no pair mask here: a padded query's cotangent
+// and dl are zero, so its column adds exactly 0 to dK and dV, and a padded
+// key's row is zeroed at the end.
+template <bool SEG>
+__device__ __forceinline__ void dkv_tile_math(float (&s)[kBwdBT / 2], float (&dp)[kBwdBT / 2], const float* lse,
+                                              const float* dl, const int* qid, int t, int kid0, int kid1) {
+#pragma unroll
+  for (int j = 0; j < kBwdBT / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 ls = *reinterpret_cast<const float2*>(lse + c);
+    const float2 dd = *reinterpret_cast<const float2*>(dl + c);
+    if (SEG) {
+      const int2 id = *reinterpret_cast<const int2*>(qid + c);
+      s[4 * j] = id.x == kid0 ? s[4 * j] : kNegInf;
+      s[4 * j + 1] = id.y == kid0 ? s[4 * j + 1] : kNegInf;
+      s[4 * j + 2] = id.x == kid1 ? s[4 * j + 2] : kNegInf;
+      s[4 * j + 3] = id.y == kid1 ? s[4 * j + 3] : kNegInf;
+    }
+    s[4 * j] = ex2(fminf(s[4 * j] - ls.x, 0.f));
+    s[4 * j + 1] = ex2(fminf(s[4 * j + 1] - ls.y, 0.f));
+    s[4 * j + 2] = ex2(fminf(s[4 * j + 2] - ls.x, 0.f));
+    s[4 * j + 3] = ex2(fminf(s[4 * j + 3] - ls.y, 0.f));
+    dp[4 * j] = s[4 * j] * (dp[4 * j] - dd.x);
+    dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - dd.y);
+    dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - dd.x);
+    dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - dd.y);
   }
 }
 
-// Write the warp's 16 x D accumulator rows r0, r1 of a contiguous (B, L, H, D) output.
+// dq: s = S (this thread's query rows, qid0/qid1 with their lse and dl; the
+// stage's key columns 8j + 2t, +1 with their ids) becomes dS = P * (dP - dl)
+// in place.
+__device__ __forceinline__ void dq_tile_math(float (&s)[kBwdBT / 2], const float (&dp)[kBwdBT / 2], const int* kid,
+                                             int t, int qid0, int qid1, float lse0, float lse1, float dl0, float dl1) {
+#pragma unroll
+  for (int j = 0; j < kBwdBT / 8; ++j) {
+    const int2 id = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * t);
+    s[4 * j] = ex2(fminf((id.x == qid0 ? s[4 * j] : kNegInf) - lse0, 0.f)) * (dp[4 * j] - dl0);
+    s[4 * j + 1] = ex2(fminf((id.y == qid0 ? s[4 * j + 1] : kNegInf) - lse0, 0.f)) * (dp[4 * j + 1] - dl0);
+    s[4 * j + 2] = ex2(fminf((id.x == qid1 ? s[4 * j + 2] : kNegInf) - lse1, 0.f)) * (dp[4 * j + 2] - dl1);
+    s[4 * j + 3] = ex2(fminf((id.y == qid1 ? s[4 * j + 3] : kNegInf) - lse1, 0.f)) * (dp[4 * j + 3] - dl1);
+  }
+}
+
+// A consumer warpgroup's 64 x D fp32 accumulator into a 64-row bf16 tile of
+// shared memory in the TMA's swizzled layout (the staging of a TMA store)
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[D / 8][4], int b, int h, int H,
-                                           int r0, int r1, int L, int t) {
-  bf16* o0 = out + (((size_t)b * L + r0) * H + h) * D;
-  bf16* o1 = out + (((size_t)b * L + r1) * H + h) * D;
+__device__ __forceinline__ void stage_acc(uint32_t tile, const float (&acc)[D / 2], int warp, int g, int t) {
+  const int rl = 16 * warp + g;
 #pragma unroll
   for (int jd = 0; jd < D / 8; ++jd) {
-    if (r0 < L) *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * jd + 2 * t) = __floats2bfloat162_rn(acc[jd][0], acc[jd][1]);
-    if (r1 < L) *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * jd + 2 * t) = __floats2bfloat162_rn(acc[jd][2], acc[jd][3]);
+    const int c = 8 * jd + 2 * t;
+    sts_u32(tile + swz_tile_offset<D>(rl, c), pack_bf16(acc[4 * jd], acc[4 * jd + 1]));
+    sts_u32(tile + swz_tile_offset<D>(rl + 8, c), pack_bf16(acc[4 * jd + 2], acc[4 * jd + 3]));
   }
 }
 
-}  // namespace bwd
+// zeros into rows row0 .. row0 + rows - 1 (those below L) of a contiguous
+// (B, L, H, D) bf16 output: a block with no live row
+template <int D>
+__device__ __forceinline__ void zero_rows(bf16* __restrict__ out, int b, int h, int H, int L, int row0, int rows) {
+  constexpr int V16 = D / 8;  // 16-byte pieces per row
+  for (int c = threadIdx.x; c < rows * V16; c += blockDim.x) {
+    const int r = row0 + c / V16;
+    if (r < L) *reinterpret_cast<uint4*>(out + (((size_t)b * L + r) * H + h) * D + 8 * (c % V16)) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
 
 // ---------------------------------------------------------------------------
-// bf16, K5: dq.  Block = 4 warps = 64 query rows, key tiles of 64.
-// lane = 4*g + t: the thread holds rows g and g+8 of its warp's 16, columns
-// 2t, 2t+1 of every 8-wide fragment.
+// bf16, K6 / K9: dk and dv.  q, k, v, g: tensor maps over (D, L, H, B) with
+// box (D, 64, 1, 1); lse, dl: maps over (Lq, B * H) with box (64, 1); dk, dv:
+// maps over the contiguous outputs; ids (SEG): a map over the segment ids
+// (S, B) with box (64, 1); band (SEG): (B, gridDim.x, 2) int32 = (first
+// query tile, count) per key block.
 // ---------------------------------------------------------------------------
-template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                         const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                         const void* __restrict__ qmask, const void* __restrict__ kmask, bf16* __restrict__ dq,
-                         int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
-  using namespace bwd;
-  constexpr int LDS = D + 8;
-  __shared__ __align__(16) bf16 Ks[BT * LDS];
-  __shared__ __align__(16) bf16 Vs[BT * LDS];
-  __shared__ int kid[BT];  // key ids of the staged tile (common.cuh)
+template <int D, bool SEG, int NC>
+__global__ void __launch_bounds__(128 * NC, bwd_min_blocks<NC>())
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                           const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdl,
+                           const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                           const __grid_constant__ CUtensorMap tids, const void* __restrict__ qmask,
+                           const void* __restrict__ kmask,
+                           const int* __restrict__ band, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq,
+                           int Lk) {
+  using T = FwdTiles<D>;
+  using M = BwdSmem<D, NC, true>;
+  constexpr int BR = 64 * NC, NS = bwd_stages<NC>();
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the period of the 128-byte swizzle, which TMA and wgmma both apply by address
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int* ids = reinterpret_cast<const int*>(base + M::kIds);
+  const int* tile = reinterpret_cast<const int*>(base + M::kTileIdx);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + M::kBars);
+  uint64_t* empty = full + NS;
+  uint64_t* own = empty + NS;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gi = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
-  const int r0 = q0 + 16 * warp + gi, r1 = r0 + 8;
-  const bool val0 = r0 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r0);
-  const bool val1 = r1 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r1);
-  const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
-  const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
-  const int live_q = __syncthreads_or(val0 || val1);
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BR;
+  uint32_t* live_bits = reinterpret_cast<uint32_t*>(base + M::kBits);
+  bool row_live = false;
+  if (tid < BR) row_live = k0 + tid < Lk && key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) >= 0;
+  if (tid < kBwdMaxTiles / 32) live_bits[tid] = 0u;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);          // the feeder (it also brings the TMA bytes)
+      mbar_init(&empty[s], 128 * NC);  // every consumer thread
+    }
+    mbar_init(own, 1);
+    fence_mbar_init();
+  }
+  if (!__syncthreads_or(row_live)) {  // block-uniform: no live key, so dk = dv = 0; no barrier is waited on
+    zero_rows<D>(dk, b, h, H, Lk, k0, BR);
+    zero_rows<D>(dv, b, h, H, Lk, k0, BR);
+    return;
+  }
 
-  float acc[D / 8][4];
+  // warp-uniform as far as the compiler can see, so that the wgmma
+  // descriptors derived from it live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid % 128) >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  int qt_first = 0, qt_last = (Lq + kBwdBT - 1) / kBwdBT - 1;
+  if (SEG) {
+    const int2 bd = *reinterpret_cast<const int2*>(band + 2 * ((size_t)b * gridDim.x + blockIdx.x));
+    qt_first = bd.x;
+    qt_last = bd.x + bd.y - 1;
+  }
+  if (tid == 0) load_own_rows<D, NC, true>(base, &tk, &tv, k0, h, b);
+  // while the own rows load: a bit for each query tile with a valid query
+  const bool all_live = (Lq + kBwdBT - 1) / kBwdBT > kBwdMaxTiles;
+  if (!all_live) {
+    for (int qt = qt_first + (tid >> 5); qt <= qt_last; qt += 4 * NC) {
+      bool v = false;
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd) acc[jd][0] = acc[jd][1] = acc[jd][2] = acc[jd][3] = 0.f;
-
-  if (live_q) {  // block-uniform
-    uint32_t qa[D / 16][4], ga[D / 16][4];
-    load_a_rows<D>(qa, q, qs, b, h, r0, r1, Lq, t);
-    load_a_rows<D>(ga, g, gs, b, h, r0, r1, Lq, t);
-    const size_t rb = ((size_t)b * H + h) * Lq;
-    const float lse0 = r0 < Lq ? lse[rb + r0] : 0.f, lse1 = r1 < Lq ? lse[rb + r1] : 0.f;
-    const float dl0 = r0 < Lq ? dl[rb + r0] : 0.f, dl1 = r1 < Lq ? dl[rb + r1] : 0.f;
-
-    const int2 band = SEG ? segment_band<BT>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, qid0, val0, qid1,
-                                             val1)
-                          : make_int2(0, (Lk + BT - 1) / BT - 1);
-    for (int kt = band.x; kt <= band.y; ++kt) {
-      const int k0 = kt * BT;
-      __syncthreads();  // previous tile consumed
-      int my_kid = kNoKey;
-      if (tid < BT) {
-        my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
-        kid[tid] = my_kid;
+      for (int c = 0; c < kBwdBT / 32; ++c) {
+        const int pos = qt * kBwdBT + 32 * c + lane;
+        v = v || (pos < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + pos));
       }
-      if (!__syncthreads_or(my_kid >= 0)) continue;  // no live key in this tile
-      stage_rows<D>(Ks, k, ks, b, h, k0, Lk);
-      stage_rows<D>(Vs, v, vs, b, h, k0, Lk);
-      __syncthreads();
-
-      float s[BT / 8][4], dp[BT / 8][4];
-      rows_times_tile_t<D>(s, qa, Ks, lane);   // S  = Q K^T
-      rows_times_tile_t<D>(dp, ga, Vs, lane);  // dP = G V^T
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) {
-        const int ia = kid[8 * j + 2 * t], ib = kid[8 * j + 2 * t + 1];
-        // s becomes dS = P * (dP - dl); masked pairs carry the -1e30 bias
-        s[j][0] = exp2f(fminf((s[j][0] + (ia == qid0 ? 0.f : -kBig)) - lse0, 0.f)) * (dp[j][0] - dl0);
-        s[j][1] = exp2f(fminf((s[j][1] + (ib == qid0 ? 0.f : -kBig)) - lse0, 0.f)) * (dp[j][1] - dl0);
-        s[j][2] = exp2f(fminf((s[j][2] + (ia == qid1 ? 0.f : -kBig)) - lse1, 0.f)) * (dp[j][2] - dl1);
-        s[j][3] = exp2f(fminf((s[j][3] + (ib == qid1 ? 0.f : -kBig)) - lse1, 0.f)) * (dp[j][3] - dl1);
-      }
-      acc_p_times_tile<D>(acc, s, Ks, lane);  // dQ += dS K
+      if (__any_sync(0xffffffffu, v) && lane == 0) atomicOr(&live_bits[qt >> 5], 1u << (qt & 31));
     }
   }
-  store_rows<D>(dq, acc, b, h, H, r0, r1, Lq, t);
-}
-
-// ---------------------------------------------------------------------------
-// bf16, K6: dk and dv.  Block = 4 warps = 64 key rows, query tiles of 64;
-// the products run transposed (S^T = K Q^T, dP^T = V G^T), so the key rows are
-// the A operand held in registers and both outputs accumulate per warp.
-// ---------------------------------------------------------------------------
-template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                          const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                          const void* __restrict__ qmask, const void* __restrict__ kmask, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
-                          Strides gs) {
-  using namespace bwd;
-  constexpr int LDS = D + 8;
-  __shared__ __align__(16) bf16 Qs[BT * LDS];
-  __shared__ __align__(16) bf16 Gs[BT * LDS];
-  __shared__ float lses[BT], dls[BT];
-  __shared__ int qids[BT];  // query ids of the staged tile
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gi = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
-  const int r0 = k0 + 16 * warp + gi, r1 = r0 + 8;
+  __syncthreads();
+  BwdQueryFeeder<D, NC, SEG> feed{base, &tq, &tg, &tlse, &tdl, &tids, b, h, H, qt_first, qt_last, all_live};
+  if (tid == 0)
+    for (int i = 0; i < NS - 2; ++i) feed.fill();
+  const int r0 = k0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
   const int kid0 = r0 < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + r0) : kNoKey;
   const int kid1 = r1 < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + r1) : kNoKey;
-  const int live_k = __syncthreads_or(kid0 >= 0 || kid1 >= 0);
+  const float* lses = reinterpret_cast<const float*>(base + M::kLse);
+  const float* dls = reinterpret_cast<const float*>(base + M::kDl);
+  const uint32_t ka = smem_u32(base + M::kOwnA + wg * T::kTileBytes), va = smem_u32(base + M::kOwnB + wg * T::kTileBytes);
+  const uint32_t qs0 = smem_u32(base + M::kRingA), gs0 = smem_u32(base + M::kRingB);
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[D / 2], dva[D / 2], s[kBwdBT / 2], dp[kBwdBT / 2];
+  uint32_t pp[kBwdBT / 4], pd[kBwdBT / 4];  // P^T and dS^T as bf16 A fragments
 #pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd) {
-    dka[jd][0] = dka[jd][1] = dka[jd][2] = dka[jd][3] = 0.f;
-    dva[jd][0] = dva[jd][1] = dva[jd][2] = dva[jd][3] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const BwdTurns<NC> turn{wg};
+  turn.start();
 
-  if (live_k) {  // block-uniform
-    uint32_t ka[D / 16][4], va[D / 16][4];
-    load_a_rows<D>(ka, k, ks, b, h, r0, r1, Lk, t);
-    load_a_rows<D>(va, v, vs, b, h, r0, r1, Lk, t);
-    const size_t rb = ((size_t)b * H + h) * Lq;
-
-    const int2 band = SEG ? segment_band<BT>(static_cast<const int*>(qmask) + (size_t)b * Lq, Lq, kid0, kid0 >= 0,
-                                             kid1, kid1 >= 0)
-                          : make_int2(0, (Lq + BT - 1) / BT - 1);
-    for (int qt = band.x; qt <= band.y; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();  // previous tile consumed
-      bool my_valid = false;
-      if (tid < BT) {
-        const int r = q0 + tid;
-        my_valid = r < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r);
-        qids[tid] = r < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r) : kPadSeg;
-        lses[tid] = r < Lq ? lse[rb + r] : 0.f;
-        dls[tid] = r < Lq ? dl[rb + r] : 0.f;
-      }
-      if (!__syncthreads_or(my_valid)) continue;  // no valid query in this tile
-      stage_rows<D>(Qs, q, qs, b, h, q0, Lq);
-      stage_rows<D>(Gs, g, gs, b, h, q0, Lq);
-      __syncthreads();
-
-      float s[BT / 8][4], dp[BT / 8][4];
-      rows_times_tile_t<D>(s, ka, Qs, lane);   // S^T  = K Q^T
-      rows_times_tile_t<D>(dp, va, Gs, lane);  // dP^T = V G^T
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) {
-        const int c = 8 * j + 2 * t;
-        const float la = lses[c], lb = lses[c + 1], da = dls[c], db = dls[c + 1];
-        const int ia = qids[c], ib = qids[c + 1];
-        // s becomes P^T, dp becomes dS^T = P^T * (dP^T - dl); masked pairs carry the -1e30 bias
-        s[j][0] = exp2f(fminf((s[j][0] + (ia == kid0 ? 0.f : -kBig)) - la, 0.f));
-        s[j][1] = exp2f(fminf((s[j][1] + (ib == kid0 ? 0.f : -kBig)) - lb, 0.f));
-        s[j][2] = exp2f(fminf((s[j][2] + (ia == kid1 ? 0.f : -kBig)) - la, 0.f));
-        s[j][3] = exp2f(fminf((s[j][3] + (ib == kid1 ? 0.f : -kBig)) - lb, 0.f));
-        dp[j][0] = s[j][0] * (dp[j][0] - da);
-        dp[j][1] = s[j][1] * (dp[j][1] - db);
-        dp[j][2] = s[j][2] * (dp[j][2] - da);
-        dp[j][3] = s[j][3] * (dp[j][3] - db);
-      }
-      acc_p_times_tile<D>(dva, s, Gs, lane);   // dV += P^T G
-      acc_p_times_tile<D>(dka, dp, Qs, lane);  // dK += dS^T Q
+  mbar_wait(own, 0);
+  int stage = 0;
+  unsigned phase = 0;
+  mbar_wait(&full[0], 0);
+  if (tile[0] >= 0) {
+    {  // S^T and dP^T of the first tile, its elementwise part
+      uint64_t da[D / 16], db[D / 16], dc[D / 16], dd[D / 16];
+      kmajor_descs<D>(da, ka);
+      kmajor_descs<D>(db, qs0);
+      kmajor_descs<D>(dc, va);
+      kmajor_descs<D>(dd, gs0);
+      turn.mine();
+      wgmma_fence();
+      issue_abt<D>(s, da, db);   // S^T  = K Q^T
+      issue_abt<D>(dp, dc, dd);  // dP^T = V G^T
+      wgmma_commit();
+      turn.pass();
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+    }
+    dkv_tile_math<SEG>(s, dp, lses, dls, ids, t, kid0, kid1);
+    pack_p(s, pp);
+    pack_p(dp, pd);
+    // every further tile: its S^T and dP^T issued before the previous
+    // tile's dV and dK products, its elementwise part while those run.  The
+    // loop body holds no branch between an issue and its wait.
+    while (true) {
+      const int ns = stage + 1 == NS ? 0 : stage + 1;
+      const unsigned nph = ns == 0 ? phase ^ 1 : phase;
+      mbar_wait(&full[ns], nph);
+      if (tile[ns] < 0) break;
+      uint64_t da[D / 16], db[D / 16], dc[D / 16], dd[D / 16], gm[kBwdBT / 16], qm[kBwdBT / 16];
+      kmajor_descs<D>(da, ka);
+      kmajor_descs<D>(db, qs0 + ns * T::kTileBytes);
+      kmajor_descs<D>(dc, va);
+      kmajor_descs<D>(dd, gs0 + ns * T::kTileBytes);
+      mnmajor_descs<D>(gm, gs0 + stage * T::kTileBytes);  // this tile's G and Q, read as [query][d]
+      mnmajor_descs<D>(qm, qs0 + stage * T::kTileBytes);
+      fence_operand(s);
+      fence_operand(dp);
+      fence_operand(dka);
+      fence_operand(dva);
+      fence_operand(pp);
+      fence_operand(pd);
+      turn.mine();
+      wgmma_fence();
+      issue_abt<D>(s, da, db);
+      issue_abt<D>(dp, dc, dd);
+      wgmma_commit();
+      issue_pb<D>(dva, pp, gm);  // dV += P^T G
+      issue_pb<D>(dka, pd, qm);  // dK += dS^T Q
+      wgmma_commit();
+      turn.pass();
+      if (tid == 0) feed.fill();
+      wgmma_wait<1>();
+      fence_operand(s);
+      fence_operand(dp);
+      dkv_tile_math<SEG>(s, dp, lses + ns * kBwdBT, dls + ns * kBwdBT, ids + ns * kBwdBT, t, kid0, kid1);
+      wgmma_wait<0>();
+      fence_operand(dka);
+      fence_operand(dva);
+      fence_operand(pp);
+      fence_operand(pd);
+      mbar_arrive(&empty[stage]);
+      pack_p(s, pp);
+      pack_p(dp, pd);
+      stage = ns;
+      phase = nph;
+    }
+    {  // the last tile's dV and dK products
+      uint64_t gm[kBwdBT / 16], qm[kBwdBT / 16];
+      mnmajor_descs<D>(gm, gs0 + stage * T::kTileBytes);
+      mnmajor_descs<D>(qm, qs0 + stage * T::kTileBytes);
+      fence_operand(dka);
+      fence_operand(dva);
+      fence_operand(pp);
+      fence_operand(pd);
+      turn.mine();
+      wgmma_fence();
+      issue_pb<D>(dva, pp, gm);
+      issue_pb<D>(dka, pd, qm);
+      wgmma_commit();
+      turn.pass();
+      wgmma_wait<0>();
+      fence_operand(dka);
+      fence_operand(dva);
     }
   }
-  store_rows<D>(dk, dka, b, h, H, r0, r1, Lk, t);
-  store_rows<D>(dv, dva, b, h, H, r0, r1, Lk, t);
+  turn.finish();
+
+  // a key row that is no live key (padding) gets exactly 0
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 4) {
+    if (kid0 < 0) dka[i] = dka[i + 1] = dva[i] = dva[i + 1] = 0.f;
+    if (kid1 < 0) dka[i + 2] = dka[i + 3] = dva[i + 2] = dva[i + 3] = 0.f;
+  }
+  // dK and dV in the input dtype: staged in the warpgroup's own K and V
+  // tiles (no wgmma reads them any more) in the TMA's swizzled layout, then
+  // one TMA store each (rows past Lk are not written)
+  stage_acc<D>(ka, dka, warp, g, t);
+  stage_acc<D>(va, dva, warp, g, t);
+  fence_proxy_async();
+  named_bar_sync(3 + wg, 128);
+  if (tid % 128 == 0) {
+    tma_store_4d(&tdk, ka, 0, k0 + 64 * wg, h, b);
+    tma_store_4d(&tdv, va, 0, k0 + 64 * wg, h, b);
+    bulk_commit();
+    bulk_wait_read<0>();
+  }
 }
+
+// ---------------------------------------------------------------------------
+// bf16, K5 / K8: dq.  Maps as for dk/dv (dq over the contiguous output); lse,
+// dl (B, H, ldr) fp32, read per own row; band (SEG): (B, gridDim.x, 2) int32
+// = (first key tile, count) per query block.
+// ---------------------------------------------------------------------------
+template <int D, bool SEG, int NC>
+__global__ void __launch_bounds__(128 * NC + 32, bwd_min_blocks<NC>())
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                          const float* __restrict__ dl, const void* __restrict__ qmask,
+                          const void* __restrict__ kmask, const int* __restrict__ band, bf16* __restrict__ dq, int H,
+                          int Lq, int Lk, int ldr) {
+  using T = FwdTiles<D>;
+  using M = BwdSmem<D, NC, false>;
+  constexpr int BR = 64 * NC, NS = bwd_stages<NC>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int* ids = reinterpret_cast<const int*>(base + M::kIds);
+  const int* tile = reinterpret_cast<const int*>(base + M::kTileIdx);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + M::kBars);
+  uint64_t* empty = full + NS;
+  uint64_t* own = empty + NS;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BR;
+  bool row_live = false;
+  if (tid < BR) row_live = q0 + tid < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + q0 + tid);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    mbar_init(own, 1);
+    fence_mbar_init();
+  }
+  if (!__syncthreads_or(row_live)) {  // block-uniform: no valid query, so dq = 0
+    zero_rows<D>(dq, b, h, H, Lq, q0, BR);
+    return;
+  }
+
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid % 128) >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (wg == NC) {  // the producer warp
+    int kt_first = 0, kt_last = (Lk + kBwdBT - 1) / kBwdBT - 1;
+    if (SEG) {
+      const int2 bd = *reinterpret_cast<const int2*>(band + 2 * ((size_t)b * gridDim.x + blockIdx.x));
+      kt_first = bd.x;
+      kt_last = bd.x + bd.y - 1;
+    }
+    if (lane == 0) load_own_rows<D, NC, false>(base, &tq, &tg, q0, h, b);
+    dq_produce<D, NC, SEG>(base, &tk, &tv, kmask, b, h, Lk, kt_first, kt_last);
+    return;
+  }
+  const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+  const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
+  const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
+  const size_t rb = ((size_t)b * H + h) * ldr;
+  const float lse0 = r0 < Lq ? lse[rb + r0] : 0.f, lse1 = r1 < Lq ? lse[rb + r1] : 0.f;
+  const float dl0 = r0 < Lq ? dl[rb + r0] : 0.f, dl1 = r1 < Lq ? dl[rb + r1] : 0.f;
+  const uint32_t qa = smem_u32(base + M::kOwnA + wg * T::kTileBytes), ga = smem_u32(base + M::kOwnB + wg * T::kTileBytes);
+  const uint32_t ks0 = smem_u32(base + M::kRingA), vs0 = smem_u32(base + M::kRingB);
+
+  float dqa[D / 2], s[kBwdBT / 2], dp[kBwdBT / 2];
+  uint32_t pd[kBwdBT / 4];  // dS as bf16 A fragments
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  const BwdTurns<NC> turn{wg};
+  turn.start();
+
+  mbar_wait(own, 0);
+  int stage = 0;
+  unsigned phase = 0;
+  mbar_wait(&full[0], 0);
+  if (tile[0] >= 0) {
+    {  // S and dP of the first tile, its elementwise part
+      uint64_t da[D / 16], db[D / 16], dc[D / 16], dd[D / 16];
+      kmajor_descs<D>(da, qa);
+      kmajor_descs<D>(db, ks0);
+      kmajor_descs<D>(dc, ga);
+      kmajor_descs<D>(dd, vs0);
+      turn.mine();
+      wgmma_fence();
+      issue_abt<D>(s, da, db);   // S  = Q K^T
+      issue_abt<D>(dp, dc, dd);  // dP = G V^T
+      wgmma_commit();
+      turn.pass();
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+    }
+    dq_tile_math(s, dp, ids, t, qid0, qid1, lse0, lse1, dl0, dl1);
+    pack_p(s, pd);
+    while (true) {
+      const int ns = stage + 1 == NS ? 0 : stage + 1;
+      const unsigned nph = ns == 0 ? phase ^ 1 : phase;
+      mbar_wait(&full[ns], nph);
+      if (tile[ns] < 0) break;
+      uint64_t da[D / 16], db[D / 16], dc[D / 16], dd[D / 16], km[kBwdBT / 16];
+      kmajor_descs<D>(da, qa);
+      kmajor_descs<D>(db, ks0 + ns * T::kTileBytes);
+      kmajor_descs<D>(dc, ga);
+      kmajor_descs<D>(dd, vs0 + ns * T::kTileBytes);
+      mnmajor_descs<D>(km, ks0 + stage * T::kTileBytes);  // this tile's K, read as [key][d]
+      fence_operand(s);
+      fence_operand(dp);
+      fence_operand(dqa);
+      fence_operand(pd);
+      turn.mine();
+      wgmma_fence();
+      issue_abt<D>(s, da, db);
+      issue_abt<D>(dp, dc, dd);
+      wgmma_commit();
+      issue_pb<D>(dqa, pd, km);  // dQ += dS K
+      wgmma_commit();
+      turn.pass();
+      wgmma_wait<1>();
+      fence_operand(s);
+      fence_operand(dp);
+      dq_tile_math(s, dp, ids + ns * kBwdBT, t, qid0, qid1, lse0, lse1, dl0, dl1);
+      wgmma_wait<0>();
+      fence_operand(dqa);
+      fence_operand(pd);
+      mbar_arrive(&empty[stage]);
+      pack_p(s, pd);
+      stage = ns;
+      phase = nph;
+    }
+    {  // the last tile's dQ product
+      uint64_t km[kBwdBT / 16];
+      mnmajor_descs<D>(km, ks0 + stage * T::kTileBytes);
+      fence_operand(dqa);
+      fence_operand(pd);
+      turn.mine();
+      wgmma_fence();
+      issue_pb<D>(dqa, pd, km);
+      wgmma_commit();
+      turn.pass();
+      wgmma_wait<0>();
+      fence_operand(dqa);
+    }
+  }
+  turn.finish();
+
+  // dQ in the input dtype through the warpgroup's own Q tile, one TMA store
+  stage_acc<D>(qa, dqa, warp, g, t);
+  fence_proxy_async();
+  named_bar_sync(3 + wg, 128);
+  if (tid % 128 == 0) {
+    tma_store_4d(&tdq, qa, 0, q0 + 64 * wg, h, b);
+    bulk_commit();
+    bulk_wait_read<0>();
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // fp32: two threads per row (each holds half of D; dot products meet through
@@ -321,7 +758,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // ---------------------------------------------------------------------------
 namespace bwd {
 
-constexpr int BT32 = 32;
+constexpr int BR = 64;    // rows per block
+constexpr int BT32 = 32;  // rows of a streamed tile
 
 template <int D>
 __device__ __forceinline__ void load_half_row(float (&r)[D / 2], const float* __restrict__ base, Strides s, int b,
@@ -512,120 +950,227 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   store_half_row<D>(dv, dva, b, h, H, row, Lk, half);
 }
 
+// ---------------------------------------------------------------------------
+// launch: the bf16 kernels by tensor maps (block_rows 64 or 128: NC = 1 or
+// 2), the fp32 kernels by strides
+// ---------------------------------------------------------------------------
+template <int D, bool SEG, int NC> static cudaError_t bwd_opt_in_smem() {
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D, SEG, NC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<D, NC, false>::kBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D, SEG, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdSmem<D, NC, true>::kBytes);
+  return e;
+}
+
+// Every bf16 instantiation's shared-memory opt-in, once per process, on the
+// first call (which the wrappers make eagerly, never inside a graph capture).
+static cudaError_t bwd_opt_in_all() {
+  static cudaError_t done = cudaErrorNotReady;
+  if (done == cudaErrorNotReady) {
+    done = cudaSuccess;
+#define SRHEP_BWD_OPT_IN(DD)                                           \
+  if (done == cudaSuccess) done = bwd_opt_in_smem<DD, false, 1>();    \
+  if (done == cudaSuccess) done = bwd_opt_in_smem<DD, false, 2>();    \
+  if (done == cudaSuccess) done = bwd_opt_in_smem<DD, true, 1>();     \
+  if (done == cudaSuccess) done = bwd_opt_in_smem<DD, true, 2>();
+    SRHEP_BWD_OPT_IN(16)
+    SRHEP_BWD_OPT_IN(32)
+    SRHEP_BWD_OPT_IN(64)
+#undef SRHEP_BWD_OPT_IN
+  }
+  return done;
+}
+
+// the operands' maps (q, g over Lq; k, v over Lk), and the contiguous
+// (B, L, H, D) output's
+template <int D>
+static bool encode_bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* g, int B,
+                            int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
+  return encode_operand(&m[0], q, D, Lq, H, B, qs) && encode_operand(&m[1], k, D, Lk, H, B, ks) &&
+         encode_operand(&m[2], v, D, Lk, H, B, vs) && encode_operand(&m[3], g, D, Lq, H, B, gs);
+}
+static bool encode_output(CUtensorMap* map, const void* out, int D, int L, int H, int B) {
+  return encode_operand(map, out, D, L, H, B, Strides{(long long)L * H * D, (long long)H * D, D});
+}
+
 template <int D, bool SEG>
 static int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* dl,
-                     const void* qmask, const void* kmask, void* dq, int B, int H, int Lq, int Lk, Strides qs,
-                     Strides ks, Strides vs, Strides gs, int is_bf16, cudaStream_t stream) {
-  const dim3 grid((Lq + bwd::BR - 1) / bwd::BR, H, B);
-  if (is_bf16)
-    flash_bwd_dq_bf16_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
-        static_cast<bf16*>(dq), H, Lq, Lk, qs, ks, vs, gs);
-  else
+                     const void* qmask, const void* kmask, const int* band, void* dq, int B, int H, int Lq, int Lk,
+                     Strides qs, Strides ks, Strides vs, Strides gs, int is_bf16, int block_rows, int ldr,
+                     cudaStream_t stream) {
+  if (!is_bf16) {
+    const dim3 grid((Lq + bwd::BR - 1) / bwd::BR, H, B);
     flash_bwd_dq_f32_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
         static_cast<float*>(dq), H, Lq, Lk, qs, ks, vs, gs);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t opt = bwd_opt_in_all();
+  if (opt != cudaSuccess) return (int)opt;
+  CUtensorMap m[4], tdq;
+  if (!encode_bwd_maps<D>(m, q, k, v, g, B, H, Lq, Lk, qs, ks, vs, gs) || !encode_output(&tdq, dq, D, Lq, H, B))
+    return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(dl);
+  bf16* o = static_cast<bf16*>(dq);
+  if (block_rows == 128)
+    flash_bwd_dq_wgmma_kernel<D, SEG, 2><<<dim3((Lq + 127) / 128, H, B), 288, BwdSmem<D, 2, false>::kBytes, stream>>>(
+        m[0], m[1], m[2], m[3], tdq, l, d, qmask, kmask, band, o, H, Lq, Lk, ldr);
+  else if (block_rows == 64)
+    flash_bwd_dq_wgmma_kernel<D, SEG, 1><<<dim3((Lq + 63) / 64, H, B), 160, BwdSmem<D, 1, false>::kBytes, stream>>>(
+        m[0], m[1], m[2], m[3], tdq, l, d, qmask, kmask, band, o, H, Lq, Lk, ldr);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 template <int D, bool SEG>
 static int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* dl,
-                      const void* qmask, const void* kmask, void* dk, void* dv, int B, int H, int Lq, int Lk,
-                      Strides qs, Strides ks, Strides vs, Strides gs, int is_bf16, cudaStream_t stream) {
-  const dim3 grid((Lk + bwd::BR - 1) / bwd::BR, H, B);
-  if (is_bf16)
-    flash_bwd_dkv_bf16_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Lq, Lk, qs, ks, vs, gs);
-  else
+                      const void* qmask, const void* kmask, const int* band, void* dk, void* dv, int B, int H, int Lq,
+                      int Lk, Strides qs, Strides ks, Strides vs, Strides gs, int is_bf16, int block_rows, int ldr,
+                      cudaStream_t stream) {
+  if (!is_bf16) {
+    const dim3 grid((Lk + bwd::BR - 1) / bwd::BR, H, B);
     flash_bwd_dkv_f32_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
         static_cast<float*>(dk), static_cast<float*>(dv), H, Lq, Lk, qs, ks, vs, gs);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t opt = bwd_opt_in_all();
+  if (opt != cudaSuccess) return (int)opt;
+  CUtensorMap m[4], tlse, tdl, tdk, tdv, tids;
+  if (!encode_bwd_maps<D>(m, q, k, v, g, B, H, Lq, Lk, qs, ks, vs, gs) ||
+      !encode_rows_32(&tlse, lse, Lq, B * H, ldr, false) || !encode_rows_32(&tdl, dl, Lq, B * H, ldr, false) ||
+      !encode_output(&tdk, dk, D, Lk, H, B) || !encode_output(&tdv, dv, D, Lk, H, B))
+    return (int)cudaErrorInvalidValue;
+  if (SEG ? !encode_rows_32(&tids, qmask, Lq, B, Lq, true) : !encode_rows_32(&tids, lse, Lq, B * H, ldr, false))
+    return (int)cudaErrorInvalidValue;  // padding masks read no ids: any valid map
+  bf16* ok = static_cast<bf16*>(dk);
+  bf16* ov = static_cast<bf16*>(dv);
+  if (block_rows == 128)
+    flash_bwd_dkv_wgmma_kernel<D, SEG, 2><<<dim3((Lk + 127) / 128, H, B), 256, BwdSmem<D, 2, true>::kBytes, stream>>>(
+        m[0], m[1], m[2], m[3], tlse, tdl, tdk, tdv, tids, qmask, kmask, band, ok, ov, H, Lq, Lk);
+  else if (block_rows == 64)
+    flash_bwd_dkv_wgmma_kernel<D, SEG, 1><<<dim3((Lk + 63) / 64, H, B), 128, BwdSmem<D, 1, true>::kBytes, stream>>>(
+        m[0], m[1], m[2], m[3], tlse, tdl, tdk, tdv, tids, qmask, kmask, band, ok, ov, H, Lq, Lk);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 }  // namespace srhep
 
 // q (B, Lq, H, D), k, v (B, Lk, H, D), g (B, Lq, H, D) as strided views with D
-// contiguous (strides in elements, 16-byte aligned); lse, dl (B, H, Lq) fp32;
-// qm (B, Lq), km (B, Lk) fp32; dq (B, Lq, H, D) contiguous, in q's dtype,
-// WITHOUT the ln(2) factor.  D in {16, 32, 64}.  Returns cudaGetLastError().
+// contiguous (strides in elements, 16-byte aligned); lse, dl (B, H, Lq) fp32
+// with row stride ldr (bf16: a multiple of 4, >= Lq; fp32: Lq); qm (B, Lq),
+// km (B, Lk) fp32; dq (B, Lq, H, D) contiguous, in q's dtype, WITHOUT the
+// ln(2) factor.  D in {16, 32, 64}; block_rows (bf16): query rows per block,
+// 64 or 128.  Returns cudaGetLastError().
 extern "C" int srhep_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
                                   const void* dl, const void* qm, const void* km, void* dq, int B, int H, int Lq,
                                   int Lk, int D, long long qsb, long long qsl, long long qsh, long long ksb,
                                   long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
-                                  long long gsb, long long gsl, long long gsh, int is_bf16, void* stream) {
+                                  long long gsb, long long gsl, long long gsh, int is_bf16, int block_rows, int ldr,
+                                  void* stream) {
   using namespace srhep;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (!is_bf16 && ldr != Lq) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SRHEP_BWD_CASE(DD)                                                                                        \
+  case DD:                                                                                                        \
+    return launch_dq<DD, false>(q, k, v, g, lse, dl, qm, km, nullptr, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, \
+                                block_rows, ldr, s);
   switch (D) {
-    case 16: return launch_dq<16, false>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 32: return launch_dq<32, false>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 64: return launch_dq<64, false>(q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    SRHEP_BWD_CASE(16)
+    SRHEP_BWD_CASE(32)
+    SRHEP_BWD_CASE(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SRHEP_BWD_CASE
 }
 
 // Same operands; dk, dv (B, Lk, H, D) contiguous in k's / v's dtype, dk
-// WITHOUT the ln(2) factor.  Returns cudaGetLastError().
+// WITHOUT the ln(2) factor; block_rows (bf16): key rows per block.
 extern "C" int srhep_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                                    const void* dl, const void* qm, const void* km, void* dk, void* dv, int B, int H,
                                    int Lq, int Lk, int D, long long qsb, long long qsl, long long qsh, long long ksb,
                                    long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
-                                   long long gsb, long long gsl, long long gsh, int is_bf16, void* stream) {
+                                   long long gsb, long long gsl, long long gsh, int is_bf16, int block_rows, int ldr,
+                                   void* stream) {
   using namespace srhep;
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (!is_bf16 && ldr != Lq) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SRHEP_BWD_CASE(DD)                                                                                     \
+  case DD:                                                                                                     \
+    return launch_dkv<DD, false>(q, k, v, g, lse, dl, qm, km, nullptr, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, \
+                                 is_bf16, block_rows, ldr, s);
   switch (D) {
-    case 16: return launch_dkv<16, false>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 32: return launch_dkv<32, false>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
-    case 64: return launch_dkv<64, false>(q, k, v, g, lse, dl, qm, km, dk, dv, B, H, Lq, Lk, qs, ks, vs, gs, is_bf16, s);
+    SRHEP_BWD_CASE(16)
+    SRHEP_BWD_CASE(32)
+    SRHEP_BWD_CASE(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SRHEP_BWD_CASE
 }
 
 // Segment-packed rows (K8): q, k, v, g (B, S, H, D) as strided views with D
-// contiguous, g zeroed on padding; lse, dl (B, H, S) fp32; seg (B, S) int32,
-// -1 on padding, valid ids nondecreasing along each row; dq (B, S, H, D)
-// contiguous, WITHOUT the ln(2) factor.  D in {16, 32, 64}.
+// contiguous, g zeroed on padding; lse, dl (B, H, S) fp32 with row stride ldr;
+// seg (B, S) int32, -1 on padding, valid ids nondecreasing along each row;
+// band (bf16 only): the srhep_packed_band table at block_rows x 64 tiles; dq
+// (B, S, H, D) contiguous, WITHOUT the ln(2) factor.  D in {16, 32, 64}.
 extern "C" int srhep_packed_bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                                   const void* dl, const void* seg, void* dq, int B, int H, int S, int D, long long qsb,
-                                   long long qsl, long long qsh, long long ksb, long long ksl, long long ksh,
-                                   long long vsb, long long vsl, long long vsh, long long gsb, long long gsl,
-                                   long long gsh, int is_bf16, void* stream) {
+                                   const void* dl, const void* seg, const void* band, void* dq, int B, int H, int S,
+                                   int D, long long qsb, long long qsl, long long qsh, long long ksb, long long ksl,
+                                   long long ksh, long long vsb, long long vsl, long long vsh, long long gsb,
+                                   long long gsl, long long gsh, int is_bf16, int block_rows, int ldr, void* stream) {
   using namespace srhep;
   if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if ((!is_bf16 && ldr != S) || (is_bf16 && band == nullptr)) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
+  const int* bd = static_cast<const int*>(band);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SRHEP_BWD_CASE(DD)                                                                                           \
+  case DD:                                                                                                           \
+    return launch_dq<DD, true>(q, k, v, g, lse, dl, seg, seg, bd, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, block_rows, \
+                               ldr, st);
   switch (D) {
-    case 16: return launch_dq<16, true>(q, k, v, g, lse, dl, seg, seg, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
-    case 32: return launch_dq<32, true>(q, k, v, g, lse, dl, seg, seg, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
-    case 64: return launch_dq<64, true>(q, k, v, g, lse, dl, seg, seg, dq, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    SRHEP_BWD_CASE(16)
+    SRHEP_BWD_CASE(32)
+    SRHEP_BWD_CASE(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SRHEP_BWD_CASE
 }
 
 // Segment-packed rows (K9): the same operands; dk, dv (B, S, H, D) contiguous,
 // dk WITHOUT the ln(2) factor.
 extern "C" int srhep_packed_bwd_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                                    const void* dl, const void* seg, void* dk, void* dv, int B, int H, int S, int D,
-                                    long long qsb, long long qsl, long long qsh, long long ksb, long long ksl,
-                                    long long ksh, long long vsb, long long vsl, long long vsh, long long gsb,
-                                    long long gsl, long long gsh, int is_bf16, void* stream) {
+                                    const void* dl, const void* seg, const void* band, void* dk, void* dv, int B,
+                                    int H, int S, int D, long long qsb, long long qsl, long long qsh, long long ksb,
+                                    long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
+                                    long long gsb, long long gsl, long long gsh, int is_bf16, int block_rows, int ldr,
+                                    void* stream) {
   using namespace srhep;
   if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if ((!is_bf16 && ldr != S) || (is_bf16 && band == nullptr)) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh}, gs{gsb, gsl, gsh};
+  const int* bd = static_cast<const int*>(band);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SRHEP_BWD_CASE(DD)                                                                                        \
+  case DD:                                                                                                        \
+    return launch_dkv<DD, true>(q, k, v, g, lse, dl, seg, seg, bd, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, \
+                                block_rows, ldr, st);
   switch (D) {
-    case 16: return launch_dkv<16, true>(q, k, v, g, lse, dl, seg, seg, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
-    case 32: return launch_dkv<32, true>(q, k, v, g, lse, dl, seg, seg, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
-    case 64: return launch_dkv<64, true>(q, k, v, g, lse, dl, seg, seg, dk, dv, B, H, S, S, qs, ks, vs, gs, is_bf16, st);
+    SRHEP_BWD_CASE(16)
+    SRHEP_BWD_CASE(32)
+    SRHEP_BWD_CASE(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SRHEP_BWD_CASE
 }

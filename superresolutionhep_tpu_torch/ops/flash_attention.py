@@ -56,6 +56,10 @@ KERNEL_HEAD_DIMS = (16, 32, 64)
 FWD_BLOCK_K = 64
 FWD_TMA_ROWS = 64
 FWD_ROWS_PER_WARPGROUP = 64
+# tiling of the bf16 backward kernels (csrc/flash_attention_bwd.cu): rows of a
+# streamed tile (keys for dq, queries for dk/dv); the block's own rows are 64
+# per consumer warpgroup
+BWD_BLOCK_T = 64
 
 
 def flash_shapes_ok(Lq: int, Lk: int, d: int) -> bool:
@@ -239,7 +243,18 @@ def tensor_map_plan(t) -> dict:
     strides = tuple(t.stride(i) * esz for i in (1, 2, 0))
     if t.data_ptr() % 16 or any(st % 16 or st >= 2**40 for st in strides):
         raise ValueError(f"tensor map: base address and the byte strides {strides} of L, H, B must be multiples of 16")
+    if any(t.stride(i) == 0 and t.shape[i] > 1 for i in range(3)):
+        raise ValueError(f"tensor map: a broadcast view (stride 0, strides {t.stride()}) is no tensor the TMA reads")
     return {"dims": (D, L, H, B), "strides_bytes": strides, "box": (D, FWD_TMA_ROWS, 1, 1), "swizzle_bytes": D * esz}
+
+
+def tensor_map_ok(t) -> bool:
+    """Whether ``tensor_map_plan`` takes the view ``t``."""
+    try:
+        tensor_map_plan(t)
+    except ValueError:
+        return False
+    return True
 
 
 def fwd_plan(q_pre, k, v, sm_count: int) -> dict:
@@ -251,6 +266,38 @@ def fwd_plan(q_pre, k, v, sm_count: int) -> dict:
     return {"block_q": block_q, "block_k": FWD_BLOCK_K, "grid": (-(-Lq // block_q), H, B),
             "threads": 128 * (block_q // FWD_ROWS_PER_WARPGROUP + 1),
             "maps": {"q": tensor_map_plan(q_pre), "k": tensor_map_plan(k), "v": tensor_map_plan(v)}}
+
+
+def bwd_tile_rows(B: int, H: int, L: int, sm_count: int) -> int:
+    """Rows per block of the bf16 backward kernels (queries for dq, keys for
+    dk/dv; L is that axis's length): 128 (two warpgroups, one block an SM,
+    so that each streamed tile serves 128 rows) while the grid then still
+    fills the card twice over, else 64 (one warpgroup, two blocks an SM), so
+    that a small grid still spreads over the card."""
+    return 128 if B * H * -(-L // 128) >= 2 * sm_count else 64
+
+
+def bwd_rows_stride(L: int) -> int:
+    """Row stride (elements) of the lse and dl rows the bf16 backward reads
+    by TMA: L rounded up to a multiple of 4 (16 bytes of fp32)."""
+    return -(-L // 4) * 4
+
+
+def bwd_plan(q_pre, k, v, g, sm_count: int) -> dict:
+    """The bf16 backward kernels' launches on (B, L, H, D) views: for dq
+    (blocks of queries) and dk/dv (blocks of keys) the tile height, grid and
+    threads per block (a warpgroup per 64 rows, and for dq one producer warp
+    more); the streamed tile's height, the lse/dl row stride and the four
+    operand maps."""
+    B, Lq, H, _ = q_pre.shape
+    Lk = k.shape[1]
+    plan = {"block_t": BWD_BLOCK_T, "rows_stride": bwd_rows_stride(Lq),
+            "maps": {"q": tensor_map_plan(q_pre), "k": tensor_map_plan(k), "v": tensor_map_plan(v),
+                     "g": tensor_map_plan(g)}}
+    for name, L, producer in (("dq", Lq, 32), ("dkv", Lk, 0)):
+        rows = bwd_tile_rows(B, H, L, sm_count)
+        plan[name] = {"block_rows": rows, "grid": (-(-L // rows), H, B), "threads": 2 * rows + producer}
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,13 +349,35 @@ def _cuda_bwd_operands(q_pre, k, v, g, lse, dl, qm, km):
     return q_pre, k, v, g
 
 
-def _flash_bwd_dq_cuda(q_pre, k, v, g, lse, dl, qm, km):
+def _bwd_launch_operands(q_pre, k, v, g, lse, dl, block_rows, L, sm_count: int):
+    """What the backward kernels are handed beyond the checks: for bf16 the
+    operands as the TMA takes them (a view it cannot take, such as a
+    broadcast cotangent, copied contiguous), lse and dl with rows padded to
+    ``bwd_rows_stride`` where L is no multiple of 4, and the tile height
+    (``block_rows`` or ``bwd_tile_rows`` over the blocks' axis of length L);
+    fp32 takes them as they are.  Returns (q_pre, k, v, g, lse, dl,
+    block_rows, row stride)."""
+    Lq = q_pre.shape[1]
+    if q_pre.dtype != torch.bfloat16:
+        return q_pre, k, v, g, lse, dl, 0, Lq
+    q_pre, k, v, g = (t if tensor_map_ok(t) else t.contiguous() for t in (q_pre, k, v, g))
+    ldr = bwd_rows_stride(Lq)
+    if ldr != Lq:
+        lse, dl = (torch.nn.functional.pad(t, (0, ldr - Lq)) for t in (lse, dl))
+    B, _, H, _ = q_pre.shape
+    return q_pre, k, v, g, lse, dl, block_rows or bwd_tile_rows(B, H, L, sm_count), ldr
+
+
+def _flash_bwd_dq_cuda(q_pre, k, v, g, lse, dl, qm, km, block_rows: int = None):
     """K5: dq (B, Lq, H, D) in q's dtype, without the ln 2 factor.
     q_pre, k, v, g: (B, L, H, D) views (D contiguous), g zeroed on padded
-    queries; lse, dl (B, H, Lq) fp32; qm, km (B, L) fp32."""
+    queries; lse, dl (B, H, Lq) fp32; qm, km (B, L) fp32.  ``block_rows``
+    (bf16 only) overrides the tile height ``bwd_tile_rows`` picks."""
     q_pre, k, v, g = _cuda_bwd_operands(q_pre, k, v, g, lse, dl, qm, km)
     B, Lq, H, D = q_pre.shape
     dev, dt = q_pre.device, q_pre.dtype
+    q_pre, k, v, g, lse, dl, block_rows, ldr = _bwd_launch_operands(q_pre, k, v, g, lse, dl, block_rows, Lq,
+                                                                   sm_count(dev) if dt == torch.bfloat16 else 0)
     dq = torch.empty((B, Lq, H, D), dtype=dt, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
@@ -316,19 +385,22 @@ def _flash_bwd_dq_cuda(q_pre, k, v, g, lse, dl, qm, km):
             q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), dl.data_ptr(),
             qm.data_ptr(), km.data_ptr(), dq.data_ptr(),
             B, H, Lq, k.shape[1], D, *_strides(q_pre, k, v, g),
-            int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+            int(dt == torch.bfloat16), block_rows, ldr, torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(rc, "flash_bwd_dq")
     kernels.LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
-def _flash_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, qm, km):
-    """K6: dk, dv (B, Lk, H, D) in k's dtype, dk without the ln 2 factor."""
+def _flash_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, qm, km, block_rows: int = None):
+    """K6: dk, dv (B, Lk, H, D) in k's dtype, dk without the ln 2 factor;
+    ``block_rows`` (bf16) as for dq, over the keys."""
     q_pre, k, v, g = _cuda_bwd_operands(q_pre, k, v, g, lse, dl, qm, km)
     B, Lq, H, D = q_pre.shape
     Lk = k.shape[1]
     dev, dt = q_pre.device, q_pre.dtype
+    q_pre, k, v, g, lse, dl, block_rows, ldr = _bwd_launch_operands(q_pre, k, v, g, lse, dl, block_rows, Lk,
+                                                                   sm_count(dev) if dt == torch.bfloat16 else 0)
     dk = torch.empty((B, Lk, H, D), dtype=dt, device=dev)
     dv = torch.empty((B, Lk, H, D), dtype=dt, device=dev)
     lib = kernels.library()
@@ -337,7 +409,7 @@ def _flash_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, qm, km):
             q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), dl.data_ptr(),
             qm.data_ptr(), km.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, H, Lq, Lk, D, *_strides(q_pre, k, v, g),
-            int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+            int(dt == torch.bfloat16), block_rows, ldr, torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(rc, "flash_bwd_dkv")
     kernels.LAUNCHES["flash_bwd_dkv"] += 1

@@ -17,10 +17,11 @@ Three kernels:
 
 The TPU kernels walk, per 512-wide query block, a band of key blocks computed
 outside the kernel (``band_ranges``) and capped at ``max_segment_len``.  The
-Hopper kernels walk the exact band at their own tiles: the bf16 forward reads
+Hopper kernels walk the exact band at their own tiles: the bf16 kernels read
 it from a table that ``packed_band`` computes once per call for all heads
-(one launch of its own kernel), the fp32 forward and the backward kernels
-find it per block; so the entries take no block arguments.
+(one launch of its own kernel; for the backward the same table serves dq,
+key tiles per query block, and dk/dv, query tiles per key block), the fp32
+kernels find it per block; so the entries take no block arguments.
 ``PACKED_DEFAULTS`` and ``set_packed_defaults`` are kept for parity with the
 JAX package's API and change nothing here.  As in the TPU kernels' mask
 (segment equality alone), padding cells attend each other: their output is
@@ -43,12 +44,14 @@ import torch
 from . import kernels
 from .flash_attention import (
     BIG,
+    BWD_BLOCK_T,
     CLIP_HI,
     CLIP_LO,
     FWD_BLOCK_K,
     KERNEL_HEAD_DIMS,
     LN2,
     LOG2E,
+    _bwd_launch_operands,
     _check_operand,
     _heads_first,
     _strides,
@@ -275,40 +278,61 @@ def _check_rows(lse, dl, B, H, S, dev):
             raise ValueError(f"packed attention backward: {name} must be contiguous float32 {(B, H, S)}")
 
 
-def _packed_bwd_dq_cuda(q_pre, k, v, g, lse, dl, seg):
-    """K8: dq (B, S, H, D) in q's dtype, without the ln 2 factor; g zeroed on
-    padding; lse, dl (B, H, S) fp32."""
+def _packed_bwd_cuda_operands(q_pre, k, v, g, lse, dl, seg, block_rows):
+    """Checks and launch operands shared by K8 and K9: bf16 adds the band
+    table of the block height (one ``packed_band`` launch; queries and keys
+    share ``seg``, so the same table gives dq its key tiles and dk/dv its
+    query tiles)."""
     q_pre, k, v, g = _cuda_packed_operands(q_pre, k, v, seg, g)
+    B, S, H, _ = q_pre.shape
+    dev = q_pre.device
+    _check_rows(lse, dl, B, H, S, dev)
+    bf16 = q_pre.dtype == torch.bfloat16
+    q_pre, k, v, g, lse, dl, block_rows, ldr = _bwd_launch_operands(q_pre, k, v, g, lse, dl, block_rows, S,
+                                                                    sm_count(dev) if bf16 else 0)
+    band = packed_band(seg, block_rows, BWD_BLOCK_T) if bf16 else None
+    return q_pre, k, v, g, lse, dl, band, block_rows, ldr
+
+
+def _packed_bwd_dq_cuda(q_pre, k, v, g, lse, dl, seg, block_rows: int = None):
+    """K8: dq (B, S, H, D) in q's dtype, without the ln 2 factor; g zeroed on
+    padding; lse, dl (B, H, S) fp32.  bf16: one ``packed_band`` launch for
+    the band table, then the kernel; ``block_rows`` overrides the tile height
+    ``bwd_tile_rows`` picks."""
+    q_pre, k, v, g, lse, dl, band, block_rows, ldr = _packed_bwd_cuda_operands(q_pre, k, v, g, lse, dl, seg,
+                                                                               block_rows)
     B, S, H, D = q_pre.shape
     dev, dt = q_pre.device, q_pre.dtype
-    _check_rows(lse, dl, B, H, S, dev)
     dq = torch.empty((B, S, H, D), dtype=dt, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         rc = lib.srhep_packed_bwd_dq(
             q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), dl.data_ptr(),
-            seg.data_ptr(), dq.data_ptr(), B, H, S, D, *_strides(q_pre, k, v, g),
-            int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+            seg.data_ptr(), band.data_ptr() if band is not None else None, dq.data_ptr(), B, H, S, D,
+            *_strides(q_pre, k, v, g), int(dt == torch.bfloat16), block_rows, ldr,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(rc, "packed_bwd_dq")
     kernels.LAUNCHES["packed_bwd_dq"] += 1
     return dq
 
 
-def _packed_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, seg):
-    """K9: dk, dv (B, S, H, D) in k's dtype, dk without the ln 2 factor."""
-    q_pre, k, v, g = _cuda_packed_operands(q_pre, k, v, seg, g)
+def _packed_bwd_dkv_cuda(q_pre, k, v, g, lse, dl, seg, block_rows: int = None):
+    """K9: dk, dv (B, S, H, D) in k's dtype, dk without the ln 2 factor;
+    bf16 as K8 (the band of query tiles per key block)."""
+    q_pre, k, v, g, lse, dl, band, block_rows, ldr = _packed_bwd_cuda_operands(q_pre, k, v, g, lse, dl, seg,
+                                                                               block_rows)
     B, S, H, D = q_pre.shape
     dev, dt = q_pre.device, q_pre.dtype
-    _check_rows(lse, dl, B, H, S, dev)
     dk = torch.empty((B, S, H, D), dtype=dt, device=dev)
     dv = torch.empty((B, S, H, D), dtype=dt, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         rc = lib.srhep_packed_bwd_dkv(
             q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), dl.data_ptr(),
-            seg.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, S, D, *_strides(q_pre, k, v, g),
-            int(dt == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+            seg.data_ptr(), band.data_ptr() if band is not None else None, dk.data_ptr(), dv.data_ptr(), B, H, S, D,
+            *_strides(q_pre, k, v, g), int(dt == torch.bfloat16), block_rows, ldr,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(rc, "packed_bwd_dkv")
     kernels.LAUNCHES["packed_bwd_dkv"] += 1

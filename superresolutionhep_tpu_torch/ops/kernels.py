@@ -132,19 +132,20 @@ _SIGNATURES = {
     # is_bf16, nomax, block_q, stream
     "srhep_flash_fwd": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _I, _I, _P],
     # q, k, v, g, lse, dl, qm, km, dq, B, H, Lq, Lk, D, strides (b, l, h) of
-    # q, k, v, g, is_bf16, stream
-    "srhep_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, _P],
+    # q, k, v, g, is_bf16, block_rows, lse/dl row stride, stream
+    "srhep_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, _I, _I, _P],
     # the same with dk, dv in place of dq
-    "srhep_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I, _P],
+    "srhep_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_I, _I, _I, _P],
     # segment-packed rows: q, k, v, seg, band, out, lse, B, H, S, D, strides
     # (b, l, h) of q, k, v, is_bf16, nomax, block_q, stream
     "srhep_packed_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_I, _I, _I, _P],
     # seg, band, B, S, block_q, block_k, stream
     "srhep_packed_band": [_P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, g, lse, dl, seg, dq, B, H, S, D, strides of q, k, v, g, is_bf16, stream
-    "srhep_packed_bwd_dq": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
+    # q, k, v, g, lse, dl, seg, band, dq, B, H, S, D, strides of q, k, v, g,
+    # is_bf16, block_rows, lse/dl row stride, stream
+    "srhep_packed_bwd_dq": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_I, _I, _I, _P],
     # the same with dk, dv in place of dq
-    "srhep_packed_bwd_dkv": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_I, _P],
+    "srhep_packed_bwd_dkv": [_P] * 10 + [_I] * 4 + [_L] * 12 + [_I, _I, _I, _P],
     # x, a, b, w(O,F), bias, seg, out, M, L, F, O, rows mode, table rows
     # (E + 1), shared memory bytes, is_bf16, stream
     "srhep_fused_qkv": [_P] * 7 + [_I] * 8 + [_P],

@@ -1,37 +1,63 @@
 #!/bin/bash
-# Time two versions of the CUDA kernel sources on one card in one go,
-# in the order old, new, new, old (a card may be power-limited or shared, so
-# only numbers taken together compare).
+# Time two versions of the CUDA kernels on one card in one go, in the order
+# old, new, new, old (a card may be power-limited or shared, so only numbers
+# taken together compare).
 #
-#     bash superresolutionhep_tpu_torch/tools/compare_kernel_sources.sh <dir with the older csrc/*.cu,*.cuh>
+#     bash superresolutionhep_tpu_torch/tools/compare_kernel_sources.sh <older checkout, or a dir with its csrc/*.cu,*.cuh> [output dir]
 #
-# Run from the repository root on a machine with the card and nvcc.  The older
-# sources are overlaid on a copy of the package in a temporary directory; the
-# repository is not touched.  Prints, per run, one line per kernel case of
-# chip_smoke.py's kernel phase: kernel, dtype, L, time in ms.
+# Run from the repository root on a machine with the card and nvcc.  Given a
+# checkout (a directory holding chip_smoke.py), the old runs are that
+# checkout's own chip_smoke.py and package, as they are (needed where the
+# kernels' C interface changed); given a directory of sources only, the older
+# sources are overlaid on a copy of this package in a temporary directory.
+# The repository is not touched.  Each run is chip_smoke.py --skip-serve
+# (kernel cases, probes and the train phases; exit 1 by design).  Prints, per
+# run, one line per timed kernel case (kernel, dtype, L, time in ms) and the
+# torch.profiler readings of the train steps: device ms per step, busy share,
+# and the share of the device time in the flash backward kernels; with an
+# output directory, each run's full output is kept there as compare_<run>.txt.
 OLD_SRC=$(cd "$1" && pwd) || exit 9
 ROOT=$(pwd)
+OUT_DIR=${2:+$(mkdir -p "$2" && cd "$2" && pwd)}
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT
-mkdir -p "$WORK/old" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$WORK/old/" || exit 9
-cp "$OLD_SRC"/*.cu "$OLD_SRC"/*.cuh "$WORK/old/superresolutionhep_tpu_torch/csrc/" || exit 9
+if [ -f "$OLD_SRC/chip_smoke.py" ]; then
+  OLD_DIR="$OLD_SRC"
+else
+  OLD_DIR="$WORK/old"
+  mkdir -p "$OLD_DIR" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$OLD_DIR/" || exit 9
+  cp "$OLD_SRC"/*.cu "$OLD_SRC"/*.cuh "$OLD_DIR/superresolutionhep_tpu_torch/csrc/" || exit 9
+fi
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-run() {  # label, directory
+run() {  # label, directory, run number
   cd "$2" || exit 9
   SRHEP_TORCH_BUILD_DIR="$WORK/build_$1" python3 chip_smoke.py --skip-serve --reps 20 > "$WORK/$1.$3.txt" 2> "$WORK/$1.$3.err"
   echo "== $1 (run $3) exit=$? (1 is expected: --skip-serve prints no ok line)"
-  grep '"phase": "kernel_case"' "$WORK/$1.$3.txt" | python3 -c '
-import sys, json
-for line in sys.stdin:
+  python3 - "$WORK/$1.$3.txt" <<'EOF'
+import json, sys
+for line in open(sys.argv[1]):
+    if not line.startswith("{"):
+        continue
     c = json.loads(line)
-    if "ms" in c:
-        print("  %-16s %-5s L=%-5s per_cell=%-5s ms=%.4f err=%.3g ok=%s" % (
-            c["kernel"], c["dtype"], c["L"], c.get("per_cell", "-"), c["ms"], c["max_abs_err"], c["ok"]))
-'
+    if c.get("phase") == "kernel_case" and "ms" in c:
+        print("  %-16s %-5s L=%-5s D=%-3s per_cell=%-5s ms=%.4f err=%.3g ok=%s" % (
+            c["kernel"], c["dtype"], c["L"], c.get("D", "-"), c.get("per_cell", "-"), c["ms"], c["max_abs_err"], c["ok"]))
+    if c.get("phase") in ("train", "packed_train", "pf_train"):
+        steps = c.get("train_step_ms")
+        for st in steps if isinstance(steps, list) else [steps]:
+            if not st or "profile" not in st:
+                continue
+            p = st["profile"]
+            bwd = sum(t["share_of_device"] for t in p["top"] if "flash_bwd" in t["name"])
+            print("  %-12s (%s, %s) median_ms=%.1f device_ms_per_step=%.2f busy=%.3f kernels=%d bwd_share_of_device=%.3f"
+                  % (c["phase"], st.get("B"), st.get("N"), st["median_ms"], p["device_ms_per_step"], p["busy_share"],
+                     p["kernels_per_step"], bwd))
+EOF
   tail -n 1 "$WORK/$1.$3.err" | cut -c 1-400
+  [ -n "$OUT_DIR" ] && cp "$WORK/$1.$3.txt" "$OUT_DIR/compare_$1.$3.txt"
   cd "$ROOT" || exit 9
 }
-run old "$WORK/old" 1
+run old "$OLD_DIR" 1
 run new "$ROOT" 1
 run new "$ROOT" 2
-run old "$WORK/old" 2
+run old "$OLD_DIR" 2

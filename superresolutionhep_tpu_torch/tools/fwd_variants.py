@@ -1,17 +1,22 @@
-"""Build variants of the bf16 flash-attention forward (``csrc/flash_attention.cu``
-with one construct changed, by string edits in a temporary directory; the
-repository is not touched) as libraries of their own, all at once, and time
-the forward wrappers with each at ``chip_smoke.py``'s shapes.
+"""Build variants of the bf16 flash-attention forward (``csrc/flash_attention.cu``)
+or backward (``csrc/flash_attention_bwd.cu``) with one construct changed, by
+string edits in a temporary directory (the repository is not touched), as
+libraries of their own, all at once, and time the wrappers with each at
+``chip_smoke.py``'s shapes.
 
     python3 superresolutionhep_tpu_torch/tools/fwd_variants.py [variant ...]
+    python3 superresolutionhep_tpu_torch/tools/fwd_variants.py bwd [variant ...]
 
 Run from the repository root on a machine with the card and nvcc.  Prints one
 JSON line per variant: the ptxas serialisation warnings (C751x) and whether
-anything spilled, the device time (ms) of K1/K2 at (10, 2048, 4, 64) with
-ragged masks and of K7 robust / no-max at the (8, 5120) packed batch, K7
+anything spilled; forward: the device time (ms) of K1/K2 at (10, 2048, 4, 64)
+with ragged masks and of K7 robust / no-max at the (8, 5120) packed batch, K7
 no-max's error against its plain version, and for ``clocks`` the consumer
 warpgroups' cycles per 64-row tile by stage of the loop (from clock64
-counters, which themselves slow the kernel by about a third).
+counters, which themselves slow the kernel by about a third); backward: the
+device time of K5/K6 at (10, 2048, 4, 64) with ragged masks and of K8/K9 at
+the (8, 5120) packed batch (each wrapper call with its band launch), and
+each output's error against its plain version.
 """
 
 from __future__ import annotations
@@ -82,8 +87,70 @@ VARIANTS = {
 }
 
 
-def main():
-    sys.path.insert(0, os.getcwd())
+# variants of the backward source
+BWD_VARIANTS = {
+    "base": [],
+    # the ping-pong of the two consumer warpgroups off
+    "no_turns": [("constexpr bool kBwdTurns = true;", "constexpr bool kBwdTurns = false;")],
+    # the elementwise part no longer under the previous tile's products: wait
+    # for every product of the step before it (dq and dk/dv loops)
+    "no_overlap": [("      wgmma_wait<1>();\n      fence_operand(s);\n      fence_operand(dp);\n      dkv_tile_math",
+                    "      wgmma_wait<0>();\n      fence_operand(s);\n      fence_operand(dp);\n      dkv_tile_math"),
+                   ("      wgmma_wait<1>();\n      fence_operand(s);\n      fence_operand(dp);\n      dq_tile_math",
+                    "      wgmma_wait<0>();\n      fence_operand(s);\n      fence_operand(dp);\n      dq_tile_math")],
+    # dk/dv: the feeder's refill after the step's waits instead of under its products
+    "fill_late": [("      turn.pass();\n      if (tid == 0) feed.fill();\n      wgmma_wait<1>();", "      turn.pass();\n      wgmma_wait<1>();"),
+                  ("      mbar_arrive(&empty[stage]);\n      pack_p(s, pp);",
+                   "      mbar_arrive(&empty[stage]);\n      if (tid == 0) feed.fill();\n      pack_p(s, pp);")],
+}
+
+
+def _build(src_name, variants, names, kernels, extra_sources=()):
+    """Start one nvcc per variant of csrc/<src_name> (with extra_sources, as
+    they are, in the same library); returns {name: (process, directory)}."""
+    src = (kernels.CSRC / src_name).read_text()
+    work = tempfile.mkdtemp(prefix="srhep_variants_")
+    procs = {}
+    for name in names:
+        text = src
+        for old, new in variants[name]:
+            if old not in text:
+                raise SystemExit(f"fwd_variants: {name}: the source no longer holds {old[:60]!r}")
+            text = text.replace(old, new)
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        with open(os.path.join(d, src_name), "w") as f:
+            f.write(text)
+        cmd = ["/usr/local/cuda/bin/nvcc", *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(kernels.CSRC),
+               os.path.join(d, src_name), *(str(kernels.CSRC / x) for x in extra_sources),
+               "-o", os.path.join(d, "lib.so")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
+    return procs
+
+
+def _build_line(name, p):
+    """A variant's line so far: built, ptxas's serialisation warnings and
+    whether anything spilled (printed at once, with the log, if the build
+    failed)."""
+    log = p.communicate()[0]
+    line = {"variant": name, "built": p.returncode == 0,
+            "serialised": sorted(set(re.findall(r"\((C751\d)\)", log))),
+            "spills": any(re.search(r"[1-9]\d* bytes spill", x) for x in log.splitlines())}
+    if p.returncode:
+        print(json.dumps({**line, "log": log[-2000:]}), flush=True)
+    return line
+
+
+def _load(lib_path, kernels, fns):
+    lib = ctypes.CDLL(lib_path)
+    for fn in fns:
+        getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    kernels._lib = lib
+    return lib
+
+
+def main_bwd(names):
     import torch
 
     import chip_smoke as cs
@@ -92,25 +159,82 @@ def main():
     from superresolutionhep_tpu_torch.ops import kernels
     from superresolutionhep_tpu_torch.scripts.common import graph_ms
 
+    names = names or list(BWD_VARIANTS)
+    procs = _build("flash_attention_bwd.cu", BWD_VARIANTS, names, kernels, extra_sources=("flash_attention.cu",))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    H, D = 4, 64
+    kernels.library()  # the shipped forward makes the inputs (out, lse)
+
+    def inputs(B, L, seg=None):
+        qkv = torch.randn(B, L, 3, H, D, generator=g, device=dev)
+        qkv[:, :, 0] *= (1.0 / D ** 0.5) * fa.LOG2E * 2.0
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if seg is None:
+            valid, _ = cs.ragged_valid(B, L, dev)
+            m = valid.float().contiguous()
+            out, lse = fa._flash_fwd_cuda(q, k, v, m, m, nomax=False, with_lse=True)
+            keep = valid
+        else:
+            out, lse = fp._packed_fwd_cuda(q, k, v, seg, nomax=False, with_lse=True)
+            keep = seg >= 0
+        gr = torch.randn(B, L, H, D, generator=g, device=dev).to(torch.bfloat16) * keep[:, :, None, None]
+        dl = (out.float() * gr.float()).sum(-1).transpose(1, 2).contiguous()
+        hf = fa._heads_first(q, k, v, gr)
+        if seg is None:
+            return (q, k, v, gr, lse, dl, m, m), (*hf, lse, dl, m[:, None])
+        return (q, k, v, gr, lse, dl, seg), (*hf, lse, dl, seg)
+
+    a5, r5 = inputs(10, 2048)
+    _, seg_np, _ = cs.packed_layout()
+    seg = torch.from_numpy(seg_np).to(dev)
+    a8, r8 = inputs(seg.shape[0], seg.shape[1], seg)
+    refs = {"k5": (fa._ref_flash_bwd_dq(*r5),), "k6": fa._ref_flash_bwd_dkv(*r5),
+            "k8": (fp._ref_packed_bwd_dq(*r8),), "k9": fp._ref_packed_bwd_dkv(*r8)}
+    calls = {"k5": lambda: fa._flash_bwd_dq_cuda(*a5), "k6": lambda: fa._flash_bwd_dkv_cuda(*a5),
+             "k8": lambda: fp._packed_bwd_dq_cuda(*a8), "k9": lambda: fp._packed_bwd_dkv_cuda(*a8),
+             # the other tile height: 64-row blocks, two an SM
+             "k5_rows64": lambda: fa._flash_bwd_dq_cuda(*a5, block_rows=64),
+             "k6_rows64": lambda: fa._flash_bwd_dkv_cuda(*a5, block_rows=64),
+             "k8_rows64": lambda: fp._packed_bwd_dq_cuda(*a8, block_rows=64),
+             "k9_rows64": lambda: fp._packed_bwd_dkv_cuda(*a8, block_rows=64)}
+    for k in ("k5", "k6", "k8", "k9"):
+        refs[k + "_rows64"] = refs[k]
+    fns = ("srhep_flash_bwd_dq", "srhep_flash_bwd_dkv", "srhep_packed_bwd_dq", "srhep_packed_bwd_dkv",
+           "srhep_packed_band")
+    for name, (p, d) in procs.items():
+        line = _build_line(name, p)
+        if not line["built"]:
+            continue
+        _load(os.path.join(d, "lib.so"), kernels, fns)
+        line["ms"] = {k: graph_ms(fn, 20, chain=8) for k, fn in calls.items()}
+        line["max_rel_err"] = {}
+        for k, fn in calls.items():
+            got = fn()
+            got = got if isinstance(got, tuple) else (got,)
+            line["max_rel_err"][k] = max(
+                ((a.float() - b.permute(0, 2, 1, 3).float()).abs().max() / b.float().abs().max()).item()
+                for a, b in zip(got, refs[k]))
+        print(json.dumps(line), flush=True)
+
+
+def main():
+    sys.path.insert(0, os.getcwd())
+    import torch
+
     if not torch.cuda.is_available():
         raise SystemExit("fwd_variants: no CUDA device")
-    names = sys.argv[1:] or list(VARIANTS)
-    src = (kernels.CSRC / "flash_attention.cu").read_text()
-    work = tempfile.mkdtemp(prefix="srhep_fwd_variants_")
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise SystemExit(f"fwd_variants: {name}: the source no longer holds {old[:60]!r}")
-            text = text.replace(old, new)
-        d = os.path.join(work, name)
-        os.makedirs(d)
-        with open(os.path.join(d, "flash_attention.cu"), "w") as f:
-            f.write(text)
-        cmd = ["/usr/local/cuda/bin/nvcc", *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(kernels.CSRC),
-               os.path.join(d, "flash_attention.cu"), "-o", os.path.join(d, "lib.so")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if sys.argv[1:2] == ["bwd"]:
+        return main_bwd(sys.argv[2:])
+
+    import chip_smoke as cs
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import flash_packed as fp
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.scripts.common import graph_ms
+
+    procs = _build("flash_attention.cu", VARIANTS, sys.argv[1:] or list(VARIANTS), kernels)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -135,19 +259,11 @@ def main():
         "k7": lambda: fp._packed_fwd(q7, k7, v7, seg, nomax=False, with_lse=True),
         "k7_nomax": lambda: fp._packed_fwd(q7, k7, v7, seg, nomax=True, with_lse=False),
     }
-    for name, p in procs.items():
-        log = p.communicate()[0]
-        line = {"variant": name, "built": p.returncode == 0,
-                "serialised": sorted(set(re.findall(r"\((C751\d)\)", log))),
-                "spills": any(re.search(r"[1-9]\d* bytes spill", x) for x in log.splitlines())}
-        if p.returncode:
-            print(json.dumps({**line, "log": log[-2000:]}), flush=True)
+    for name, (p, d) in procs.items():
+        line = _build_line(name, p)
+        if not line["built"]:
             continue
-        lib = ctypes.CDLL(os.path.join(work, name, "lib.so"))
-        for fn in ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_packed_band"):
-            getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        kernels._lib = lib
+        lib = _load(os.path.join(d, "lib.so"), kernels, ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_packed_band"))
         line["ms"] = {k: graph_ms(fn, 20, chain=8) for k, fn in calls.items()}
         out = calls["k7_nomax"]()[0]
         line["k7_nomax_max_rel_err"] = ((out.float() - ref7).abs().max() / ref7.abs().max()).item()

@@ -33,8 +33,13 @@ run nomax_drops_key_mask 's/id\.\([xy]\) == qid\([01]\) ? kClipHi : kMaskedLogit
 run lrelu_slope 's/kLreluSlope = 0.01f/kLreluSlope = 0.02f/' superresolutionhep_tpu_torch/csrc/common.cuh
 run qkv_forgets_bias 's/pack_bf16(acc\[4 \* j\] + bb\[j\].x, acc\[4 \* j + 1\] + bb\[j\].y)/pack_bf16(acc[4 * j], acc[4 * j + 1])/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
 run syntax_error 's/float acc\[32\];/float acc[32]/' superresolutionhep_tpu_torch/csrc/common.cuh
-run bwd_dq_sign_of_dl 's/\* (dp\[j\]\[0\] - dl0);/* (dp[j][0] + dl0);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
-run bwd_dkv_drops_key_bias 's/(s\[j\]\[0\] + (ia == kid0 ? 0.f : -kBig)) - la/(s[j][0]) - la/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dq_sign_of_dl 's/\* (dp\[4 \* j\] - dl0);/* (dp[4 * j] + dl0);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dkv_drops_key_bias 's/    if (kid0 < 0) dka\[i\] = dka\[i + 1\] = dva\[i\] = dva\[i + 1\] = 0.f;//' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dkv_ignores_segments 's/s\[4 \* j\] = id\.x == kid0 ? s\[4 \* j\] : kNegInf;/s[4 * j] = s[4 * j];/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dkv_ring_reads_wrong_stage 's/kmajor_descs<D>(db, qs0 + ns \* T::kTileBytes);/kmajor_descs<D>(db, qs0 + (ns + 1) % NS * T::kTileBytes);/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dq_band_drops_last_tile 's/kt_last = bd.x + bd.y - 1;/kt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dkv_band_drops_last_tile 's/qt_last = bd.x + bd.y - 1;/qt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run bwd_dv_takes_ds 's/issue_pb<D>(dva, pp, gm)/issue_pb<D>(dva, pd, gm)/g' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run packed_fwd_ignores_segments 's/= id\.\([xy]\) == qid\([01]\) ? s\[/= id.\1 >= 0 ? s[/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run fwd_band_drops_last_tile 's/kt_last = bd.x + bd.y - 1;/kt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run fwd_ring_reads_wrong_stage 's/make_descs<D>(dq, qs, ks0 + ns \* kBK/make_descs<D>(dq, qs, ks0 + (ns + 1) % NS * kBK/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
