@@ -570,8 +570,9 @@ def fwd_tile_cases(reps):
 
 def ptxas_report():
     """Registers and spills of every instantiation of the bf16 forward and
-    backward kernels and of the bf16 fused kernels, and the functions whose
-    wgmma ptxas serialised (warnings C751x), from nvcc's -Xptxas -v log."""
+    backward kernels, of the probes (the forward body at their modes and
+    tiles) and of the bf16 fused kernels, and the functions whose wgmma
+    ptxas serialised (warnings C751x), from nvcc's -Xptxas -v log."""
     import re
 
     from superresolutionhep_tpu_torch.ops import kernels
@@ -587,6 +588,9 @@ def ptxas_report():
                                       lambda m: {"D": int(m[0]), "seg": m[1] == "1", "block_rows": 64 * int(m[2])}),
         "flash_bwd_dkv_wgmma_kernel": (r"flash_bwd_dkv_wgmma_kernelILi(\d+)ELb([01])ELi(\d)E",
                                        lambda m: {"D": int(m[0]), "seg": m[1] == "1", "block_rows": 64 * int(m[2])}),
+        "probe_fwd_wgmma_kernel": (r"probe_fwd_wgmma_kernelILi(\d)ELb([01])ELi(\d)ELi(\d+)E",
+                                   lambda m: {"mode": int(m[0]), "mask": m[1] == "1", "block_q": 64 * int(m[2]),
+                                              "block_k": int(m[3])}),
     }
     rows = {k: [] for k in patterns}
     serialised = []
@@ -668,9 +672,10 @@ def bwd_kernel_cases(reps):
             pairs = sum(n * n for n in lens)
             nbytes_in = 4 * B * L * H * D * isz + 2 * B * H * L * 4 + 2 * B * L * 4
             # yardstick only (the port never calls it): SDPA's memory-efficient
-            # backward for the same boolean key mask, read as (fwd+bwd) - fwd
-            library_ms = None
-            if D == 64:
+            # backward for the same boolean key mask, read as (fwd+bwd) - fwd,
+            # at D = 64 and at PF's fp32 shape class (32, 640), D = 16
+            library_ms = library_fwd_bwd_ms = None
+            if D == 64 or (B, L) == (32, 640):
                 from torch.nn.attention import SDPBackend, sdpa_kernel
 
                 qc, kc, vc = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(True) for t in (q, k, v))
@@ -684,7 +689,8 @@ def bwd_kernel_cases(reps):
                     def lib_fwd_bwd():
                         return torch.autograd.grad(lib_fwd(), (qc, kc, vc), gc)
 
-                    library_ms = time_ms(lib_fwd_bwd, reps) - time_ms(lambda: lib_fwd().detach(), reps)
+                    library_fwd_bwd_ms = time_ms(lib_fwd_bwd, reps)
+                    library_ms = library_fwd_bwd_ms - time_ms(lambda: lib_fwd().detach(), reps)
             for name, got, ref, flops, nbytes in (
                 ("flash_bwd_dq", (dq,), (ref_dq,), 6.0 * H * D * pairs, nbytes_in + B * L * H * D * isz),
                 ("flash_bwd_dkv", (dk, dv), (ref_dk, ref_dv), 8.0 * H * D * pairs, nbytes_in + 2 * B * L * H * D * isz),
@@ -699,6 +705,7 @@ def bwd_kernel_cases(reps):
                         "ms": time_ms(lambda: fn(*args), reps),
                         "plain_ms": time_ms(lambda: plain(*ref_args), max(3, reps // 5)),
                         "library_ms": library_ms, "library_covers": "dq+dk+dv",
+                        "library_fwd_bwd_ms": library_fwd_bwd_ms,
                         "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
                         "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"}
                 if dtype == torch.bfloat16:  # one exp2 per live pair, as the forward's bound counts them
@@ -1805,16 +1812,22 @@ def probe_kernel_cases(reps):
     """K10 (four modes) and K11 (bf16 and fp32 exp; all-ones and ragged key
     masks) against their plain versions on the same CUDA tensors.
       * timed, at the scripts' shapes (8, 8, 2048, 64) and (4, 8, 3584, 64),
-        64x64 tiles, on the scripts' inputs: q fed as q, k and v (scaled by
-        0.9: |q|^2 ~ 52 +- 9 keeps the no-max mode's bf16 exp2, which
-        overflows at 128, finite on every row);
+        on the default tile (the shipped forward's pick: 192 query rows x 64
+        keys on the H100 at both shapes, the last query tile ragged), on the
+        scripts' inputs: q fed as q, k and v (scaled by 0.9: |q|^2 ~ 52 +- 9
+        keeps the no-max mode's bf16 exp2, which overflows at 128, finite on
+        every row);
       * untimed, at (8, 8, 2048, 64), on independent q, k, v: logits of std ~2
         in every mode (the softmax is not the near-identity that q = k = v
         gives), logits of std ~32 in the running-max modes (without the max,
-        exp2 overflows), and the other instantiated tile shapes.
+        exp2 overflows), on the default tile, then on every other tile shape
+        of ``TILES``.
     Tolerance 1e-2 of each output's max: p is rounded to bf16 on both sides
     (the hardware ex2.approx.bf16x2 against a rounded fp32 exp2, one ulp
-    apart at most), another summation order.  That tolerance cannot tell the
+    apart at most), another summation order; with the ragged mask, also 1e-2
+    of the max of the row with no valid key (its mean of v is small beside
+    the output's max, and a kernel that skipped dead tiles would give 0).
+    That tolerance cannot tell the
     exponential's dtype apart, so on the independent inputs every bf16/fp32
     exp case must also lie nearer (mean absolute difference) to its own
     mode's plain version than to the other dtype's; both gaps are printed.
@@ -1870,6 +1883,10 @@ def probe_kernel_cases(reps):
                 "max_rel_err": err / max(scale, 1e-30), "tol_rel": PROBE_TOL,
                 "plain_finite": bool(torch.isfinite(ref.float()).all())}
         case["ok"] = case["plain_finite"] and bool(torch.isfinite(out.float()).all()) and err <= PROBE_TOL * scale
+        if extra.get("mask") == "ragged":  # row 2 has no valid key: the mean of v, where a skipped tile gives 0
+            dead = (out[2].float() - ref[2].float()).abs().max().item()
+            case["dead_row_rel_err"] = dead / max(ref[2].float().abs().max().item(), 1e-30)
+            case["ok"] = case["ok"] and case["dead_row_rel_err"] <= PROBE_TOL
         if other is not None:
             gap = (out.float() - other().float()).abs()
             case["exp_dtype_check"] = {"mean_abs_err_own_dtype": diff.mean().item(),
@@ -1886,13 +1903,17 @@ def probe_kernel_cases(reps):
         emit({"phase": "kernel_case", **case})
         cases.append(case)
 
-    def variant(q, k, v, mode, tag, bq=64, bk=64, timing=None, dtype_check=False):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def variant(q, k, v, mode, tag, bq=None, bk=64, timing=None, dtype_check=False):
+        bq = bq or fa.fwd_tile_rows(*q.shape[:3], sms)
         swap = {"full": "fp32_exp", "fp32_exp": "full"}
         run("probe_variant", (q, k, v), lambda: ap.attention_variant(q, k, v, mode, block_q=bq, block_k=bk),
             lambda: ap._ref_variant(q, k, v, mode, block_k=bk), {"mode": mode, "blocks": [bq, bk], **tag}, timing,
             (lambda: ap._ref_variant(q, k, v, swap[mode], block_k=bk)) if dtype_check and mode in swap else None)
 
-    def exp_probe(q, k, v, km, exp_bf16, mask, tag, bq=64, bk=64, timing=None, dtype_check=False):
+    def exp_probe(q, k, v, km, exp_bf16, mask, tag, bq=None, bk=64, timing=None, dtype_check=False):
+        bq = bq or fa.fwd_tile_rows(*q.shape[:3], sms)
         run("probe_exp_dtype", (q, k, v),
             lambda: ap.attention_exp_probe(q, k, v, km, exp_bf16, block_q=bq, block_k=bk),
             lambda: ap._ref_exp_probe(q, k, v, km, exp_bf16, block_k=bk),
@@ -1934,7 +1955,8 @@ def probe_kernel_cases(reps):
                 variant(q, k, v, mode, tag, dtype_check=True)
             for exp_bf16 in (True, False):
                 exp_probe(q, k, v, km, exp_bf16, "ragged", tag, dtype_check=True)
-        for bq, bk in ((64, 128), (128, 64), (128, 128)):  # large logits, the other tile shapes
+        default = (fa.fwd_tile_rows(B, H, L, sms), 64)
+        for bq, bk in (t for t in ap.TILES if t != default):  # large logits, the other tile shapes
             variant(q, k, v, "full", tag, bq, bk, dtype_check=True)
             exp_probe(q, k, v, km, True, "ragged", tag, bq, bk, dtype_check=True)
         del q, k, v
@@ -1962,10 +1984,14 @@ def probes_phase(reps):
     probe_exp_dtype.sweep("cuda")
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
-    # per configuration: 2 warm-up calls + the 8 captured (kernel_experiments,
-    # 7 configurations); 2 warm-up chains + 1 captured chain of REPS (probe_exp_dtype, 10)
-    expect = dict({k: 0 for k in kernels.LAUNCHES}, probe_variant=7 * 10,
-                  probe_exp_dtype=10 * 3 * probe_exp_dtype.REPS)
+    # per configuration: 2 warm-up calls + the 8 captured (kernel_experiments:
+    # the four modes on the default tile, full on the other tiles); 2 warm-up
+    # chains + 1 captured chain of REPS (probe_exp_dtype: 3 shapes and dtypes
+    # on every tile)
+    from superresolutionhep_tpu_torch.ops.attention_probes import MODES, TILES
+
+    expect = dict({k: 0 for k in kernels.LAUNCHES}, probe_variant=(len(MODES) + len(TILES) - 1) * 10,
+                  probe_exp_dtype=3 * len(TILES) * 3 * probe_exp_dtype.REPS)
     line = {"phase": "probes", "seconds": round(time.time() - t0, 2), "launches": counts,
             "launches_expected": expect, "ok": counts == expect}
     emit(line)

@@ -1,8 +1,7 @@
 // Shared device helpers for the hand-written Hopper kernels of the PyTorch
 // port: four-element loads and stores, the parameter-free LayerNorm of rows
 // held across a warp, the modulation row of a cell in the fused kernels'
-// three row forms, the raw bf16 mma.sync instruction and ldmatrix (the
-// probes), asynchronous weight-slab copies with a two-slab
+// three row forms, asynchronous weight-slab copies with a two-slab
 // pipeline and a 64x64 block-level fp32 tile product from shared memory
 // (register-tiled FMA loops, no tensor cores: TF32 would keep only ~3
 // decimal digits, and the fp32 builds exist so that the kernels can be held
@@ -107,7 +106,7 @@ __device__ __forceinline__ int2 segment_band(const int* __restrict__ seg_row, in
 }
 
 // 16 bytes of padding per shared-memory row: consecutive rows then start 16
-// bytes apart modulo 128, so the 8 row reads of an ldmatrix hit distinct banks.
+// bytes apart modulo 128, so 16-byte reads of 8 consecutive rows hit distinct banks.
 template <typename T> struct Pad { static constexpr int value = 16 / (int)sizeof(T); };
 
 __device__ __forceinline__ float lrelu(float x) { return x >= 0.f ? x : kLreluSlope * x; }
@@ -201,54 +200,10 @@ __device__ __forceinline__ void warp_layernorm_rows(float (&v)[R][kMaxChunks][4]
   }
 }
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// two floats as a bf16 pair in one 32-bit word
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
   return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Four 8x8 bf16 matrices from shared memory in one instruction, delivered in
-// the mma fragment layout.  Lanes 8i..8i+7 give the addresses of the 8 rows
-// (16 bytes each) of matrix i; every lane gets, per matrix, the two elements
-// at row lane/4, columns 2*(lane%4) and +1.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* smem_ptr) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem_ptr);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// The same with each 8x8 matrix transposed on the way: every lane gets, per
-// matrix, the elements at rows 2*(lane%4) and +1 of column lane/4.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* smem_ptr) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem_ptr);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Offsets (in elements) of this lane's row address for ldmatrix_x4:
-//  * A operand, a 16x16 row-major tile at (0, 0) with row stride ld:
-//    matrices = (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-//    (rows 8-15, k 8-15) = the a0..a3 registers of mma.m16n8k16;
-//    the same offsets with ldmatrix_x4_trans on a k-major buffer ([k][n]) give
-//    the B operand of two adjacent 8-wide n tiles over 16 k: (k 0-7, n 0-7),
-//    (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15), each transposed;
-__device__ __forceinline__ int ldsm_a_offset(int lane, int ld) { return (lane & 15) * ld + 8 * (lane >> 4); }
-//  * B operand from an n-major buffer ([n][k], row stride ld), two adjacent
-//    8-wide n tiles at (0, 0): matrices = (n 0-7, k 0-7), (n 0-7, k 8-15),
-//    (n 8-15, k 0-7), (n 8-15, k 8-15) = b0, b1 of the first tile, b0, b1 of
-//    the second.
-__device__ __forceinline__ int ldsm_b_offset(int lane, int ld) {
-  return ((lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
 }
 
 // acc(64x64) += As(64 x K, row stride lda) * Bs(64 x K, row stride ldb)^T,
@@ -487,6 +442,16 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64 x 8, fp32) += A(64 x 16, bf16 pairs in registers) * B(16 x 8), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n8k16(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D(64 x 16, fp32) += A(64 x 16, bf16 pairs in registers) * B(16 x 16), B MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -537,6 +502,17 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64 x 128, fp32) = A(64 x 16) * B(16 x 128), A and B K-major in shared memory: D's old values are
+// not read (write-only operands), so that D holds no registers before the product
+__device__ __forceinline__ void wgmma_ss_m64n128k16_fresh(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // ---------------------------------------------------------------------------
 // The bf16 attention kernels (flash_attention.cu, flash_attention_bwd.cu): a
 // 64-row tile of head dim D as the TMA writes it (rows of 2*D bytes, swizzled
@@ -563,17 +539,12 @@ template <int D> __device__ __forceinline__ void pv_mma(float (&o)[D / 2], const
   else wgmma_rs_m64n16k16(o, a, db);
 }
 
-// the A fragments of a (64 x 16k) x (16k x N) wgmma from a 64 x 64 fp32
-// accumulator tile (P of the forward's P V, P and dS of the backward): bf16
-// pairs, two adjacent 8-wide slices per 16-deep k-step
-__device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&p)[16]) {
+// the A fragments of a (64 x 16k) x (16k x N) wgmma from a 64-row fp32
+// accumulator tile of 2N columns (P of the forward's P V, P and dS of the
+// backward): bf16 pairs, two adjacent 8-wide slices per 16-deep k-step
+template <int N> __device__ __forceinline__ void pack_p(const float (&s)[N], uint32_t (&p)[N / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
+  for (int i = 0; i < N / 2; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
 // 2^x on the special-function unit, subnormal results flushed to zero: the

@@ -37,34 +37,16 @@
 // one write of out: at L = 2048, D = 64 that is ~1000 flop/byte in bf16, far
 // above the H100's ~295.  One fp32 exp2 per pair runs on the special-function
 // units at 16 a clock per SM; at D = 64 that takes about as long as the two
-// products on the tensor cores.  The bf16 design (flash_fwd_wgmma_kernel):
-//   * warp specialisation: one producer warp keeps TMA loads of K/V tiles in
-//     flight through a ring of mbarrier full/empty pairs (5 stages, 3 where
-//     two blocks share an SM); NC consumer warpgroups of 64 query rows each
-//     run the products: NC = 3 (a K/V tile serves 192 queries) for large
-//     grids, NC = 1 (two blocks per SM) for small ones; setmaxnreg moves
-//     registers from the producer to the consumers.  128-row blocks (NC = 2)
-//     were never the fastest of the three on the H100 (PERF.md) and are not
-//     built;
-//   * S = Q K^T as wgmma.m64n64k16 from shared memory (Q and K K-major, TMA
-//     swizzle = the row's 32/64/128 bytes for D = 16/32/64, the same layout
-//     in the wgmma descriptors); O += P V with P in registers (the S
-//     accumulator repacked to bf16 pairs) and V read MN-major from its
-//     [key][d] tile.  Key tiles of 64: 128 measured no faster and spilled;
-//   * the exponentials under the products: each consumer issues S_{j+1}
-//     before P_j V_j and runs the softmax of tile j+1 while P_j V_j is on the
-//     tensor cores; the consumer warpgroups take turns to issue (named
-//     barriers), so that one's softmax overlaps another's products;
-//   * the producer reads each tile's key mask or segment ids (four tiles
-//     ahead), skips dead tiles itself and writes the ids and the tile's index
-//     into the stage, so consumers follow its sequence and never disagree
-//     with it; a stage with index -1 ends the sequence.
+// products on the tensor cores.  The bf16 kernel (flash_fwd_wgmma_kernel) is
+// the shared forward body of flash_fwd.cuh (its design is described there)
+// with this file's policy, FwdSoftmax: the mask a select on the key words the
+// producer carries (key mask or segment ids), dead key tiles skipped.
 // What holds it now (PERF.md): the softmax's instruction issue and the
 // special-function units, at 2.5-3.5x the operation bound.
 // The fp32 build (one thread per query row, FMA loops) exists to hold the
 // arithmetic tightly against the plain PyTorch version; it uses no tensor
 // cores and finds its packed band itself (common.cuh::segment_band).
-#include "common.cuh"
+#include "flash_fwd.cuh"
 
 namespace srhep {
 
@@ -73,70 +55,8 @@ constexpr float kClipHi = 80.0f;
 constexpr float kMaskedLogit = -1000.0f;  // no-max, bf16: 2^-1000 flushes to an exact 0
 
 // ---------------------------------------------------------------------------
-// bf16: warp-specialised TMA + wgmma.  Block = NC consumer warpgroups (64
-// query rows each) + one producer warpgroup; key tiles of kBK.  In a consumer
-// warpgroup, lane = 4*g + t of warp w holds rows 16w + g and 16w + g + 8 of
-// the warpgroup's 64, columns 8j + 2t, 8j + 2t + 1 of every 8-wide slice
-// (accumulator element 4j + e: e & 2 picks the row, e & 1 the column).
+// bf16: the forward body of flash_fwd.cuh with the shipped softmax.
 // ---------------------------------------------------------------------------
-constexpr int kBK = 64;        // keys per tile: one TMA box, the N of the S product (m64n64k16)
-constexpr int kLookahead = 4;  // key tiles whose ids the producer has in flight
-constexpr int kTmaRows = 64;   // rows per TMA box (Q, K and V)
-
-static_assert(kBK == kTmaRows, "a K or V tile is one TMA box");
-
-// K/V ring depth: 5 stages with one block per SM, 3 where two blocks share one
-template <int NC> __host__ __device__ constexpr int fwd_stages() { return NC == 1 ? 3 : 5; }
-
-template <int NC> struct FwdRegs;  // setmaxnreg budgets: producer + NC * consumer = (NC + 1) * launch bound
-template <> struct FwdRegs<1> { static constexpr int kProducer = 24, kConsumer = 232, kMinBlocks = 2; };
-template <> struct FwdRegs<3> { static constexpr int kProducer = 32, kConsumer = 160, kMinBlocks = 1; };
-
-// bytes of dynamic shared memory: 1024 of alignment slack, Q, the K/V ring,
-// the ring's key ids and tile indices, the barriers
-template <int D, int NC> constexpr int fwd_smem_bytes() {
-  return 1024 + (NC + 2 * fwd_stages<NC>()) * FwdTiles<D>::kTileBytes + fwd_stages<NC>() * kBK * 4 + 32 +
-         (2 * fwd_stages<NC>() + 1) * 8;
-}
-
-// Shared-memory descriptors of every wgmma of one step, computed and pinned
-// before the step's wgmma.fence, so that no register a wgmma reads is defined
-// between its fence and its wait (ptxas then serialises every wgmma).
-template <int D> struct StepDescs {
-  uint64_t q[D / 16], k[D / 16], v[kBK / 16];
-};
-template <int D>
-__device__ __forceinline__ void make_descs(StepDescs<D>& d, uint32_t qs, uint32_t ks, uint32_t vs) {
-  constexpr int SBO = 8 * FwdTiles<D>::kRowBytes, SW = FwdTiles<D>::kSwizzle;
-#pragma unroll
-  for (int st = 0; st < D / 16; ++st) {  // K-major: the next 16-deep k-step is 32 bytes further
-    d.q[st] = gmma_desc(qs + 32 * st, SBO, SW);
-    d.k[st] = gmma_desc(ks + 32 * st, SBO, SW);
-    asm volatile("" : "+l"(d.q[st]), "+l"(d.k[st]));
-  }
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {  // MN-major V: the next 16 keys are 16 rows further
-    d.v[kk] = gmma_desc(vs + 16 * kk * FwdTiles<D>::kRowBytes, SBO, SW);
-    asm volatile("" : "+l"(d.v[kk]));
-  }
-}
-
-// S = Q K^T for one warpgroup: (64 x D) x (kBK x D)^T, issued, not waited for
-template <int D> __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const StepDescs<D>& d) {
-#pragma unroll
-  for (int st = 0; st < D / 16; ++st) wgmma_ss_m64n64k16(s, d.q[st], d.k[st], st);
-}
-
-// O += P V for one warpgroup: P (64 x kBK) from registers, V (kBK x D) [key][d]
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kBK / 4], const StepDescs<D>& d) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-    pv_mma<D>(o, a, d.v[kk]);
-  }
-}
-
 // Softmax numerators of one S tile in place (this thread's rows r0, r1; kid
 // = the stage's key ids); l, m updated; al = the factor by which the
 // accumulator must be rescaled (robust only).
@@ -199,6 +119,27 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kBK / 2], const int* kid
   }
 }
 
+// The shipped kernels' policy of the forward body (flash_fwd.cuh): key
+// tiles of kBK, the key mask or segment ids as key words (dead tiles
+// skipped), tile_softmax, output (B, Lq, H, D) contiguous.
+template <bool NOMAX, bool SEG> struct FwdSoftmax {
+  static constexpr int kBK = ::srhep::kBK;
+  static constexpr bool kSeg = SEG, kSkipDead = true, kOverlap = true, kRescale = !NOMAX, kLse = !NOMAX, kRowSum = false;
+  static __device__ __forceinline__ int key(const void* kmask, size_t i) { return key_id<SEG>(kmask, i); }
+  static __device__ __forceinline__ bool query_valid(const void* qmask, size_t i) {
+    return ::srhep::query_valid<SEG>(qmask, i);
+  }
+  static __device__ __forceinline__ int query_id(const void* qmask, size_t i) { return ::srhep::query_id<SEG>(qmask, i); }
+  static __device__ __forceinline__ void tile(float (&s)[kBK / 2], const int* kid, int t, int qid0, int qid1, float& m0,
+                                              float& m1, float& l0, float& l1, float& al0, float& al1) {
+    tile_softmax<NOMAX>(s, kid, t, qid0, qid1, m0, m1, l0, l1, al0, al1);
+  }
+  static __device__ __forceinline__ void pack(const float (&s)[kBK / 2], uint32_t (&p)[kBK / 4]) { pack_p(s, p); }
+  static __device__ __forceinline__ size_t out_row(int b, int h, int r, int H, int Lq) {
+    return ((size_t)b * Lq + r) * H + h;
+  }
+};
+
 // q, k, v: tensor maps over (D, L, H, B) with box (D, 64, 1, 1); band (SEG):
 // (B, gridDim.x, 2) int32 = (first key tile, count) per query tile.
 template <int D, bool NOMAX, bool SEG, int NC>
@@ -207,242 +148,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
                        const __grid_constant__ CUtensorMap tv, const void* __restrict__ qmask,
                        const void* __restrict__ kmask, const int* __restrict__ band, bf16* __restrict__ out,
                        float* __restrict__ lse, int H, int Lq, int Lk) {
-  using T = FwdTiles<D>;
-  constexpr int BQ = 64 * NC, NS = fwd_stages<NC>();
-  extern __shared__ unsigned char smem_raw[];
-  // 1024-byte alignment: the period of the 128-byte swizzle, which TMA and wgmma both apply by address
-  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* Qs = reinterpret_cast<bf16*>(base);
-  bf16* Ks = Qs + NC * 64 * D;
-  bf16* Vs = Ks + NS * kBK * D;  // stage s: K at Ks + s * kBK * D, V at Vs + s * kBK * D
-  int* ids = reinterpret_cast<int*>(Vs + NS * kBK * D);  // [NS][kBK]
-  int* tile = ids + NS * kBK;                            // [NS], padded to 8
-  uint64_t* full = reinterpret_cast<uint64_t*>(tile + 8);
-  uint64_t* empty = full + NS;
-  uint64_t* qfull = empty + NS;
-
-  const int tid = threadIdx.x;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, q0 = qt * BQ;
-
-  bool row_valid = false;
-  if (tid < BQ) row_valid = q0 + tid < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + q0 + tid);
-  if (tid == 0) {
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&full[s], 32);           // the producer warp's lanes (lane 0 also brings the TMA bytes)
-      mbar_init(&empty[s], 128 * NC);    // every consumer thread
-    }
-    mbar_init(qfull, 1);
-    fence_mbar_init();
-  }
-  if (!__syncthreads_or(row_valid)) {  // block-uniform: nothing to attend from; no barrier is ever waited on
-    constexpr int V16 = D / 8;         // 16-byte pieces per row
-    for (int c = tid; c < BQ * V16; c += blockDim.x) {
-      const int r = q0 + c / V16;
-      if (r < Lq) *reinterpret_cast<uint4*>(out + (((size_t)b * Lq + r) * H + h) * D + 8 * (c % V16)) = make_uint4(0u, 0u, 0u, 0u);
-    }
-    if (lse != nullptr && tid < BQ && q0 + tid < Lq) lse[((size_t)b * H + h) * Lq + q0 + tid] = kNegInf;
-    return;
-  }
-
-  // warp-uniform as far as the compiler can see, so that the wgmma descriptors
-  // derived from it live in uniform registers
-  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
-  if (wg == NC) {
-    // ======================= producer warpgroup =======================
-    warpgroup_reg_dealloc<FwdRegs<NC>::kProducer>();
-    if (tid % 128 < 32) {
-      const int lane = tid & 31;
-      int kt_first = 0, kt_last = (Lk + kBK - 1) / kBK - 1;
-      if (SEG) {
-        const int2 bd = *reinterpret_cast<const int2*>(band + 2 * ((size_t)b * gridDim.x + qt));
-        kt_first = bd.x;
-        kt_last = bd.x + bd.y - 1;
-      }
-      if (lane == 0) {
-        mbar_arrive_expect_tx(qfull, NC * T::kTileBytes);
-#pragma unroll
-        for (int w = 0; w < NC; ++w) tma_load_4d(Qs + w * 64 * D, &tq, qfull, 0, q0 + 64 * w, h, b);
-      }
-      auto key = [&](int kpos) { return kpos < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + kpos) : kNoKey; };
-      // the ids of the next kLookahead tiles are in flight in registers: a
-      // tile's ids are needed (for the skip and the stage) only kLookahead
-      // tiles after their load was issued, so the loads' latency does not
-      // chain from tile to tile
-      constexpr int IPL = kBK / 32;  // ids per lane per tile
-      int qa[kLookahead][IPL];
-#pragma unroll
-      for (int i = 0; i < kLookahead; ++i)
-#pragma unroll
-        for (int c = 0; c < IPL; ++c) qa[i][c] = kt_first + i <= kt_last ? key((kt_first + i) * kBK + 32 * c + lane) : kNoKey;
-      int stage = 0;
-      unsigned phase = 0;
-      for (int kt = kt_first; kt <= kt_last; ++kt) {
-        int id[IPL];
-        bool live = false;
-#pragma unroll
-        for (int c = 0; c < IPL; ++c) {
-          id[c] = qa[0][c];
-          live = live || id[c] >= 0;
-        }
-#pragma unroll
-        for (int i = 0; i + 1 < kLookahead; ++i)
-#pragma unroll
-          for (int c = 0; c < IPL; ++c) qa[i][c] = qa[i + 1][c];
-        const int nk = kt + kLookahead;
-#pragma unroll
-        for (int c = 0; c < IPL; ++c) qa[kLookahead - 1][c] = nk <= kt_last ? key(nk * kBK + 32 * c + lane) : kNoKey;
-        if (!__any_sync(0xffffffffu, live)) continue;  // no live key in this tile
-        mbar_wait(&empty[stage], phase ^ 1);
-#pragma unroll
-        for (int c = 0; c < IPL; ++c) ids[stage * kBK + 32 * c + lane] = id[c];
-        if (lane == 0) {
-          tile[stage] = kt;
-          mbar_arrive_expect_tx(&full[stage], 2 * T::kTileBytes);
-          tma_load_4d(Ks + stage * kBK * D, &tk, &full[stage], 0, kt * kBK, h, b);
-          tma_load_4d(Vs + stage * kBK * D, &tv, &full[stage], 0, kt * kBK, h, b);
-        } else {
-          mbar_arrive(&full[stage]);
-        }
-        if (++stage == NS) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      mbar_wait(&empty[stage], phase ^ 1);  // the end of the sequence
-      if (lane == 0) tile[stage] = -1;
-      mbar_arrive(&full[stage]);
-    }
-  } else {
-    // ======================= consumer warpgroups =======================
-    warpgroup_reg_alloc<FwdRegs<NC>::kConsumer>();
-    const int warp = (tid % 128) >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
-    const bool val0 = r0 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r0);
-    const bool val1 = r1 < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r1);
-    const int qid0 = r0 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r0) : kPadSeg;
-    const int qid1 = r1 < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r1) : kPadSeg;
-
-    float o[D / 2], s[kBK / 2];
-    uint32_t p[kBK / 4];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0, r1 (robust only)
-    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-    float al0, al1;
-    const uint32_t qs = smem_u32(Qs + wg * 64 * D), ks0 = smem_u32(Ks), vs0 = smem_u32(Vs);
-
-    // Turns of the consumer warpgroups: each issues its products in turn
-    // (named barrier 1 + w: "warpgroup w may issue", passed on by the
-    // previous one after its own issue), so that one warpgroup's softmax runs
-    // while another's products hold the tensor cores, instead of all
-    // contending for the tensor cores and then all for the exponential units.
-    // Every warpgroup has the same number of turns (the producer's
-    // sequence), and warpgroup 0 takes one more at the end to match the
-    // first pass that warpgroup NC - 1 gives it.
-    constexpr bool kPingPong = NC > 1;
-    auto my_turn = [&]() {
-      if (kPingPong) named_bar_sync(1 + wg, 256);
-    };
-    auto pass_turn = [&]() {
-      if (kPingPong) named_bar_arrive(1 + (wg + 1 == NC ? 0 : wg + 1), 256);
-    };
-    if (kPingPong && wg == NC - 1) named_bar_arrive(1, 256);
-
-    mbar_wait(qfull, 0);
-    int stage = 0;
-    unsigned phase = 0;
-    mbar_wait(&full[0], 0);
-    if (tile[0] >= 0) {
-      StepDescs<D> dsc;
-      // S of the first tile and its softmax
-      make_descs<D>(dsc, qs, ks0, vs0);
-      my_turn();
-      wgmma_fence();
-      issue_qk<D>(s, dsc);
-      wgmma_commit();
-      pass_turn();
-      wgmma_wait<0>();
-      fence_operand(s);
-      tile_softmax<NOMAX>(s, ids, t, qid0, qid1, m0, m1, l0, l1, al0, al1);
-      pack_p(s, p);
-      // every further tile: S_{j+1} issued before P_j V_j, the softmax of
-      // j+1 while P_j V_j runs.  The loop body holds no branch between an
-      // issue and its wait, so that ptxas can keep the products in flight.
-      while (true) {
-        const int ns = stage + 1 == NS ? 0 : stage + 1;
-        const unsigned nph = ns == 0 ? phase ^ 1 : phase;
-        mbar_wait(&full[ns], nph);
-        if (tile[ns] < 0) break;
-        StepDescs<D> dq;  // K of the next tile, V of this one
-        make_descs<D>(dq, qs, ks0 + ns * kBK * T::kRowBytes, vs0 + stage * kBK * T::kRowBytes);
-        fence_operand(s);
-        fence_operand(o);
-        fence_operand(p);
-        my_turn();
-        wgmma_fence();
-        issue_qk<D>(s, dq);
-        wgmma_commit();
-        issue_pv<D>(o, p, dq);
-        wgmma_commit();
-        pass_turn();
-        wgmma_wait<1>();
-        fence_operand(s);
-        tile_softmax<NOMAX>(s, ids + ns * kBK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);
-        wgmma_wait<0>();
-        fence_operand(o);
-        fence_operand(p);
-        // robust: rescale only where a row's max moved (al = 1 exactly elsewhere)
-        if (!NOMAX && !__all_sync(0xffffffffu, al0 == 1.f && al1 == 1.f)) {
-#pragma unroll
-          for (int i = 0; i < D / 2; i += 4) {
-            o[i] *= al0;
-            o[i + 1] *= al0;
-            o[i + 2] *= al1;
-            o[i + 3] *= al1;
-          }
-        }
-        mbar_arrive(&empty[stage]);
-        pack_p(s, p);
-        stage = ns;
-        phase = nph;
-      }
-      // the last tile's P V
-      make_descs<D>(dsc, qs, ks0, vs0 + stage * kBK * T::kRowBytes);
-      fence_operand(o);
-      fence_operand(p);
-      my_turn();
-      wgmma_fence();
-      issue_pv<D>(o, p, dsc);
-      wgmma_commit();
-      pass_turn();
-      wgmma_wait<0>();
-      fence_operand(o);
-    }
-    if (kPingPong && wg == 0) named_bar_sync(1, 256);
-
-    // row sums across the 4 threads that share a row
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    const float f0 = val0 ? 1.f : 0.f, f1 = val1 ? 1.f : 0.f;
-    bf16* o0p = out + (((size_t)b * Lq + r0) * H + h) * D;
-    bf16* o1p = out + (((size_t)b * Lq + r1) * H + h) * D;
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      if (r0 < Lq)
-        *reinterpret_cast<__nv_bfloat162*>(o0p + 8 * jd + 2 * t) =
-            __floats2bfloat162_rn(o[4 * jd] / d0 * f0, o[4 * jd + 1] / d0 * f0);
-      if (r1 < Lq)
-        *reinterpret_cast<__nv_bfloat162*>(o1p + 8 * jd + 2 * t) =
-            __floats2bfloat162_rn(o[4 * jd + 2] / d1 * f1, o[4 * jd + 3] / d1 * f1);
-    }
-    if (!NOMAX && lse != nullptr && t == 0) {
-      if (r0 < Lq) lse[((size_t)b * H + h) * Lq + r0] = m0 + log2f(d0);
-      if (r1 < Lq) lse[((size_t)b * H + h) * Lq + r1] = m1 + log2f(d1);
-    }
-  }
+  fwd_wgmma_body<D, NC, FwdSoftmax<NOMAX, SEG>>(tq, tk, tv, qmask, kmask, band, out, lse, H, Lq, Lk);
 }
 
 // The band of every (row, BQ-query tile) of a segment-packed batch over BK-key

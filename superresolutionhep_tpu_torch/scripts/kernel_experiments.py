@@ -10,8 +10,9 @@ one JSON line per measurement, each with the card's name and power limit:
     (two einsums and a softmax) at (B, L, H, D) = (8, 2048, 8, 64): the
     yardsticks (``tfs`` in TFLOP/s);
   * ``variant`` lines: the attention-probe kernel (ops/attention_probes.py,
-    K10) in its four modes at (8, 8, 2048, 64), then ``full`` at the other
-    tile shapes (query rows x keys in {64, 128}^2).
+    K10) in its four modes at (8, 8, 2048, 64) on the default tile (the
+    shipped forward's: 192 query rows x 64 keys at that shape), then
+    ``full`` at the other tile shapes of ``TILES``.
 Times are CUDA-event times over a CUDA graph of chained launches.  A
 configuration that cannot launch prints ``skipped`` with the launcher's
 error and the sweep goes on; it never turns into a plain-version result.
@@ -24,7 +25,8 @@ import json
 
 import torch
 
-from ..ops.attention_probes import MODES, attention_variant
+from ..ops.attention_probes import MODES, TILES, attention_variant
+from ..ops.flash_attention import fwd_tile_rows, sm_count
 from .common import card, graph_ms, require_cuda
 
 
@@ -57,7 +59,8 @@ def mm_peak(dev, smi, reps=20):
     emit({"probe": "dense_attn_8_2048", "ms": round(ms, 3), "tfs": round(4 * B * H * Lq * Lq * D / ms / 1e9, 1)}, smi)
 
 
-def run_variant(mode, dev, smi, B=8, L=2048, H=8, D=64, BQ=64, BK=64, reps=20, seed=0):
+def run_variant(mode, dev, smi, B=8, L=2048, H=8, D=64, BQ=None, BK=64, reps=20, seed=0):
+    BQ = BQ or fwd_tile_rows(B, H, L, sm_count(dev))
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, L, D), generator=g, device=dev).to(torch.bfloat16)
     ms = graph_ms(lambda: attention_variant(q, q, q, mode, block_q=BQ, block_k=BK), reps)
@@ -80,8 +83,10 @@ def sweep(device="cuda", reps=20):
     _safe(smi, mm_peak, dev, smi, reps=reps)
     for mode in MODES:
         _safe(smi, run_variant, mode, dev, smi, reps=reps)
-    for bq, bk in ((64, 128), (128, 64), (128, 128)):
-        _safe(smi, run_variant, "full", dev, smi, BQ=bq, BK=bk, reps=reps)
+    default = (fwd_tile_rows(8, 8, 2048, sm_count(dev)), 64)
+    for bq, bk in TILES:
+        if (bq, bk) != default:
+            _safe(smi, run_variant, "full", dev, smi, BQ=bq, BK=bk, reps=reps)
 
 
 def main(argv=None):

@@ -20,7 +20,7 @@ import json
 
 import torch
 
-from ..ops.attention_probes import attention_exp_probe
+from ..ops.attention_probes import TILES, attention_exp_probe
 from .common import card, graph_ms, require_cuda
 
 REPS = 50  # launches chained in one captured graph, as the JAX script's lax.scan
@@ -48,13 +48,16 @@ def bench(B, L, H, D, BQ, BK, exp_bf16, dev, smi, seed=0):
 
 
 def sweep(device="cuda"):
+    """Both exp dtypes at (8, 2048) and fp32 exp at the 3584 bucket, each on
+    every tile of ``TILES`` (the default, the shipped forward's, is 192 x 64
+    at both shapes): 9 configurations."""
     dev = require_cuda(device)
     smi = card()
     for exp_bf16 in (True, False):
-        for bq, bk in ((64, 64), (64, 128), (128, 128)):
+        for bq, bk in TILES:
             bench(8, 2048, 8, 64, bq, bk, exp_bf16, dev, smi)
-    # the 3584 bucket (a multiple of 128 but not of 256 or 512)
-    for bq, bk in ((64, 64), (128, 64), (64, 128), (128, 128)):
+    # the 3584 bucket (a multiple of 128 but not of 256 or 512, nor of 192)
+    for bq, bk in TILES:
         bench(4, 3584, 8, 64, bq, bk, False, dev, smi)
 
 

@@ -12,7 +12,8 @@
 # sources are overlaid on a copy of this package in a temporary directory.
 # The repository is not touched.  Each run is chip_smoke.py --skip-serve
 # (kernel cases, probes and the train phases; exit 1 by design).  Prints, per
-# run, one line per timed kernel case (kernel, dtype, L, time in ms) and the
+# run, one line per timed kernel case (kernel, dtype, L, the probes' mode or
+# exp dtype, mask and tile, time in ms, the library call's ms) and the
 # torch.profiler readings of the train steps: device ms per step, busy share,
 # and the share of the device time in the flash backward kernels; with an
 # output directory, each run's full output is kept there as compare_<run>.txt.
@@ -40,8 +41,11 @@ for line in open(sys.argv[1]):
         continue
     c = json.loads(line)
     if c.get("phase") == "kernel_case" and "ms" in c:
-        print("  %-16s %-5s L=%-5s D=%-3s per_cell=%-5s ms=%.4f err=%.3g ok=%s" % (
-            c["kernel"], c["dtype"], c["L"], c.get("D", "-"), c.get("per_cell", "-"), c["ms"], c["max_abs_err"], c["ok"]))
+        variant = c.get("mode", c.get("exp_bf16", "-"))  # the probes' mode or exp dtype, mask and tile
+        lib = c.get("library_ms")
+        print("  %-16s %-5s L=%-5s D=%-3s per_cell=%-5s probe=%s/%s/%s ms=%.4f lib=%s err=%.3g ok=%s" % (
+            c["kernel"], c["dtype"], c["L"], c.get("D", "-"), c.get("per_cell", "-"), variant, c.get("mask", "-"),
+            c.get("blocks", "-"), c["ms"], "-" if lib is None else "%.4f" % lib, c["max_abs_err"], c["ok"]))
     if c.get("phase") in ("train", "packed_train", "pf_train"):
         steps = c.get("train_step_ms")
         for st in steps if isinstance(steps, list) else [steps]:

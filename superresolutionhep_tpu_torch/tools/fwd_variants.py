@@ -1,6 +1,8 @@
-"""Build variants of the bf16 flash-attention forward (``csrc/flash_attention.cu``)
-or backward (``csrc/flash_attention_bwd.cu``) with one construct changed, by
-string edits in a temporary directory (the repository is not touched), as
+"""Build variants of the bf16 attention forward body (``csrc/flash_fwd.cuh``
+with ``csrc/flash_attention.cu`` and ``csrc/attention_probes.cu``, which use
+it) or of the backward (``csrc/flash_attention_bwd.cu``) with one construct
+changed, by string edits in a temporary directory (the repository is not
+touched; an edit goes to whichever of the sources holds its text), as
 libraries of their own, all at once, and time the wrappers with each at
 ``chip_smoke.py``'s shapes.
 
@@ -10,8 +12,10 @@ libraries of their own, all at once, and time the wrappers with each at
 Run from the repository root on a machine with the card and nvcc.  Prints one
 JSON line per variant: the ptxas serialisation warnings (C751x) and whether
 anything spilled; forward: the device time (ms) of K1/K2 at (10, 2048, 4, 64)
-with ragged masks and of K7 robust / no-max at the (8, 5120) packed batch, K7
-no-max's error against its plain version, and for ``clocks`` the consumer
+with ragged masks, of K7 robust / no-max at the (8, 5120) packed batch and of
+the probes on the body (K10 ``full``, K11 bf16 exp with the all-ones mask)
+at (8, 8, 2048, 64) on their default tile and on 64-row tiles, K7 no-max's
+and the probes' errors against their plain versions, and for ``clocks`` the consumer
 warpgroups' cycles per 64-row tile by stage of the loop (from clock64
 counters, which themselves slow the kernel by about a third); backward: the
 device time of K5/K6 at (10, 2048, 4, 64) with ragged masks and of K8/K9 at
@@ -36,6 +40,11 @@ def _tick(i):
     return f"if (lane == 0 && warp == 0) dbg[{i}] += clock64() - _t0;"
 
 
+# the probes' softmax (csrc/attention_probes.cu): mode full's s - m, and the bf16 modes' P
+_PROBE_SUB = ("      } else {  // kFull: s - m, exponentiated in pack\n        s[4 * j] -= mn0;\n        s[4 * j + 1] -= mn0;\n"
+              "        s[4 * j + 2] -= mn1;\n        s[4 * j + 3] -= mn1;\n      }")
+_PROBE_PACK = "p[i] = ex2_bf16x2(pack_bf16(s[2 * i], s[2 * i + 1]));"
+
 # the loop stages the clock counters read, by slot of the debug array
 CLOCK_SLOTS = {0: "q_wait", 1: "full_wait", 2: "turn_wait", 8: "issue", 3: "s_wait", 4: "softmax", 5: "pv_wait",
                9: "iteration"}
@@ -43,35 +52,68 @@ CLOCK_SLOTS = {0: "q_wait", 1: "full_wait", 2: "turn_wait", 8: "issue", 3: "s_wa
 VARIANTS = {
     "base": [],
     "turn_after_softmax": [(
-        "        pass_turn();\n        wgmma_wait<1>();\n        fence_operand(s);\n"
-        "        tile_softmax<NOMAX>(s, ids + ns * kBK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);\n",
-        "        wgmma_wait<1>();\n        fence_operand(s);\n"
-        "        tile_softmax<NOMAX>(s, ids + ns * kBK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);\n"
-        "        pass_turn();\n")],
+        "          pass_turn();\n          wgmma_wait<1>();\n          fence_operand(s);\n"
+        "          Soft::tile(s, ids + ns * BK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);\n",
+        "          wgmma_wait<1>();\n          fence_operand(s);\n"
+        "          Soft::tile(s, ids + ns * BK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);\n"
+        "          pass_turn();\n")],
     "no_turns": [("constexpr bool kPingPong = NC > 1;", "constexpr bool kPingPong = false;")],
+    # the probes (modes full and K11 bf16 are timed; no_max is left broken):
+    # the bf16 exponentials under the products (in the softmax, their words
+    # kept in s and copied into P) instead of after the wait; or only the
+    # rounding of s - m to bf16 pairs there; the row max as a chain
+    "probe_exp_in_softmax": [
+        (_PROBE_SUB, "      } else {\n"
+         "        s[2 * j] = __uint_as_float(ex2_bf16x2(pack_bf16(s[4 * j] - mn0, s[4 * j + 1] - mn0)));\n"
+         "        s[2 * j + 1] = __uint_as_float(ex2_bf16x2(pack_bf16(s[4 * j + 2] - mn1, s[4 * j + 3] - mn1)));\n      }"),
+        (_PROBE_PACK, "p[i] = __float_as_uint(s[i]);")],
+    "probe_cvt_in_softmax": [
+        (_PROBE_SUB, "      } else {\n"
+         "        s[2 * j] = __uint_as_float(pack_bf16(s[4 * j] - mn0, s[4 * j + 1] - mn0));\n"
+         "        s[2 * j + 1] = __uint_as_float(pack_bf16(s[4 * j + 2] - mn1, s[4 * j + 3] - mn1));\n      }"),
+        (_PROBE_PACK, "p[i] = ex2_bf16x2(__float_as_uint(s[i]));")],
+    "probe_chain_max": [("    constexpr int NP = BK == 64 ? 8 : 2;", "    constexpr int NP = 1;")],
+    # the bf16 modes' row sums on the CUDA cores (each p unpacked and added
+    # after the exponential) instead of by the tensor cores beside P V
+    "probe_rowsum_on_cuda_cores": [
+        ("Soft::pack(s, p);", "Soft::pack(s, p, l0, l1);"),
+        ("static __device__ __forceinline__ void pack(const float (&s)[kBK / 2], uint32_t (&p)[kBK / 4]) {",
+         "static __device__ __forceinline__ void pack(const float (&s)[kBK / 2], uint32_t (&p)[kBK / 4], float&, float&) {"),
+        ("kRowSum = MODE == kNoMax || MODE == kFull;", "kRowSum = false;"),
+        ("    if (MODE == kFp32Exp) {\n      l0 = l0 * al0 + ps0;\n      l1 = l1 * al1 + ps1;\n    }",
+         "    if (MODE == kFp32Exp) {\n      l0 = l0 * al0 + ps0;\n      l1 = l1 * al1 + ps1;\n    } else {\n"
+         "      l0 *= al0;\n      l1 *= al1;\n    }"),
+        ("  static __device__ __forceinline__ void pack(const float (&s)[BK / 2], uint32_t (&p)[BK / 4]) {",
+         "  static __device__ __forceinline__ void pack(const float (&s)[BK / 2], uint32_t (&p)[BK / 4], float& l0,\n"
+         "                                              float& l1) {"),
+        ("      for (int i = 0; i < BK / 4; ++i) p[i] = ex2_bf16x2(pack_bf16(s[2 * i], s[2 * i + 1]));",
+         "      for (int i = 0; i < BK / 4; ++i) {\n        p[i] = ex2_bf16x2(pack_bf16(s[2 * i], s[2 * i + 1]));\n"
+         "        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p[i]));\n"
+         "        if (i & 1) l1 += f.x + f.y;\n        else l0 += f.x + f.y;\n      }")],
     "stages_3": [("{ return NC == 1 ? 3 : 5; }", "{ return 3; }")],
     "lookahead_1": [("constexpr int kLookahead = 4;", "constexpr int kLookahead = 1;")],
     "clocks": [
-        ("namespace srhep {\n\nconstexpr float kClipLo",
-         "__device__ unsigned long long srhep_clocks[16];\nnamespace srhep {\n\nconstexpr float kClipLo"),
+        ('#include "common.cuh"\n\nnamespace srhep {\n',
+         '#include "common.cuh"\n\nstatic __device__ unsigned long long srhep_clocks[16];\nnamespace srhep {\n'),
         ("    mbar_wait(qfull, 0);\n    int stage = 0;",
          "    long long dbg[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n    const long long _tb = clock64();\n"
          "    { " + _T0 + " mbar_wait(qfull, 0); " + _tick(0) + " }\n    int stage = 0;"),
-        ("        mbar_wait(&full[ns], nph);\n        if (tile[ns] < 0) break;",
-         "        { " + _T0 + " mbar_wait(&full[ns], nph); " + _tick(1) + " }\n        if (tile[ns] < 0) break;\n"
-         "        dbg[7] += 1;\n        const long long _ti = clock64();"),
-        ("        my_turn();\n        wgmma_fence();\n        issue_qk<D>(s, dq);",
-         "        { " + _T0 + " my_turn(); " + _tick(2) + " }\n        const long long _tis = clock64();\n"
-         "        wgmma_fence();\n        issue_qk<D>(s, dq);"),
-        ("        pass_turn();\n        wgmma_wait<1>();\n        fence_operand(s);\n"
-         "        tile_softmax<NOMAX>(s, ids + ns * kBK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);\n"
-         "        wgmma_wait<0>();",
-         "        pass_turn();\n        if (lane == 0 && warp == 0) dbg[8] += clock64() - _tis;\n"
-         "        { " + _T0 + " wgmma_wait<1>(); " + _tick(3) + " }\n        fence_operand(s);\n"
-         "        { " + _T0 + " tile_softmax<NOMAX>(s, ids + ns * kBK, t, qid0, qid1, m0, m1, l0, l1, al0, al1); "
-         + _tick(4) + " }\n        { " + _T0 + " wgmma_wait<0>(); " + _tick(5) + " }"),
-        ("        pack_p(s, p);\n        stage = ns;",
-         "        pack_p(s, p);\n        if (lane == 0 && warp == 0) dbg[9] += clock64() - _ti;\n        stage = ns;"),
+        ("          mbar_wait(&full[ns], nph);\n          if (tile[ns] < 0) break;",
+         "          { " + _T0 + " mbar_wait(&full[ns], nph); " + _tick(1) + " }\n          if (tile[ns] < 0) break;\n"
+         "          dbg[7] += 1;\n          const long long _ti = clock64();"),
+        ("          my_turn();\n          wgmma_fence();\n          issue_qk<D, BK>(s, dq);",
+         "          { " + _T0 + " my_turn(); " + _tick(2) + " }\n          const long long _tis = clock64();\n"
+         "          wgmma_fence();\n          issue_qk<D, BK>(s, dq);"),
+        ("          pass_turn();\n          wgmma_wait<1>();\n          fence_operand(s);\n"
+         "          Soft::tile(s, ids + ns * BK, t, qid0, qid1, m0, m1, l0, l1, al0, al1);\n"
+         "          wgmma_wait<0>();",
+         "          pass_turn();\n          if (lane == 0 && warp == 0) dbg[8] += clock64() - _tis;\n"
+         "          { " + _T0 + " wgmma_wait<1>(); " + _tick(3) + " }\n          fence_operand(s);\n"
+         "          { " + _T0 + " Soft::tile(s, ids + ns * BK, t, qid0, qid1, m0, m1, l0, l1, al0, al1); "
+         + _tick(4) + " }\n          { " + _T0 + " wgmma_wait<0>(); " + _tick(5) + " }"),
+        ("          Soft::pack(s, p);\n          stage = ns;",
+         "          Soft::pack(s, p);\n          if (lane == 0 && warp == 0) dbg[9] += clock64() - _ti;\n"
+         "          stage = ns;"),
         ("    if (kPingPong && wg == 0) named_bar_sync(1, 256);\n",
          "    if (kPingPong && wg == 0) named_bar_sync(1, 256);\n    if (lane == 0 && warp == 0) {\n"
          "      dbg[6] = clock64() - _tb;\n"
@@ -83,6 +125,12 @@ VARIANTS = {
          "  unsigned long long z[16] = {0};\n"
          "  return (int)cudaMemcpyToSymbol(srhep_clocks, z, sizeof(z));\n}\n"
          'extern "C" int srhep_packed_band('),
+        ('extern "C" int srhep_probe_variant(',  # the probes' counters live in their own source's copy
+         'extern "C" int srhep_read_probe_clocks(void* host) {\n'
+         "  cudaMemcpyFromSymbol(host, srhep_clocks, sizeof(srhep_clocks));\n"
+         "  unsigned long long z[16] = {0};\n"
+         "  return (int)cudaMemcpyToSymbol(srhep_clocks, z, sizeof(z));\n}\n"
+         'extern "C" int srhep_probe_variant('),
     ],
 }
 
@@ -105,24 +153,29 @@ BWD_VARIANTS = {
 }
 
 
-def _build(src_name, variants, names, kernels, extra_sources=()):
-    """Start one nvcc per variant of csrc/<src_name> (with extra_sources, as
-    they are, in the same library); returns {name: (process, directory)}."""
-    src = (kernels.CSRC / src_name).read_text()
+def _build(files, compiled, variants, names, kernels, extra_sources=()):
+    """Start one nvcc per variant: the edits go into the csrc/ ``files`` that
+    hold their text, the variant's copies of ``files`` are written to a
+    directory of its own (so that a .cu there includes the edited header),
+    and its ``compiled`` sources, with ``extra_sources`` as they are, make one
+    library; returns {name: (process, directory)}."""
+    srcs = {f: (kernels.CSRC / f).read_text() for f in files}
     work = tempfile.mkdtemp(prefix="srhep_variants_")
     procs = {}
     for name in names:
-        text = src
+        texts = dict(srcs)
         for old, new in variants[name]:
-            if old not in text:
-                raise SystemExit(f"fwd_variants: {name}: the source no longer holds {old[:60]!r}")
-            text = text.replace(old, new)
+            holder = next((f for f, t in texts.items() if old in t), None)
+            if holder is None:
+                raise SystemExit(f"fwd_variants: {name}: no source holds {old[:60]!r}")
+            texts[holder] = texts[holder].replace(old, new)
         d = os.path.join(work, name)
         os.makedirs(d)
-        with open(os.path.join(d, src_name), "w") as f:
-            f.write(text)
+        for f, text in texts.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
         cmd = ["/usr/local/cuda/bin/nvcc", *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(kernels.CSRC),
-               os.path.join(d, src_name), *(str(kernels.CSRC / x) for x in extra_sources),
+               *(os.path.join(d, c) for c in compiled), *(str(kernels.CSRC / x) for x in extra_sources),
                "-o", os.path.join(d, "lib.so")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     return procs
@@ -160,7 +213,8 @@ def main_bwd(names):
     from superresolutionhep_tpu_torch.scripts.common import graph_ms
 
     names = names or list(BWD_VARIANTS)
-    procs = _build("flash_attention_bwd.cu", BWD_VARIANTS, names, kernels, extra_sources=("flash_attention.cu",))
+    procs = _build(("flash_attention_bwd.cu",), ("flash_attention_bwd.cu",), BWD_VARIANTS, names, kernels,
+                   extra_sources=("flash_attention.cu",))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     H, D = 4, 64
@@ -229,12 +283,14 @@ def main():
         return main_bwd(sys.argv[2:])
 
     import chip_smoke as cs
+    from superresolutionhep_tpu_torch.ops import attention_probes as ap
     from superresolutionhep_tpu_torch.ops import flash_attention as fa
     from superresolutionhep_tpu_torch.ops import flash_packed as fp
     from superresolutionhep_tpu_torch.ops import kernels
     from superresolutionhep_tpu_torch.scripts.common import graph_ms
 
-    procs = _build("flash_attention.cu", VARIANTS, sys.argv[1:] or list(VARIANTS), kernels)
+    fwd_sources = ("flash_attention.cu", "attention_probes.cu")
+    procs = _build(("flash_fwd.cuh", *fwd_sources), fwd_sources, VARIANTS, sys.argv[1:] or list(VARIANTS), kernels)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -253,29 +309,42 @@ def main():
     q7, k7, v7 = qkv7[:, :, 0], qkv7[:, :, 1], qkv7[:, :, 2]
     ref7 = fp._ref_packed_fwd(*(t.permute(0, 2, 1, 3) for t in (q7, k7, v7)), seg, "nomax_clip")
     ref7 = ref7.permute(0, 2, 1, 3).float()
+    qp = (torch.randn((8, 8, 2048, 64), generator=g, device=dev) * 0.9).to(torch.bfloat16)  # the probes' timed input
+    kp = torch.ones((8, 2048), device=dev)
+    refs = {"k7_nomax": ref7, "k10": ap._ref_variant(qp, qp, qp, "full").float(),
+            "k11": ap._ref_exp_probe(qp, qp, qp, kp, True).float()}
     calls = {
         "k1": lambda: fa._flash_fwd_cuda(q1, k1, v1, m, m, nomax=False, with_lse=True),
         "k2": lambda: fa._flash_fwd_cuda(q1, k1, v1, m, m, nomax=True, with_lse=False),
         "k7": lambda: fp._packed_fwd(q7, k7, v7, seg, nomax=False, with_lse=True),
         "k7_nomax": lambda: fp._packed_fwd(q7, k7, v7, seg, nomax=True, with_lse=False),
+        "k10": lambda: ap.attention_variant(qp, qp, qp, "full"),
+        "k11": lambda: ap.attention_exp_probe(qp, qp, qp, kp, True),
+        "k10_rows64": lambda: ap.attention_variant(qp, qp, qp, "full", block_q=64),
+        "k11_rows64": lambda: ap.attention_exp_probe(qp, qp, qp, kp, True, block_q=64),
     }
     for name, (p, d) in procs.items():
         line = _build_line(name, p)
         if not line["built"]:
             continue
-        lib = _load(os.path.join(d, "lib.so"), kernels, ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_packed_band"))
+        lib = _load(os.path.join(d, "lib.so"), kernels, ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_packed_band",
+                                                         "srhep_probe_variant", "srhep_probe_exp_dtype"))
         line["ms"] = {k: graph_ms(fn, 20, chain=8) for k, fn in calls.items()}
-        out = calls["k7_nomax"]()[0]
-        line["k7_nomax_max_rel_err"] = ((out.float() - ref7).abs().max() / ref7.abs().max()).item()
+        line["max_rel_err"] = {}
+        for k, ref in refs.items():
+            out = calls[k]()
+            out = out[0] if isinstance(out, tuple) else out
+            line["max_rel_err"][k] = ((out.float() - ref).abs().max() / ref.abs().max()).item()
         if hasattr(lib, "srhep_read_clocks"):
             buf = (ctypes.c_ulonglong * 16)()
             torch.cuda.synchronize()
             lib.srhep_read_clocks(buf)
+            lib.srhep_read_probe_clocks(buf)
             line["cycles_per_tile"] = {}
             for k, fn in calls.items():
                 fn()
                 torch.cuda.synchronize()
-                lib.srhep_read_clocks(buf)
+                (lib.srhep_read_probe_clocks if k.startswith(("k10", "k11")) else lib.srhep_read_clocks)(buf)
                 tiles = max(buf[7], 1)
                 line["cycles_per_tile"][k] = {**{s: buf[i] / tiles for i, s in CLOCK_SLOTS.items()},
                                               "whole_loop": buf[6] / tiles, "tiles": buf[7]}

@@ -41,12 +41,13 @@ run bwd_dq_band_drops_last_tile 's/kt_last = bd.x + bd.y - 1;/kt_last = bd.x + b
 run bwd_dkv_band_drops_last_tile 's/qt_last = bd.x + bd.y - 1;/qt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run bwd_dv_takes_ds 's/issue_pb<D>(dva, pp, gm)/issue_pb<D>(dva, pd, gm)/g' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run packed_fwd_ignores_segments 's/= id\.\([xy]\) == qid\([01]\) ? s\[/= id.\1 >= 0 ? s[/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
-run fwd_band_drops_last_tile 's/kt_last = bd.x + bd.y - 1;/kt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
-run fwd_ring_reads_wrong_stage 's/make_descs<D>(dq, qs, ks0 + ns \* kBK/make_descs<D>(dq, qs, ks0 + (ns + 1) % NS * kBK/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run fwd_band_drops_last_tile 's/kt_last = bd.x + bd.y - 1;/kt_last = bd.x + bd.y - 2;/' superresolutionhep_tpu_torch/csrc/flash_fwd.cuh
+run fwd_ring_reads_wrong_stage 's/make_descs<D, BK>(dq, qs, ks0 + ns \* BK/make_descs<D, BK>(dq, qs, ks0 + (ns + 1) % NS * BK/' superresolutionhep_tpu_torch/csrc/flash_fwd.cuh
 run packed_dkv_drops_ln2 's/    dk = (dk.float() \* LN2).to(k.dtype)/    dk = dk.to(k.dtype)/' superresolutionhep_tpu_torch/ops/flash_packed.py
-run k11_ignores_key_mask 's/kbias\[i\] = (km\[(size_t)b \* L + k0 + i\] - 1.0f) \* kBig;/kbias[i] = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
-run k10_full_without_running_max 's/const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);/const float mn0 = 0.f, mn1 = 0.f;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
-run k10_full_exp_in_fp32 's/ex2_bf16x2(pack_bf16(s\[j\]\[\([02]\)\] - \(mn[01]\), s\[j\]\[\([13]\)\] - mn[01]))/pack_bf16(exp2f(s[j][\1] - \2), exp2f(s[j][\3] - \2))/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run probe_skips_dead_tile 's/kSeg = false, kSkipDead = false,/kSeg = false, kSkipDead = true,/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run probe_bf16_exp_in_fp32 's/p\[i\] = ex2_bf16x2(pack_bf16(s\[2 \* i\], s\[2 \* i + 1\]));/p[i] = pack_bf16(ex2(s[2 * i]), ex2(s[2 * i + 1]));/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run probe_max_spans_64_keys 's/fmaxf(s\[4 \* j\], s\[4 \* j + 1\]));$/fmaxf(s[4 * (j % 8)], s[4 * (j % 8) + 1]));/;s/fmaxf(s\[4 \* j + 2\], s\[4 \* j + 3\]));$/fmaxf(s[4 * (j % 8) + 2], s[4 * (j % 8) + 3]));/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
+run probe_drops_key_bias 's/return MASK ? __float_as_int((static_cast<const float\*>(kmask)\[i\] - 1.0f) \* kBig) : 0;/return 0;/' superresolutionhep_tpu_torch/csrc/attention_probes.cu
 run segment_rows_pad_to_row0 's/? s : e1 - 1);/? s : 0);/' superresolutionhep_tpu_torch/csrc/common.cuh
 run qkv_ring_reads_wrong_stage 's/const uint32_t slab = ring_s + stage \* kFusedSlabBytes;/const uint32_t slab = ring_s + (stage + 1) % kQkvStages * kFusedSlabBytes;/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
 run mlp_ring_reads_wrong_stage 's/    return ring_s + stage \* kFusedSlabBytes;/    return ring_s + (stage + 1) % kMlpStages * kFusedSlabBytes;/' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
