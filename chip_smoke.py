@@ -43,13 +43,17 @@ just after, that they really went through the kernels.  Weights are random
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
 ``ptxas`` (registers, spills and serialised wgmma of the bf16 forward,
-backward and fused kernels; any spill or serialisation fails the run),
+backward and fused kernels and of the fp32 attention kernels; any spill or
+serialisation fails the run, except the fp32 dq body's, which is reported),
 ``kernel_case`` lines (the bf16 backward also at head dims 16/32/64 and
-both tile heights, launched twice and equal bit for bit), the scripts' own
+both tile heights, launched twice and equal bit for bit; the fp32 attention
+kernels at head dims 16/32/64 and on a guard at base-2 logits of std ~8,
+where single-TF32 products would miss the fp32 bounds), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
 ``pf_inference``, ``pf_train``), then the card's name and power limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
-card, the plain version's, the bound, the launches on the main paths), then,
+card, the plain version's, the bound, the launches on the main paths; the
+attention entries also their fp32 cases under ``fp32``), then,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and
 prints no ``ok`` line.  Without a CUDA device it exits 2.
 
@@ -75,6 +79,9 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 outside them
+H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
+# the fp32 attention kernels take each product as three TF32 ones (lo*hi + hi*lo + hi*hi)
+TF32_SPLIT_TERMS = 3
 
 # tolerances against the plain version on the card, with their reasons
 TOL = {
@@ -186,6 +193,23 @@ def fwd_bounds(flops, nbytes, exps, peak):
     return {"bound_ms": max(t["operations"], t["bytes"], sfu) * 1e3,
             "bound_by": "operations" if max(t["operations"], sfu) >= t["bytes"] else "bytes",
             "operations_ms": t["operations"] * 1e3, "bytes_ms": t["bytes"] * 1e3, "sfu_bound_ms": sfu * 1e3}
+
+
+def fp32_attention_bounds(flops, nbytes, exps):
+    """The fp32 attention kernels' bound (K1/K2/K7 and K5/K6/K8/K9 on fp32
+    operands): the largest of the products as three-term TF32 splits on the
+    tensor cores (3 * flops / 495 TFLOP/s), the bytes over the memory rate,
+    and one fp32 exp2 per needed (query, key) pair on the special-function
+    units (the backward recomputes one a pair).  ``bound_term`` names the
+    term that sets it; ``fma_bound_ms`` is the CUDA-core yardstick of earlier
+    rows (the flops at 67 TFLOP/s, or the bytes)."""
+    t = {"tf32x3": TF32_SPLIT_TERMS * flops / H100_TF32_FLOPS, "bytes": nbytes / H100_BYTES_PER_S,
+         "sfu": exps / sfu_per_s()}
+    term = max(t, key=t.get)
+    return {"bound_ms": t[term] * 1e3, "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "operations_ms": t["tf32x3"] * 1e3, "bytes_ms": t["bytes"] * 1e3,
+            "sfu_bound_ms": t["sfu"] * 1e3,
+            "fma_bound_ms": max(flops / H100_FLOPS[torch.float32], t["bytes"]) * 1e3}
 
 
 def ragged_valid(B, L, device):
@@ -358,8 +382,7 @@ def kernel_cases(reps):
                 if dtype == torch.bfloat16:
                     case.update(fwd_bounds(flops, nbytes, H * sum(n * n for n in lens), peak))
                 else:
-                    case["bound_ms"] = max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3
-                    case["bound_by"] = "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"
+                    case.update(fp32_attention_bounds(flops, nbytes, H * sum(n * n for n in lens)))
                 case["ok"] = ok
                 cases.append(case)
                 emit({"phase": "kernel_case", **case})
@@ -393,7 +416,6 @@ def kernel_cases(reps):
         if L16 == 640:
             flops = 4.0 * 4 * 16 * sum(n * n for n in lens)
             nbytes = 4 * B16 * L16 * 4 * 16 * 4 + 2 * B16 * L16 * 4
-            peak = H100_FLOPS[dtype]
             # the kernel alone, on the pre-scaled q (the wrapper's scale
             # constant is a host-to-device copy, which a CUDA graph cannot hold)
             q16_pre, qm16 = q16 * (0.25 * fa.LOG2E), valid.float().contiguous()
@@ -405,8 +427,7 @@ def kernel_cases(reps):
                                     max(3, reps // 5)),
                 "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=valid[:, None, None, :], scale=0.25), reps),
-                "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
-                "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"})
+                **fp32_attention_bounds(flops, nbytes, 4 * sum(n * n for n in lens))})
         cases.append(case)
         emit({"phase": "kernel_case", **case})
 
@@ -571,8 +592,10 @@ def fwd_tile_cases(reps):
 def ptxas_report():
     """Registers and spills of every instantiation of the bf16 forward and
     backward kernels, of the probes (the forward body at their modes and
-    tiles) and of the bf16 fused kernels, and the functions whose wgmma
-    ptxas serialised (warnings C751x), from nvcc's -Xptxas -v log."""
+    tiles), of the bf16 fused kernels and of the fp32 attention kernels (the
+    forward and dk/dv on the tensor cores, dq on FMA loops), and the
+    functions whose wgmma ptxas serialised (warnings C751x), from nvcc's
+    -Xptxas -v log."""
     import re
 
     from superresolutionhep_tpu_torch.ops import kernels
@@ -591,6 +614,12 @@ def ptxas_report():
         "probe_fwd_wgmma_kernel": (r"probe_fwd_wgmma_kernelILi(\d)ELb([01])ELi(\d)ELi(\d+)E",
                                    lambda m: {"mode": int(m[0]), "mask": m[1] == "1", "block_q": 64 * int(m[2]),
                                               "block_k": int(m[3])}),
+        "flash_fwd_f32_kernel": (r"flash_fwd_f32_kernelILi(\d+)ELb([01])ELb([01])E",
+                                 lambda m: {"D": int(m[0]), "nomax": m[1] == "1", "seg": m[2] == "1"}),
+        "flash_bwd_dq_f32_kernel": (r"flash_bwd_dq_f32_kernelILi(\d+)ELb([01])E",
+                                    lambda m: {"D": int(m[0]), "seg": m[1] == "1"}),
+        "flash_bwd_dkv_f32_kernel": (r"flash_bwd_dkv_f32_kernelILi(\d+)ELb([01])E",
+                                     lambda m: {"D": int(m[0]), "seg": m[1] == "1"}),
     }
     rows = {k: [] for k in patterns}
     serialised = []
@@ -615,8 +644,11 @@ def ptxas_report():
                                    "spill_stores": spill[0], "spill_loads": spill[1],
                                    "serialised": [s["code"] for s in serialised if s["function"] == name]})
                 name = None
+    # K5/K8's fp32 body (FMA loops, not yet redesigned) spills a few bytes at
+    # some head dims: reported, not gated
+    gated = {k: rs for k, rs in rows.items() if k != "flash_bwd_dq_f32_kernel"}
     ok = (all(rows.values()) and all(r["spill_stores"] == 0 and r["spill_loads"] == 0 and not r["serialised"]
-                                     for rs in rows.values() for r in rs)
+                                     for rs in gated.values() for r in rs)
           and not any(re.search(r"wgmma_kernel", s["function"]) for s in serialised))
     return {**rows, "serialised_wgmma": serialised, "ok": ok}
 
@@ -705,11 +737,13 @@ def bwd_kernel_cases(reps):
                         "ms": time_ms(lambda: fn(*args), reps),
                         "plain_ms": time_ms(lambda: plain(*ref_args), max(3, reps // 5)),
                         "library_ms": library_ms, "library_covers": "dq+dk+dv",
-                        "library_fwd_bwd_ms": library_fwd_bwd_ms,
-                        "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
-                        "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"}
+                        "library_fwd_bwd_ms": library_fwd_bwd_ms}
                 if dtype == torch.bfloat16:  # one exp2 per live pair, as the forward's bound counts them
+                    case["bound_ms"] = max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3
+                    case["bound_by"] = "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"
                     case["sfu_bound_ms"] = H * pairs / sfu_per_s() * 1e3
+                else:
+                    case.update(fp32_attention_bounds(flops, nbytes, H * pairs))
                 case["ok"] = bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol and rows_ok
                 cases.append(case)
                 emit({"phase": "kernel_case", **case})
@@ -834,6 +868,135 @@ def bwd_tile_cases():
     if bad:
         fail(f"{len(bad)} backward tile case(s) disagree with the plain version or are not deterministic: "
              + "; ".join(f"{c['kernel']}/D={c['D']}/rows={c['block_rows']}/{c['case']}" for c in bad))
+    return cases
+
+
+def fp32_tile_cases():
+    """The fp32 attention kernels on the tensor cores (K1/K2 and K6, K7 and
+    K9 fp32, with K5/K8 fp32 beside them) at head dims 16, 32 and 64 against
+    the plain versions on the same CUDA tensors, from the forward kernel's
+    own LSE: masked with Lq != Lk (the backward's neither a multiple of 64,
+    keys ending inside tiles, fully padded key tiles), packed on
+    ``band_rows``; then the guard: base-2 logits of std ~8 (q and k of std
+    (8 / sqrt(D))^(1/2)), at which single TF32 products miss these bounds
+    (``tests/test_torch_port_fp32_split.py``), forward and dk/dv at D = 16
+    and 64.  Forward outputs are held absolutely to TOL["flash"] (the LSE to
+    TOL["lse"]), backward outputs to TOL["flash_bwd"] of each output's max;
+    padding exactly 0; dk/dv launched twice, equal bit for bit."""
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import flash_packed as fp
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    H, f32 = 4, torch.float32
+    tol, lse_tol, bwd_tol = TOL[("flash", f32)], TOL[("lse", f32)], TOL[("flash_bwd", f32)]
+    cases = []
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12)).item()
+
+    def zero_at(t, rows):  # (B, L, H, D) output, (B, L) bool
+        return float(t[rows].abs().max()) == 0.0 if rows.any() else True
+
+    def launch(name, fn, n=1):
+        before = kernels.LAUNCHES[name]
+        res = [fn() for _ in range(n)]
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[name] != before + n:
+            fail(f"{name}: the wrapper did not count its launch")
+        return res
+
+    def fwd(name, shape, out, lse, ref, ref_lse, pad, valid_q):
+        case = {"kernel": name, "dtype": "fp32", **shape, "max_abs_err": (out - ref).abs().max().item(), "tol": tol,
+                "max_rel_err": rel(out, ref), "padding_exactly_zero": zero_at(out, pad)}
+        ok = bool(torch.isfinite(out).all()) and case["max_abs_err"] <= tol and case["padding_exactly_zero"]
+        if lse is not None:
+            case["lse_max_abs_err"], case["lse_tol"] = (lse - ref_lse)[valid_q].abs().max().item(), lse_tol
+            ok = ok and case["lse_max_abs_err"] <= lse_tol
+        case["ok"] = ok
+        cases.append(case)
+        emit({"phase": "kernel_case", **case})
+
+    def bwd(name, shape, got, refs, pad, again=None):
+        errs = [rel(a, b) for a, b in zip(got, refs)]
+        case = {"kernel": name, "dtype": "fp32", **shape, "max_rel_err": max(errs), "tol_rel": bwd_tol,
+                "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, refs)),
+                "padding_exactly_zero": all(zero_at(t, pad) for t in got)}
+        ok = bool(all(torch.isfinite(t).all() for t in got)) and max(errs) <= bwd_tol and case["padding_exactly_zero"]
+        if again is not None:
+            case["deterministic"] = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = ok and case["deterministic"]
+        case["ok"] = ok
+        cases.append(case)
+        emit({"phase": "kernel_case", **case})
+
+    def masked(B, Lq, Lk, D, qlens, klens, logit_std, label):
+        qvalid = torch.arange(Lq, device=dev)[None, :] < torch.tensor(qlens, device=dev)[:, None]
+        kvalid = torch.arange(Lk, device=dev)[None, :] < torch.tensor(klens, device=dev)[:, None]
+        qm, km = qvalid.float().contiguous(), kvalid.float().contiguous()
+        sd = (logit_std / D ** 0.5) ** 0.5
+        qb = torch.randn(B, Lq, 2, H, D, generator=gen, device=dev) * sd  # q and g share a buffer: strided views
+        kv = torch.randn(B, Lk, 3, H, D, generator=gen, device=dev)
+        kv[:, :, 0] *= sd
+        q, k, v = qb[:, :, 1], kv[:, :, 0], kv[:, :, 2]
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        ref, ref_lse = fa._ref_attention_base2(qh, kh, vh, qm[:, None], km[:, None], "max", with_lse=True)
+        shape = {"case": label, "B": B, "H": H, "Lq": Lq, "L": Lk, "D": D}
+        (out, lse), = launch("flash_fwd", lambda: fa._flash_fwd_cuda(q, k, v, qm, km, nomax=False, with_lse=True))
+        vq = qvalid[:, None, :].expand(B, H, Lq)
+        fwd("flash_fwd", shape, out, lse, ref.permute(0, 2, 1, 3), ref_lse, ~qvalid, vq)
+        if label == "tiles":
+            nomax_ref = fa._ref_attention_base2(qh, kh, vh, qm[:, None], km[:, None], "nomax_clip")
+            (out_n, _), = launch("flash_fwd_nomax", lambda: fa._flash_fwd_cuda(q, k, v, qm, km, nomax=True,
+                                                                              with_lse=False))
+            fwd("flash_fwd_nomax", shape, out_n, None, nomax_ref.permute(0, 2, 1, 3), None, ~qvalid, vq)
+        g = (qb[:, :, 0] / sd) * qvalid[:, :, None, None]
+        dl = (out * g).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, g, lse, dl, qm, km)
+        ref_args = (*fa._heads_first(q, k, v, g), lse, dl, km[:, None])
+        ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fa._ref_flash_bwd_dkv(*ref_args))
+        got, again = launch("flash_bwd_dkv", lambda: fa._flash_bwd_dkv_cuda(*args), 2)
+        bwd("flash_bwd_dkv", shape, got, (ref_dk, ref_dv), ~kvalid, again)
+        if label == "tiles":
+            (dq,), = launch("flash_bwd_dq", lambda: (fa._flash_bwd_dq_cuda(*args),))
+            bwd("flash_bwd_dq", shape, (dq,), (fa._ref_flash_bwd_dq(*ref_args).permute(0, 2, 1, 3),), ~qvalid)
+
+    for D in (16, 32, 64):
+        masked(3, 602, 1000, D, [602, 589, 300], [1000, 517, 70], 2.9, "tiles")
+    for D in (16, 64):
+        masked(4, 640, 640, D, [640, 627, 321, 1], [640, 627, 321, 1], 8.0, "guard")
+
+    # ---- K7 / K9 (K8) on rows with bands of one tile, several and none
+    seg = torch.from_numpy(band_rows()).to(dev)
+    Bs, S = seg.shape
+    pad = seg < 0
+    for D in (16, 32, 64):
+        qkv = torch.randn(Bs, S, 3, H, D, generator=gen, device=dev)
+        qkv[:, :, 0] *= 2.0 / D ** 0.25
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        ref, ref_lse = fp._ref_packed_fwd(qh, kh, vh, seg, "max", with_lse=True)
+        shape = {"case": "band_rows", "B": Bs, "H": H, "L": S, "D": D}
+        (out, lse), = launch("packed_fwd", lambda: fp._packed_fwd_cuda(q, k, v, seg, nomax=False, with_lse=True))
+        fwd("packed_fwd", shape, out, lse, ref.permute(0, 2, 1, 3), ref_lse, pad, (~pad)[:, None, :].expand(Bs, H, S))
+        (out_n, _), = launch("packed_fwd_nomax", lambda: fp._packed_fwd_cuda(q, k, v, seg, nomax=True, with_lse=False))
+        fwd("packed_fwd_nomax", shape, out_n, None, fp._ref_packed_fwd(qh, kh, vh, seg, "nomax_clip").permute(0, 2, 1, 3),
+            None, pad, None)
+        g = torch.randn(Bs, S, H, D, generator=gen, device=dev) * (~pad)[:, :, None, None]
+        dl = (out * g).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, g, lse, dl, seg)
+        ref_args = (*fa._heads_first(q, k, v, g), lse, dl, seg)
+        ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fp._ref_packed_bwd_dkv(*ref_args))
+        got, again = launch("packed_bwd_dkv", lambda: fp._packed_bwd_dkv_cuda(*args), 2)
+        bwd("packed_bwd_dkv", shape, got, (ref_dk, ref_dv), pad, again)
+        (dq,), = launch("packed_bwd_dq", lambda: (fp._packed_bwd_dq_cuda(*args),))
+        bwd("packed_bwd_dq", shape, (dq,), (fp._ref_packed_bwd_dq(*ref_args).permute(0, 2, 1, 3),), pad)
+
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} fp32 tile or guard case(s) disagree with the plain version: "
+             + "; ".join(f"{c['kernel']}/D={c['D']}/{c['case']}" for c in bad))
     return cases
 
 
@@ -994,8 +1157,7 @@ def packed_kernel_cases(reps):
                 if dtype == torch.bfloat16:
                     case.update(fwd_bounds(flops, nbytes_fwd, H * sq, peak))
                 else:
-                    case["bound_ms"] = max(flops / peak, nbytes_fwd / H100_BYTES_PER_S) * 1e3
-                    case["bound_by"] = "operations" if flops / peak >= nbytes_fwd / H100_BYTES_PER_S else "bytes"
+                    case.update(fp32_attention_bounds(flops, nbytes_fwd, H * sq))
             case["ok"] = ok
             out_cases.append(case)
             emit({"phase": "kernel_case", **case})
@@ -1018,7 +1180,7 @@ def packed_kernel_cases(reps):
         tol = TOL[("flash_bwd", dtype)]
         nbytes_in = 4 * B * S * H * D * isz + 2 * B * H * S * 4 + B * S * 4
         library_ms = None
-        if timed and dtype == torch.bfloat16:
+        if timed:
             qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (qh, kh, vh))
             gc = gh.contiguous()
             with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -1043,11 +1205,13 @@ def packed_kernel_cases(reps):
             if timed:
                 case.update({"ms": time_ms(lambda: fn(*args), reps),
                              "plain_ms": time_ms(lambda: plain(*ref_args), max(3, reps // 5)),
-                             "library_ms": library_ms, "library_covers": "dq+dk+dv",
-                             "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
-                             "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"})
+                             "library_ms": library_ms, "library_covers": "dq+dk+dv"})
                 if dtype == torch.bfloat16:
+                    case["bound_ms"] = max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3
+                    case["bound_by"] = "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes"
                     case["sfu_bound_ms"] = H * sq / sfu_per_s() * 1e3
+                else:
+                    case.update(fp32_attention_bounds(flops, nbytes, H * sq))
             case["ok"] = bool(all(torch.isfinite(t.float()).all() for t in got)) and max(errs) <= tol and zeros
             out_cases.append(case)
             emit({"phase": "kernel_case", **case})
@@ -2292,10 +2456,10 @@ def main():
         report = ptxas_report()
         emit({"phase": "ptxas", **report})
         if not report["ok"]:
-            fail("ptxas: a wgmma kernel spills, or ptxas serialised its wgmma instructions")
+            fail("ptxas: a wgmma or fp32 attention kernel spills, or ptxas serialised its wgmma instructions")
 
     cases = (kernel_cases(args.reps) + fwd_tile_cases(args.reps) + bwd_kernel_cases(args.reps)
-             + bwd_tile_cases() + packed_kernel_cases(args.reps) + probe_kernel_cases(args.reps))
+             + bwd_tile_cases() + fp32_tile_cases() + packed_kernel_cases(args.reps) + probe_kernel_cases(args.reps))
     zero = {k: 0 for k in kernels.LAUNCHES}
     by_phase = {"probes": probes_phase(args.reps),
                 "serve": serve_phase() if not args.skip_serve else zero,
@@ -2338,6 +2502,12 @@ def main():
             "shape": {k: c[k] for k in ("B", "H", "L", "D", "F", "O", "Fh") if k in c}, "dtype": c["dtype"],
             **({"sfu_bound_ms": c["sfu_bound_ms"]} if "sfu_bound_ms" in c else {}),
         })
+        fp32 = [c for c in cases if c["kernel"] == name and c.get("dtype") == "fp32" and "ms" in c
+                and (c.get("L"), c.get("D")) in ((640, 16), (2048, 64), (PACKED_S, 64))]
+        if fp32:  # the fp32 builds: PF's (32, 640, 4, 16), SR's (10, 2048, 4, 64), the packed (8, 5120, 4, 64)
+            entries[-1]["fp32"] = [{k: c.get(k) for k in (
+                "B", "H", "L", "D", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_term", "fma_bound_ms", "sfu_bound_ms")} for c in fp32]
         if name in ("fused_qkv", "fused_mlp"):  # the packed sampler's instance: per-segment rows at (80, 5120)
             c = next(c for c in cases if c["kernel"] == name and c["dtype"] == "bf16" and c["rows"] == "segment")
             entries[-1]["segment_rows"] = {k: c[k] for k in ("B", "L", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -43,10 +43,11 @@
 // producer carries (key mask or segment ids), dead key tiles skipped.
 // What holds it now (PERF.md): the softmax's instruction issue and the
 // special-function units, at 2.5-3.5x the operation bound.
-// The fp32 build (one thread per query row, FMA loops) exists to hold the
-// arithmetic tightly against the plain PyTorch version; it uses no tensor
-// cores and finds its packed band itself (common.cuh::segment_band).
+// The fp32 build (flash_fwd_f32_kernel, below: PF's default precision, SR's
+// "default" fp32) takes its products on the tensor cores as three-term TF32
+// splits (tf32_attention.cuh), fp32-faithful; its section says what holds it.
 #include "flash_fwd.cuh"
+#include "tf32_attention.cuh"
 
 namespace srhep {
 
@@ -216,147 +217,281 @@ __global__ void __launch_bounds__(kBandThreads) packed_band_kernel(const int* __
 }
 
 // ---------------------------------------------------------------------------
-// fp32: one thread per query row, 128 rows per block, key tiles of 32 through
-// shared memory (every thread reads the same K/V element: a broadcast).
+// fp32 (K1, K2, K7 on fp32 operands: PF's default precision, SR's "default"
+// fp32 inference and training): the products on the tensor cores as
+// three-term TF32 splits (tf32_attention.cuh), fp32-faithful.
+//
+// What bounds it: at D = 16 (PF) the least time is the split products on
+// the tensor cores (3 TF32 products for each of the 4*D flops a pair: 7.5 us
+// at (32, 640, 4, 16), against one exp2 a pair on the special-function units,
+// 4.6 us, and the bytes, 6.3 us).  mma.sync reaches about half of the TF32
+// rate that figure assumes (wgmma's), and beside the products each warp
+// splits every K, V and P value it reads (five instructions a value) and runs
+// the softmax's five to six instructions a pair.  What holds it on the card
+// (PERF.md §6): a tile's S and P V phases wait on the tensor cores, its
+// softmax on instruction issue, and the warps of an SM overlap the two only
+// in part.  The design: a block of 4 warps owns 64 query rows, 16 a warp; Q
+// is split once into registers (the A fragments of S = Q K^T); K is read as
+// 16-byte B fragments (the summed head dim permuted within 16-column groups,
+// the same order for Q and K); P goes from S's accumulator into the A operand
+// of P V with no shuffle, V's rows read in the matching order
+// (tf32_attention.cuh); each 8-key step of O is summed apart and added in
+// fp32 (add_frag); the running max and row sums stay on the accumulator's
+// rows (quad shuffles).  K/V tiles and their key ids stream through a
+// two-stage cp.async ring (one barrier a tile) whose rows are padded so that
+// every fragment read is free of bank conflicts, and only key tiles with a
+// key of the block's ids are visited.
 // ---------------------------------------------------------------------------
+constexpr int kFwdTerms = 3;  // terms of each split product (1: single TF32)
+
+template <int D> struct FwdF32 {
+  // ring depth: three or four stages, and the next tile's S issued beside
+  // this tile's softmax, gained nothing on the card (PERF.md)
+  static constexpr int kStages = 2;
+  static constexpr int kLdK = D % 32 == 16 ? D : D + 16;  // 16-byte reads, rows g and g+1 16 banks apart
+  static constexpr int kLdV = D + 4;                      // 4-byte reads of rows 2t, 2t+1 at column g
+  static constexpr int kKBytes = kF32Tile * kLdK * 4, kVBytes = kF32Tile * kLdV * 4;
+  static constexpr int kStageBytes = kKBytes + kVBytes + kF32Tile * 4;  // K, V, key ids
+  // at D = 64 Q's lo fragments wait in shared memory, a thread's own slots
+  // (in registers beside the hi ones, O and S, the build spilled)
+  static constexpr bool kQloShared = D == 64;
+  static constexpr int kQloBytes = kQloShared ? kF32Rows * D * 4 : 0;
+  static constexpr int smem_bytes(int n_tiles) {
+    return kStages * kStageBytes + kQloBytes + ((n_tiles + 15) & ~15);
+  }
+};
+
+// both rows of an accumulator fragment times their factors (rows g, g + 8)
+__device__ __forceinline__ void rescale_rows(float (&o)[4], float a0, float a1) {
+  o[0] *= a0;
+  o[1] *= a0;
+  o[2] *= a1;
+  o[3] *= a1;
+}
+
+// q, k, v: (B, L, H, D) fp32 views with D contiguous; one block per (query
+// tile of 64, head, batch row); dynamic shared memory FwdF32<D>::smem_bytes.
 template <int D, bool NOMAX, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ out,
                      float* __restrict__ lse, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs) {
-  constexpr int BQ = kThreads, BK = 32;
-  __shared__ __align__(16) float Ks[BK * D];
-  __shared__ __align__(16) float Vs[BK * D];
-  __shared__ int kid[BK];
-
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * BQ + tid, h = blockIdx.y, b = blockIdx.z;
-  const bool in_range = row < Lq;
-  const bool my_valid = in_range && query_valid<SEG>(qmask, (size_t)b * Lq + row);
-  const int my_qid = in_range ? query_id<SEG>(qmask, (size_t)b * Lq + row) : kPadSeg;
-  const int tile_has_query = __syncthreads_or(my_valid);
-  float* op = out + (((size_t)b * Lq + row) * H + h) * D;
-
-  if (!tile_has_query) {
-    if (in_range) {
+  using T = FwdF32<D>;
+  constexpr int KS = D / 8, NT = D / 8, NJ = kF32Tile / 8;  // k-steps over D, output n-tiles, key n-tiles
+  // key steps a softmax pass takes: from D = 32 a tile goes in two halves of
+  // 32 keys (the registers of S for 64 keys beside Q's split fragments and O
+  // spilled)
+  constexpr int NJS = D >= 32 ? NJ / 2 : NJ;
+  constexpr int NS = T::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* qlo_s = reinterpret_cast<uint4*>(smem + NS * T::kStageBytes);  // [warp][k-step][lane] (kQloShared)
+  unsigned char* live = smem + NS * T::kStageBytes + T::kQloBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, nkt = (Lk + kF32Tile - 1) / kF32Tile;
+  const int r0 = blockIdx.x * kF32Rows + warp * 16 + gq, r1 = r0 + 8;  // this thread's rows
+  const bool in0 = r0 < Lq, in1 = r1 < Lq;
+  const size_t qrow = (size_t)b * Lq;
+  const bool val0 = in0 && query_valid<SEG>(qmask, qrow + r0), val1 = in1 && query_valid<SEG>(qmask, qrow + r1);
+  // the ids the rows compare the keys' with: segment ids, or with padding
+  // masks 0 for every row (a constant: one compare a key serves both rows)
+  const int qid0 = SEG ? (in0 ? query_id<SEG>(qmask, qrow + r0) : kPadSeg) : 0;
+  const int qid1 = SEG ? (in1 ? query_id<SEG>(qmask, qrow + r1) : kPadSeg) : 0;
+  // Q's A fragments, split once (loaded before the first barrier, so that
+  // their latency overlaps it): k-step 2m + e reads head-dim columns
+  // 16m + 4t + 2e (a0, a1) and 16m + 4t + 2e + 1 (a2, a3)
+  uint32_t qh[KS][4], ql[T::kQloShared ? 1 : KS][4];
 #pragma unroll
-      for (int d = 0; d < D; d += 4) *reinterpret_cast<float4*>(op + d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (lse != nullptr) lse[((size_t)b * H + h) * Lq + row] = kNegInf;
-    }
-    return;
-  }
-
-  float qr[D], acc[D];
-  {
-    const float* qp = q + (size_t)b * qs.b + (size_t)(in_range ? row : 0) * qs.l + (size_t)h * qs.h;
+  for (int m = 0; m < D / 16; ++m) {
+    const float* p0 = q + (size_t)b * qs.b + (size_t)(in0 ? r0 : 0) * qs.l + (size_t)h * qs.h + 16 * m + 4 * tq;
+    const float* p1 = q + (size_t)b * qs.b + (size_t)(in1 ? r1 : 0) * qs.l + (size_t)h * qs.h + 16 * m + 4 * tq;
+    const float4 x0 = in0 ? *reinterpret_cast<const float4*>(p0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x1 = in1 ? *reinterpret_cast<const float4*>(p1) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      const float4 x = in_range ? *reinterpret_cast<const float4*>(qp + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-      qr[d] = x.x;
-      qr[d + 1] = x.y;
-      qr[d + 2] = x.z;
-      qr[d + 3] = x.w;
-    }
-  }
+    for (int e = 0; e < 2; ++e) {
+      uint32_t l[4];
+      split_frag(e ? x0.z : x0.x, e ? x1.z : x1.x, e ? x0.w : x0.y, e ? x1.w : x1.y, qh[2 * m + e], l);
+      if constexpr (T::kQloShared) {
+        qlo_s[(warp * KS + 2 * m + e) * 32 + lane] = make_uint4(l[0], l[1], l[2], l[3]);
+      } else {
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  const int2 band = SEG ? segment_band<BK>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, my_qid, my_valid, 0, false)
-                        : make_int2(0, (Lk + BK - 1) / BK - 1);
-  for (int kt = band.x; kt <= band.y; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    int my_kid = kNoKey;
-    if (tid < BK) {
-      my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
-      kid[tid] = my_kid;
-    }
-    if (!__syncthreads_or(my_kid >= 0)) continue;
-
-    constexpr int CPR = D / 4;
-    for (int c = tid; c < BK * CPR; c += kThreads) {
-      const int r = c / CPR, cc = c % CPR;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < Lk) {
-        kv = *reinterpret_cast<const float4*>(k + (size_t)b * ks.b + (size_t)(k0 + r) * ks.l + (size_t)h * ks.h + 4 * cc);
-        vv = *reinterpret_cast<const float4*>(v + (size_t)b * vs.b + (size_t)(k0 + r) * vs.l + (size_t)h * vs.h + 4 * cc);
-      }
-      *reinterpret_cast<float4*>(&Ks[r * D + 4 * cc]) = kv;
-      *reinterpret_cast<float4*>(&Vs[r * D + 4 * cc]) = vv;
-    }
-    __syncthreads();
-
-    float s[BK];
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&Ks[j * D + d]);
-        a = fmaf(qr[d], kk.x, a);
-        a = fmaf(qr[d + 1], kk.y, a);
-        a = fmaf(qr[d + 2], kk.z, a);
-        a = fmaf(qr[d + 3], kk.w, a);
-      }
-      s[j] = a;
-    }
-
-    float psum = 0.f;
-    if (NOMAX) {
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = exp2f(fminf(fmaxf(s[j], kClipLo), kClipHi)) * (kid[j] == my_qid ? 1.f : 0.f);
-        psum += s[j];
-      }
-      l += psum;
-    } else {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] += kid[j] == my_qid ? 0.f : -kBig;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float mn = fmaxf(m, mx);
-      const float al = exp2f(m - mn);
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = exp2f(s[j] - mn);
-        psum += s[j];
-      }
-      l = l * al + psum;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= al;
-      m = mn;
-    }
-
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = s[j];
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * D + d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        for (int i = 0; i < 4; ++i) ql[T::kQloShared ? 0 : 2 * m + e][i] = l[i];
       }
     }
   }
+  // padding masks: a key tile is live if it holds a valid key, whatever the queries
+  if (!SEG) flag_live_tiles<SEG>(kmask, (size_t)b * Lk, Lk, make_int2(0, 0), live);
+  const int2 ids = block_id_range(val0, qid0, val1, qid1);
+  const bool dead = ids.x > ids.y;  // no valid query: zeros, LSE -inf
 
-  if (in_range) {
-    const float den = fmaxf(l, 1e-30f);
-    const float f = my_valid ? 1.f : 0.f;
+  float o[NT][4], m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; d += 4)
-      *reinterpret_cast<float4*>(op + d) =
-          make_float4(acc[d] / den * f, acc[d + 1] / den * f, acc[d + 2] / den * f, acc[d + 3] / den * f);
-    if (!NOMAX && lse != nullptr) lse[((size_t)b * H + h) * Lq + row] = m + log2f(den);
+  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  if (!dead) {
+    if (SEG) {  // segments: a key tile is live if it holds a key of the block's segments
+      flag_live_tiles<SEG>(kmask, (size_t)b * Lk, Lk, ids, live);
+      __syncthreads();
+    }
+    auto stage = [&](int s) { return smem + s * T::kStageBytes; };
+    auto issue = [&](int s, int kt) {
+      unsigned char* st = stage(s);
+      tile_async<D, T::kLdK>(reinterpret_cast<float*>(st), k, ks, b, h, kt * kF32Tile, Lk);
+      tile_async<D, T::kLdV>(reinterpret_cast<float*>(st + T::kKBytes), v, vs, b, h, kt * kF32Tile, Lk);
+      row_async(st + T::kKBytes + T::kVBytes, static_cast<const unsigned char*>(kmask) + (size_t)b * Lk * 4,
+                kt * kF32Tile, Lk);
+    };
+    // ---- S = Q K^T of key steps j0 .. j0 + NJS - 1 of the tile in stage st:
+    // 16 rows x 8 NJS keys a warp (c: rows g, g+8; keys 8j + 2t, +1)
+    // Q's lo fragment of k-step kk: registers, or this thread's shared slot
+    auto q_lo = [&](int kk) {
+      if constexpr (T::kQloShared) {
+        const uint4 a = qlo_s[(warp * KS + kk) * 32 + lane];
+        return SplitFrag{{a.x, a.y, a.z, a.w}};
+      } else {
+        return SplitFrag{{ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]}};
+      }
+    };
+    auto s_tile = [&](float (&sc)[NJS][4], int st, int j0) {
+      const float* Ks = reinterpret_cast<const float*>(stage(st)) + 8 * j0 * T::kLdK;
+#pragma unroll
+      for (int j = 0; j < NJS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int m = 0; m < D / 16; ++m) {
+        const SplitFrag lo0 = q_lo(2 * m), lo1 = q_lo(2 * m + 1);
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(Ks + (8 * j + gq) * T::kLdK + 16 * m + 4 * tq);
+          uint32_t bh[4], bl[4];
+          split_frag(kv.x, kv.y, kv.z, kv.w, bh, bl);
+          mma_split<kFwdTerms>(sc[j], qh[2 * m], lo0.r, bh[0], bh[1], bl[0], bl[1]);
+          mma_split<kFwdTerms>(sc[j], qh[2 * m + 1], lo1.r, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    };
+    // ---- softmax numerators on the accumulator (the mask a select), then
+    // O += P V: P's accumulator is the A operand (keys 8j + 2t, +1), V's rows
+    // read in that order
+    auto softmax_pv = [&](float (&sc)[NJS][4], int st, int j0) {
+      const int* kid = reinterpret_cast<const int*>(stage(st) + T::kKBytes + T::kVBytes) + 8 * j0;
+      float ps0 = 0.f, ps1 = 0.f;
+      if (NOMAX) {
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          const int2 ki = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * tq);
+          sc[j][0] = ex2(fminf(fmaxf(sc[j][0], kClipLo), ki.x == qid0 ? kClipHi : kMaskedLogit));
+          sc[j][1] = ex2(fminf(fmaxf(sc[j][1], kClipLo), ki.y == qid0 ? kClipHi : kMaskedLogit));
+          sc[j][2] = ex2(fminf(fmaxf(sc[j][2], kClipLo), ki.x == qid1 ? kClipHi : kMaskedLogit));
+          sc[j][3] = ex2(fminf(fmaxf(sc[j][3], kClipLo), ki.y == qid1 ? kClipHi : kMaskedLogit));
+          ps0 += sc[j][0] + sc[j][1];
+          ps1 += sc[j][2] + sc[j][3];
+        }
+        l0 += ps0;
+        l1 += ps1;
+      } else {
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          const int2 ki = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * tq);
+          sc[j][0] = ki.x == qid0 ? sc[j][0] : kNegInf;
+          sc[j][1] = ki.y == qid0 ? sc[j][1] : kNegInf;
+          sc[j][2] = ki.x == qid1 ? sc[j][2] : kNegInf;
+          sc[j][3] = ki.y == qid1 ? sc[j][3] : kNegInf;
+          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float al0 = ex2(m0 - mx0), al1 = ex2(m1 - mx1);
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          sc[j][0] = ex2(sc[j][0] - mx0);
+          sc[j][1] = ex2(sc[j][1] - mx0);
+          sc[j][2] = ex2(sc[j][2] - mx1);
+          sc[j][3] = ex2(sc[j][3] - mx1);
+          ps0 += sc[j][0] + sc[j][1];
+          ps1 += sc[j][2] + sc[j][3];
+        }
+        l0 = l0 * al0 + ps0;
+        l1 = l1 * al1 + ps1;
+        m0 = mx0;
+        m1 = mx1;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) rescale_rows(o[nt], al0, al1);  // the running max moved
+      }
+      const float* Vs = reinterpret_cast<const float*>(stage(st) + T::kKBytes) + 8 * j0 * T::kLdV;
+#pragma unroll
+      for (int j = 0; j < NJS; ++j) {
+        uint32_t ph[4], pl[4];
+        split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3], ph, pl);
+        const float* v0 = Vs + (8 * j + 2 * tq) * T::kLdV + gq;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v0[8 * nt], bh0, bl0);
+          split_tf32(v0[T::kLdV + 8 * nt], bh1, bl1);
+          float t[4] = {0.f, 0.f, 0.f, 0.f};  // the step summed apart (add_frag)
+          mma_split<kFwdTerms>(t, ph, pl, bh0, bh1, bl0, bl1);
+          add_frag(o[nt], t);
+        }
+      }
+    };
+    auto land = [&](int st, int kt) {  // this thread's share of the tile's ids, once its copies landed
+      ids_in_place<SEG, true>(reinterpret_cast<int*>(stage(st) + T::kKBytes + T::kVBytes), kt * kF32Tile, Lk);
+    };
+
+    // the ring: NS stages; tile i in stage i % NS.  One barrier a tile:
+    // after it, every warp is past tile i - 1, whose stage takes the copy of
+    // tile i + NS - 1.
+    TileQueue<NS> tq_;
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      tq_.pend[s] = tq_.advance(live, nkt);
+      if (tq_.pend[s] < nkt) issue(s, tq_.pend[s]);
+      cp_async_commit();
+    }
+    for (int i = 0; tq_.pend[0] < nkt; ++i) {
+      cp_async_wait<NS - 2>();  // this thread's copies of tile i have landed
+      land(i % NS, tq_.pend[0]);
+      __syncthreads();
+      const int nxt = tq_.advance(live, nkt);
+      if (nxt < nkt) issue((i + NS - 1) % NS, nxt);
+      cp_async_commit();
+#pragma unroll 1
+      for (int sub = 0; sub < NJ / NJS; ++sub) {  // a loop: unrolled, ptxas hoisted the halves into each other and spilled
+        float sc[NJS][4];
+        s_tile(sc, i % NS, sub * NJS);
+        softmax_pv(sc, i % NS, sub * NJS);
+      }
+      tq_.push(nxt);
+    }
+    cp_async_wait<0>();
+  }
+
+  // ---- epilogue: row sums over the quad, out = acc * (1 / max(l, 1e-30)), padded rows 0
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  const float f0 = val0 ? 1.f / den0 : 0.f, f1 = val1 ? 1.f / den1 : 0.f;  // one division a row
+  float* op0 = out + (((size_t)b * Lq + r0) * H + h) * D + 2 * tq;
+  float* op1 = out + (((size_t)b * Lq + r1) * H + h) * D + 2 * tq;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (in0) *reinterpret_cast<float2*>(op0 + 8 * nt) = make_float2(o[nt][0] * f0, o[nt][1] * f0);
+    if (in1) *reinterpret_cast<float2*>(op1 + 8 * nt) = make_float2(o[nt][2] * f1, o[nt][3] * f1);
+  }
+  if (!NOMAX && lse != nullptr && tq == 0) {
+    float* lp = lse + ((size_t)b * H + h) * Lq;
+    if (in0) lp[r0] = dead ? kNegInf : m0 + log2f(den0);
+    if (in1) lp[r1] = dead ? kNegInf : m1 + log2f(den1);
   }
 }
 
 // ---------------------------------------------------------------------------
-// host side of the bf16 kernel: tensor maps, shared-memory opt-in, launch
+// host side: the bf16 kernel's tensor maps, shared-memory opt-in, launch
 // ---------------------------------------------------------------------------
 template <int D, bool NOMAX, bool SEG, int NC> static cudaError_t opt_in_smem() {
   return cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, NOMAX, SEG, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -367,9 +502,12 @@ template <int D, bool NOMAX, bool SEG, int NC> static cudaError_t opt_in_smem() 
 // first call (which the wrappers make eagerly, never inside a graph capture).
 template <int D> static cudaError_t opt_in_head_dim() {
   cudaError_t e = cudaSuccess;
-#define SRHEP_OPT_IN(NM, SG)                                   \
-  if (e == cudaSuccess) e = opt_in_smem<D, NM, SG, 1>();      \
-  if (e == cudaSuccess) e = opt_in_smem<D, NM, SG, 3>();
+#define SRHEP_OPT_IN(NM, SG)                                                                                \
+  if (e == cudaSuccess) e = opt_in_smem<D, NM, SG, 1>();                                                   \
+  if (e == cudaSuccess) e = opt_in_smem<D, NM, SG, 3>();                                                   \
+  if (e == cudaSuccess)                                                                                    \
+    e = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, NM, SG>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                             kF32MaxSmem);
   SRHEP_OPT_IN(false, false)
   SRHEP_OPT_IN(true, false)
   SRHEP_OPT_IN(false, true)
@@ -420,8 +558,12 @@ static int launch_flash(const void* q, const void* k, const void* v, const void*
   if (is_bf16)
     return launch_flash_bf16<D, NOMAX, SEG>(q, k, v, qmask, kmask, band, out, lse, B, H, Lq, Lk, qs, ks, vs, block_q,
                                             stream);
-  dim3 grid((Lq + kThreads - 1) / kThreads, H, B);
-  flash_fwd_f32_kernel<D, NOMAX, SEG><<<grid, kThreads, 0, stream>>>(
+  const cudaError_t opt = opt_in_all();
+  if (opt != cudaSuccess) return (int)opt;
+  const int smem = FwdF32<D>::smem_bytes((Lk + kF32Tile - 1) / kF32Tile);
+  if (smem > kF32MaxSmem) return (int)cudaErrorInvalidValue;
+  dim3 grid((Lq + kF32Rows - 1) / kF32Rows, H, B);
+  flash_fwd_f32_kernel<D, NOMAX, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qmask, kmask,
       static_cast<float*>(out), static_cast<float*>(lse), H, Lq, Lk, qs, ks, vs);
   return (int)cudaGetLastError();

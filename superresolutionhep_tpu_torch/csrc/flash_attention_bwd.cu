@@ -72,10 +72,13 @@
 //     part overlaps the other's products;
 //   * the outputs leave in the input dtype through the block's own (no
 //     longer needed) tiles as swizzled staging, one TMA store each.
-// The fp32 build (FMA loops, two threads per row, no tensor cores) exists to
-// hold the arithmetic tightly against the plain PyTorch version; it finds its
-// packed band itself (common.cuh::segment_band).
+// The fp32 build: dk/dv (flash_bwd_dkv_f32_kernel) takes its four products
+// on the tensor cores as three-term TF32 splits (tf32_attention.cuh; its
+// section says what holds it); dq (flash_bwd_dq_f32_kernel) is still FMA
+// loops, two threads a row, no tensor cores, and finds its packed band itself
+// (common.cuh::segment_band).
 #include "common.cuh"
+#include "tf32_attention.cuh"
 
 namespace srhep {
 
@@ -886,6 +889,48 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   store_half_row<D>(dq, acc, b, h, H, row, Lq, half);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 dk/dv (K6, K9 on fp32 operands: PF training, SR training at "default"
+// precision): the four products on the tensor cores as three-term TF32
+// splits (tf32_attention.cuh), fp32-faithful, deterministic (no atomics).
+//
+// What bounds it: at D = 16 (PF) the least time is the split products (3
+// TF32 products for each of the 8*D flops a pair, ~15 us at (32, 640, 4,
+// 16)); beside them every Q and G value of a streamed tile is read and split
+// by each warp twice, once in each of the two orders the products read it
+// (as the B operand of S^T = K Q^T and dP^T = V G^T, and of dV += P^T G and
+// dK += dS^T Q), P^T and dS^T are split once each, and the elementwise part
+// (mask select, - lse, min, exp2, - dl, multiply) runs beside one exp2 a
+// pair.  As in the forward, the products' mma.sync rate and the splits'
+// instruction issue hold it (PERF.md §6).  The design: a block of 4
+// warps owns 64 key rows; their K and V A fragments are stored raw once in
+// shared memory in fragment order (one 16-byte read a k-step; registers hold
+// the four accumulators instead) and split per tile; Q and G tiles with
+// their lse, dl and query ids stream through a two-stage cp.async ring (one
+// barrier a tile) whose rows (D + 4 floats) make the reads in both orders
+// free of bank conflicts; P^T and dS^T go from the accumulators into the A
+// operands of dV and dK with no shuffle (G's and Q's rows read in the
+// matching order, tf32_attention.cuh); each 8-query step of dK and dV is
+// summed apart and added in fp32 (add_frag); at D = 64 a tile goes in two
+// halves of 32 queries (registers); only query tiles with a query of the
+// block's key ids are visited.
+// ---------------------------------------------------------------------------
+constexpr int kDkvTerms = 3;  // terms of each split product (1: single TF32)
+
+template <int D> struct DkvF32 {
+  static constexpr int kStages = 2;  // ring depth: deeper rings gained nothing (PERF.md)
+  static constexpr int kLd = D + 4;  // Q and G rows: 4-byte reads at (g, t) and at (2t, g) hit distinct banks
+  static constexpr int kOwnBytes = 2 * kF32Rows * D * 4;  // K and V of the block's rows, raw A fragments
+  static constexpr int kTileBytes = kF32Tile * kLd * 4;
+  static constexpr int kStageBytes = 2 * kTileBytes + 3 * kF32Tile * 4;  // Q, G, then lse, dl, query ids
+  static constexpr int smem_bytes(int n_tiles) {
+    return kOwnBytes + kStages * kStageBytes + ((n_tiles + 15) & ~15);
+  }
+};
+
+// q, k, v, g: (B, L, H, D) fp32 views with D contiguous; lse, dl (B, H, Lq);
+// one block per (key tile of 64, head, batch row); dynamic shared memory
+// DkvF32<D>::smem_bytes.
 template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -893,61 +938,182 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ dk,
                          float* __restrict__ dv, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
                          Strides gs) {
-  using namespace bwd;
-  constexpr int HD = D / 2;
-  __shared__ __align__(16) float Qs[BT32 * D];
-  __shared__ __align__(16) float Gs[BT32 * D];
-  __shared__ float lses[BT32], dls[BT32];
-  __shared__ int qids[BT32];
-
-  const int tid = threadIdx.x, half = tid & 1;
-  const int row = blockIdx.x * BR + (tid >> 1), h = blockIdx.y, b = blockIdx.z;
-  const bool in_range = row < Lk;
-  const int my_kid = in_range ? key_id<SEG>(kmask, (size_t)b * Lk + row) : kNoKey;
-  const int live_k = __syncthreads_or(my_kid >= 0);
-
-  float dka[HD], dva[HD];
+  using T = DkvF32<D>;
+  constexpr int KS = D / 8, NT = D / 8, NJ = kF32Tile / 8;  // k-steps over D, output n-tiles, query n-tiles
+  // query steps a pass takes: at D = 64 a tile goes in two halves of 32
+  // queries (S^T and dP^T for 64 queries beside the dK, dV accumulators spilled)
+  constexpr int NJS = D == 64 ? NJ / 2 : NJ;
+  constexpr int NS = T::kStages;
+  // S^T and dP^T: the k-steps one at a time below D = 64 (fully unrolled,
+  // ptxas capped those builds at 128 and 168 registers and spilled)
+  constexpr int kUnrollS = D == 64 ? KS : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* own = reinterpret_cast<float4*>(smem);  // [K, V][warp][k-step][lane]
+  unsigned char* ring = smem + T::kOwnBytes;
+  unsigned char* live = ring + NS * T::kStageBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, nqt = (Lq + kF32Tile - 1) / kF32Tile;
+  const int r0 = blockIdx.x * kF32Rows + warp * 16 + gq, r1 = r0 + 8;  // this thread's key rows
+  const bool in0 = r0 < Lk, in1 = r1 < Lk;
+  const int kid0 = in0 ? key_id<SEG>(kmask, (size_t)b * Lk + r0) : kNoKey;
+  const int kid1 = in1 ? key_id<SEG>(kmask, (size_t)b * Lk + r1) : kNoKey;
+  // this thread's A fragments of K and V (rows r0, r1; head-dim columns
+  // 8kk + t, 8kk + t + 4), raw, into its own slots (before the first
+  // barrier, so that the loads' latency overlaps it)
 #pragma unroll
-  for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
+  for (int kk = 0; kk < KS; ++kk) {
+    const float* k0p = k + (size_t)b * ks.b + (size_t)(in0 ? r0 : 0) * ks.l + (size_t)h * ks.h + 8 * kk + tq;
+    const float* k1p = k + (size_t)b * ks.b + (size_t)(in1 ? r1 : 0) * ks.l + (size_t)h * ks.h + 8 * kk + tq;
+    const float* v0p = v + (size_t)b * vs.b + (size_t)(in0 ? r0 : 0) * vs.l + (size_t)h * vs.h + 8 * kk + tq;
+    const float* v1p = v + (size_t)b * vs.b + (size_t)(in1 ? r1 : 0) * vs.l + (size_t)h * vs.h + 8 * kk + tq;
+    own[(warp * KS + kk) * 32 + lane] =
+        make_float4(in0 ? k0p[0] : 0.f, in1 ? k1p[0] : 0.f, in0 ? k0p[4] : 0.f, in1 ? k1p[4] : 0.f);
+    own[((4 + warp) * KS + kk) * 32 + lane] =
+        make_float4(in0 ? v0p[0] : 0.f, in1 ? v1p[0] : 0.f, in0 ? v0p[4] : 0.f, in1 ? v1p[4] : 0.f);
+  }
+  // padding masks: a query tile is live if it holds a valid query (the others' cotangent is zero)
+  if (!SEG) flag_live_tiles<SEG>(qmask, (size_t)b * Lq, Lq, make_int2(0, 0), live);
+  const int2 ids = block_id_range(kid0 >= 0, kid0, kid1 >= 0, kid1);
 
-  if (live_k) {
-    float kr[HD], vr[HD];
-    load_half_row<D>(kr, k, ks, b, h, row, in_range, half);
-    load_half_row<D>(vr, v, vs, b, h, row, in_range, half);
-    const size_t rb = ((size_t)b * H + h) * Lq;
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
 
-    const int2 band = SEG ? segment_band<BT32>(static_cast<const int*>(qmask) + (size_t)b * Lq, Lq, my_kid,
-                                               my_kid >= 0, 0, false)
-                          : make_int2(0, (Lq + BT32 - 1) / BT32 - 1);
-    for (int qt = band.x; qt <= band.y; ++qt) {
-      const int q0 = qt * BT32;
+  if (ids.x <= ids.y) {
+    if (SEG) {  // segments: a query tile is live if it holds a query of the block's segments
+      flag_live_tiles<SEG>(qmask, (size_t)b * Lq, Lq, ids, live);
       __syncthreads();
-      bool my_valid = false;
-      if (tid < BT32) {
-        const int r = q0 + tid;
-        my_valid = r < Lq && query_valid<SEG>(qmask, (size_t)b * Lq + r);
-        qids[tid] = r < Lq ? query_id<SEG>(qmask, (size_t)b * Lq + r) : kPadSeg;
-        lses[tid] = r < Lq ? lse[rb + r] : 0.f;
-        dls[tid] = r < Lq ? dl[rb + r] : 0.f;
-      }
-      if (!__syncthreads_or(my_valid)) continue;
-      stage_rows_f32<D>(Qs, q, qs, b, h, q0, Lq);
-      stage_rows_f32<D>(Gs, g, gs, b, h, q0, Lq);
+    }
+    auto stage = [&](int s) { return ring + s * T::kStageBytes; };
+    auto issue = [&](int s, int qt) {
+      unsigned char* st = stage(s);
+      const int q0 = qt * kF32Tile;
+      const size_t rb = ((size_t)b * H + h) * Lq;
+      tile_async<D, T::kLd>(reinterpret_cast<float*>(st), q, qs, b, h, q0, Lq);
+      tile_async<D, T::kLd>(reinterpret_cast<float*>(st + T::kTileBytes), g, gs, b, h, q0, Lq);
+      row_async(st + 2 * T::kTileBytes, lse + rb, q0, Lq);
+      row_async(st + 2 * T::kTileBytes + kF32Tile * 4, dl + rb, q0, Lq);
+      row_async(st + 2 * T::kTileBytes + 2 * kF32Tile * 4, static_cast<const unsigned char*>(qmask) + (size_t)b * Lq * 4,
+                q0, Lq);
+    };
+    TileQueue<NS> tq_;
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      tq_.pend[s] = tq_.advance(live, nqt);
+      if (tq_.pend[s] < nqt) issue(s, tq_.pend[s]);
+      cp_async_commit();
+    }
+    for (int i = 0; tq_.pend[0] < nqt; ++i) {
+      const int cur = tq_.pend[0], s = i % NS;
+      cp_async_wait<NS - 2>();  // this thread's copies of tile i have landed
+      unsigned char* st = stage(s);
+      const float* Qs = reinterpret_cast<const float*>(st);
+      const float* Gs = reinterpret_cast<const float*>(st + T::kTileBytes);
+      const float* lses = reinterpret_cast<const float*>(st + 2 * T::kTileBytes);
+      const float* dls = lses + kF32Tile;
+      int* qid = reinterpret_cast<int*>(st + 2 * T::kTileBytes + 2 * kF32Tile * 4);
+      ids_in_place<SEG, false>(qid, cur * kF32Tile, Lq);
       __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < BT32; ++i) {
-        const float* qi = &Qs[i * D + half * HD];
-        const float* gi = &Gs[i * D + half * HD];
-        const float s = dot_pair<D>(kr, qi);
-        const float dp = dot_pair<D>(vr, gi);
-        const float p = exp2f(fminf((s + (qids[i] == my_kid ? 0.f : -kBig)) - lses[i], 0.f));
-        axpy_half<D>(dva, p, gi);
-        axpy_half<D>(dka, p * (dp - dls[i]), qi);
+      // one barrier a tile: tile i is visible, and every warp is past tile
+      // i - 1, whose stage takes the copy of tile i + NS - 1
+      const int nxt = tq_.advance(live, nqt);
+      if (nxt < nqt) issue((i + NS - 1) % NS, nxt);
+      cp_async_commit();
+
+#pragma unroll 1
+      for (int sub = 0; sub < NJ / NJS; ++sub) {  // a loop: unrolled, ptxas hoisted the halves into each other and spilled
+        const int j0 = sub * NJS;
+        // ---- S^T = K Q^T and dP^T = V G^T: 16 keys x 8 NJS queries a warp
+        // (c: key rows g, g+8; queries 8(j0 + j) + 2t, +1)
+        float st_[NJS][4], dpt[NJS][4];
+#pragma unroll
+        for (int j = 0; j < NJS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st_[j][e] = dpt[j][e] = 0.f;
+#pragma unroll kUnrollS
+        for (int kk = 0; kk < KS; ++kk) {
+          const float4 ka = own[(warp * KS + kk) * 32 + lane], va = own[((4 + warp) * KS + kk) * 32 + lane];
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          split_frag(ka.x, ka.y, ka.z, ka.w, kh, kl);
+          split_frag(va.x, va.y, va.z, va.w, vh, vl);
+#pragma unroll
+          for (int j = 0; j < NJS; ++j) {
+            const int o = (8 * (j0 + j) + gq) * T::kLd + 8 * kk + tq;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(Qs[o], bh0, bl0);
+            split_tf32(Qs[o + 4], bh1, bl1);
+            mma_split<kDkvTerms>(st_[j], kh, kl, bh0, bh1, bl0, bl1);
+            split_tf32(Gs[o], bh0, bl0);
+            split_tf32(Gs[o + 4], bh1, bl1);
+            mma_split<kDkvTerms>(dpt[j], vh, vl, bh0, bh1, bl0, bl1);
+          }
+        }
+
+        // ---- P^T = exp2(min(s - lse, 0)) on live pairs, dS^T = P^T (dP^T - dl)
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          const int c = 8 * (j0 + j) + 2 * tq;
+          const int2 id = *reinterpret_cast<const int2*>(qid + c);
+          const float2 lc = *reinterpret_cast<const float2*>(lses + c);
+          const float2 dlc = *reinterpret_cast<const float2*>(dls + c);
+          const float p0 = ex2(fminf((id.x == kid0 ? st_[j][0] : kNegInf) - lc.x, 0.f));
+          const float p1 = ex2(fminf((id.y == kid0 ? st_[j][1] : kNegInf) - lc.y, 0.f));
+          const float p2 = ex2(fminf((id.x == kid1 ? st_[j][2] : kNegInf) - lc.x, 0.f));
+          const float p3 = ex2(fminf((id.y == kid1 ? st_[j][3] : kNegInf) - lc.y, 0.f));
+          dpt[j][0] = p0 * (dpt[j][0] - dlc.x);
+          dpt[j][1] = p1 * (dpt[j][1] - dlc.y);
+          dpt[j][2] = p2 * (dpt[j][2] - dlc.x);
+          dpt[j][3] = p3 * (dpt[j][3] - dlc.y);
+          st_[j][0] = p0;
+          st_[j][1] = p1;
+          st_[j][2] = p2;
+          st_[j][3] = p3;
+        }
+
+        // ---- dV += P^T G, dK += dS^T Q: the accumulators are the A operands
+        // (queries 8j + 2t, +1), G's and Q's rows read in that order
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          uint32_t ph[4], pl[4], dh[4], dlo[4];
+          split_frag(st_[j][0], st_[j][2], st_[j][1], st_[j][3], ph, pl);
+          split_frag(dpt[j][0], dpt[j][2], dpt[j][1], dpt[j][3], dh, dlo);
+          const int o = (8 * (j0 + j) + 2 * tq) * T::kLd + gq;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t bh0, bl0, bh1, bl1;
+            float t[4] = {0.f, 0.f, 0.f, 0.f};  // each step summed apart (add_frag)
+            split_tf32(Gs[o + 8 * nt], bh0, bl0);
+            split_tf32(Gs[o + T::kLd + 8 * nt], bh1, bl1);
+            mma_split<kDkvTerms>(t, ph, pl, bh0, bh1, bl0, bl1);
+            add_frag(dva[nt], t);
+            t[0] = t[1] = t[2] = t[3] = 0.f;
+            split_tf32(Qs[o + 8 * nt], bh0, bl0);
+            split_tf32(Qs[o + T::kLd + 8 * nt], bh1, bl1);
+            mma_split<kDkvTerms>(t, dh, dlo, bh0, bh1, bl0, bl1);
+            add_frag(dka[nt], t);
+          }
+        }
       }
+      tq_.push(nxt);
+    }
+    cp_async_wait<0>();
+  }
+
+  // ---- epilogue: rows of padded keys exactly 0 (no query attends them)
+  const size_t o0 = (((size_t)b * Lk + r0) * H + h) * D + 2 * tq, o1 = (((size_t)b * Lk + r1) * H + h) * D + 2 * tq;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (in0) {
+      *reinterpret_cast<float2*>(dk + o0 + 8 * nt) = kid0 >= 0 ? make_float2(dka[nt][0], dka[nt][1]) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(dv + o0 + 8 * nt) = kid0 >= 0 ? make_float2(dva[nt][0], dva[nt][1]) : make_float2(0.f, 0.f);
+    }
+    if (in1) {
+      *reinterpret_cast<float2*>(dk + o1 + 8 * nt) = kid1 >= 0 ? make_float2(dka[nt][2], dka[nt][3]) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(dv + o1 + 8 * nt) = kid1 >= 0 ? make_float2(dva[nt][2], dva[nt][3]) : make_float2(0.f, 0.f);
     }
   }
-  store_half_row<D>(dk, dka, b, h, H, row, Lk, half);
-  store_half_row<D>(dv, dva, b, h, H, row, Lk, half);
 }
 
 // ---------------------------------------------------------------------------
@@ -960,6 +1126,9 @@ template <int D, bool SEG, int NC> static cudaError_t bwd_opt_in_smem() {
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D, SEG, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              BwdSmem<D, NC, true>::kBytes);
+  if (e == cudaSuccess && NC == 1)
+    e = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kF32MaxSmem);
   return e;
 }
 
@@ -1032,8 +1201,12 @@ static int launch_dkv(const void* q, const void* k, const void* v, const void* g
                       int Lk, Strides qs, Strides ks, Strides vs, Strides gs, int is_bf16, int block_rows, int ldr,
                       cudaStream_t stream) {
   if (!is_bf16) {
-    const dim3 grid((Lk + bwd::BR - 1) / bwd::BR, H, B);
-    flash_bwd_dkv_f32_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
+    const cudaError_t opt = bwd_opt_in_all();
+    if (opt != cudaSuccess) return (int)opt;
+    const int smem = DkvF32<D>::smem_bytes((Lq + kF32Tile - 1) / kF32Tile);
+    if (smem > kF32MaxSmem) return (int)cudaErrorInvalidValue;
+    const dim3 grid((Lk + kF32Rows - 1) / kF32Rows, H, B);
+    flash_bwd_dkv_f32_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
         static_cast<float*>(dk), static_cast<float*>(dv), H, Lq, Lk, qs, ks, vs, gs);

@@ -14,8 +14,10 @@
 # (kernel cases, probes and the train phases; exit 1 by design).  Prints, per
 # run, one line per timed kernel case (kernel, dtype, L, the probes' mode or
 # exp dtype, mask and tile, time in ms, the library call's ms) and the
-# torch.profiler readings of the train steps: device ms per step, busy share,
-# and the share of the device time in the flash backward kernels; with an
+# torch.profiler readings of the train steps (the PF phase's also at the
+# published bucket sizes): device ms per step, busy share, and the shares of
+# the device time in the flash backward kernels and in the forward, dq and
+# dk/dv kernels each; with an
 # output directory, each run's full output is kept there as compare_<run>.txt.
 OLD_SRC=$(cd "$1" && pwd) || exit 9
 ROOT=$(pwd)
@@ -48,14 +50,20 @@ for line in open(sys.argv[1]):
             c.get("blocks", "-"), c["ms"], "-" if lib is None else "%.4f" % lib, c["max_abs_err"], c["ok"]))
     if c.get("phase") in ("train", "packed_train", "pf_train"):
         steps = c.get("train_step_ms")
-        for st in steps if isinstance(steps, list) else [steps]:
+        steps = (steps if isinstance(steps, list) else [steps]) + c.get("train_step_ms_budget", [])
+        for st in steps:
             if not st or "profile" not in st:
                 continue
             p = st["profile"]
-            bwd = sum(t["share_of_device"] for t in p["top"] if "flash_bwd" in t["name"])
+
+            def share(key):
+                return sum(t["share_of_device"] for t in p["top"] if key in t["name"])
+
             print("  %-12s (%s, %s) median_ms=%.1f device_ms_per_step=%.2f busy=%.3f kernels=%d bwd_share_of_device=%.3f"
+                  " shares fwd/dq/dkv=%.3f/%.3f/%.3f"
                   % (c["phase"], st.get("B"), st.get("N"), st["median_ms"], p["device_ms_per_step"], p["busy_share"],
-                     p["kernels_per_step"], bwd))
+                     p["kernels_per_step"], share("flash_bwd"), share("flash_fwd"), share("flash_bwd_dq"),
+                     share("flash_bwd_dkv")))
 EOF
   tail -n 1 "$WORK/$1.$3.err" | cut -c 1-400
   [ -n "$OUT_DIR" ] && cp "$WORK/$1.$3.txt" "$OUT_DIR/compare_$1.$3.txt"

@@ -8,6 +8,7 @@ libraries of their own, all at once, and time the wrappers with each at
 
     python3 superresolutionhep_tpu_torch/tools/fwd_variants.py [variant ...]
     python3 superresolutionhep_tpu_torch/tools/fwd_variants.py bwd [variant ...]
+    python3 superresolutionhep_tpu_torch/tools/fwd_variants.py f32 [variant ...]
 
 Run from the repository root on a machine with the card and nvcc.  Prints one
 JSON line per variant: the ptxas serialisation warnings (C751x) and whether
@@ -20,7 +21,12 @@ warpgroups' cycles per 64-row tile by stage of the loop (from clock64
 counters, which themselves slow the kernel by about a third); backward: the
 device time of K5/K6 at (10, 2048, 4, 64) with ragged masks and of K8/K9 at
 the (8, 5120) packed batch (each wrapper call with its band launch), and
-each output's error against its plain version.
+each output's error against its plain version; f32: the fp32 tensor-core
+kernels (``csrc/tf32_attention.cuh`` and its two users), the device time of
+the forward (with LSE) and dk/dv at (32, 640, 4, 16) and (10, 2048, 4, 64)
+with ragged masks and at the (8, 5120, 4, 64) packed batch, each output's
+error against its plain version, and the SASS opcode counts of the D = 16
+forward and dk/dv instantiations (``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -153,6 +159,51 @@ BWD_VARIANTS = {
 }
 
 
+# the fp32 kernels on the tensor cores (csrc/tf32_attention.cuh, flash_attention.cu, flash_attention_bwd.cu)
+_RNA = "__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }"
+_STAGES = "  static constexpr int kStages = 2;\n"
+F32_VARIANTS = {
+    "base": [],
+    # single TF32 products: what the two lo terms cost
+    "terms1": [("constexpr int kFwdTerms = 3;", "constexpr int kFwdTerms = 1;"),
+               ("constexpr int kDkvTerms = 3;", "constexpr int kDkvTerms = 1;")],
+    # the PTX rounding instruction instead of the two integer instructions
+    "cvt_rna": [(_RNA, "__device__ __forceinline__ uint32_t tf32_rna(float x) {\n  uint32_t r;\n"
+                       "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n  return r;\n}")],
+    # a two-stage ring at every head dim
+    # a three-stage ring in both kernels
+    "stages3": [(_STAGES, "  static constexpr int kStages = 3;"),
+                ("  static constexpr int kStages = 2;  // ring depth: deeper rings gained nothing (PERF.md)",
+                 "  static constexpr int kStages = 3;")],
+    # clock64 counters of the forward (every block's thread 0): cycles to the ring, in the loop, after it
+    "clocks": [
+        ('#include "tf32_attention.cuh"\n',
+         '#include "tf32_attention.cuh"\nstatic __device__ unsigned long long srhep_f32_clocks[16];\n'
+         "#define F32_CP(slot) { const long long _n = clock64(); dbg[slot] += _n - _tp; _tp = _n; }\n"),
+        ("  const bool in0 = r0 < Lq, in1 = r1 < Lq;\n",
+         "  const bool in0 = r0 < Lq, in1 = r1 < Lq;\n  const long long _tb = clock64();\n  long long _tp = _tb;\n"
+         "  long long dbg[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"),
+        ("    // the ring: NS stages; tile i in stage i % NS.", "    F32_CP(0);\n    // the ring: NS stages; tile i in stage i % NS."),
+        ("      tq_.push(nxt);\n    }\n    cp_async_wait<0>();\n  }\n\n  // ---- epilogue: row sums",
+         "      dbg[7] += 1;\n      tq_.push(nxt);\n    }\n    cp_async_wait<0>();\n  }\n\n  // ---- epilogue: row sums"),
+        ("    cp_async_wait<0>();\n  }\n\n  // ---- epilogue: row sums",
+         "    F32_CP(1);\n    cp_async_wait<0>();\n  }\n\n  // ---- epilogue: row sums"),
+        ("    if (in1) lp[r1] = dead ? kNegInf : m1 + log2f(den1);\n  }\n}",
+         "    if (in1) lp[r1] = dead ? kNegInf : m1 + log2f(den1);\n  }\n  F32_CP(2);\n"
+         "  if (threadIdx.x == 0) {\n    for (int i = 0; i < 8; ++i) atomicAdd(&srhep_f32_clocks[i], (unsigned long long)dbg[i]);\n"
+         "    atomicAdd(&srhep_f32_clocks[dead ? 9 : 8], 1ull);\n"
+         "    if (!dead) atomicAdd(&srhep_f32_clocks[10], (unsigned long long)(clock64() - _tb));\n  }\n}"),
+        ("// The band table of a packed batch (K7's bf16 kernel)",
+         'extern "C" int srhep_read_f32_clocks(void* host) {\n'
+         "  cudaMemcpyFromSymbol(host, srhep_f32_clocks, sizeof(srhep_f32_clocks));\n"
+         "  unsigned long long z[16] = {0};\n  return (int)cudaMemcpyToSymbol(srhep_f32_clocks, z, sizeof(z));\n}\n\n"
+         "// The band table of a packed batch (K7's bf16 kernel)")],
+    # more blocks an SM at D = 16 (fewer registers a thread)
+    "fwd_min_blocks": [("__launch_bounds__(kThreads)\nflash_fwd_f32_kernel(",
+                        "__launch_bounds__(kThreads, D == 16 ? 4 : 1)\nflash_fwd_f32_kernel(")],
+}
+
+
 def _build(files, compiled, variants, names, kernels, extra_sources=()):
     """Start one nvcc per variant: the edits go into the csrc/ ``files`` that
     hold their text, the variant's copies of ``files`` are written to a
@@ -273,6 +324,98 @@ def main_bwd(names):
         print(json.dumps(line), flush=True)
 
 
+def _sass_counts(lib_path, pattern):
+    """Opcode counts of the SASS of the first function matching ``pattern``."""
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib_path], capture_output=True, text=True).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = re.search(pattern, line) is not None
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def main_f32(names):
+    import torch
+
+    import chip_smoke as cs
+    from superresolutionhep_tpu_torch.ops import flash_attention as fa
+    from superresolutionhep_tpu_torch.ops import flash_packed as fp
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.scripts.common import graph_ms
+
+    names = names or list(F32_VARIANTS)
+    srcs = ("flash_attention.cu", "flash_attention_bwd.cu")
+    procs = _build(("tf32_attention.cuh", *srcs), srcs, F32_VARIANTS, names, kernels)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    H = 4
+    _, seg_np, _ = cs.packed_layout()
+    seg = torch.from_numpy(seg_np).to(dev)
+    shapes = {"d16": (32, 640, 16, None), "d64": (10, 2048, 64, None), "packed": (8, 5120, 64, seg)}
+    inputs = {}
+    for key, (B, L, D, sg) in shapes.items():
+        qkv = torch.randn(B, L, 3, H, D, generator=g, device=dev)
+        qkv[:, :, 0] *= (1.0 / D ** 0.5) * fa.LOG2E * 2.0
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        hf = fa._heads_first(q, k, v)
+        if sg is None:
+            valid, _ = cs.ragged_valid(B, L, dev)
+            m = valid.float().contiguous()
+            out, lse = fa._ref_attention_base2(*hf, m[:, None], m[:, None], "max", with_lse=True)
+            gr = torch.randn(B, L, H, D, generator=g, device=dev) * m[:, :, None, None]
+            dl = (out.permute(0, 2, 1, 3) * gr).sum(-1).transpose(1, 2).contiguous()
+            inputs[key] = {"fwd": (lambda q=q, k=k, v=v, m=m: fa._flash_fwd_cuda(q, k, v, m, m, nomax=False,
+                                                                                   with_lse=True)),
+                           "dkv": (lambda a=(q, k, v, gr, lse, dl, m, m): fa._flash_bwd_dkv_cuda(*a)),
+                           "ref_fwd": (out, lse),
+                           "ref_dkv": fa._ref_flash_bwd_dkv(*hf, gr.permute(0, 2, 1, 3), lse, dl, m[:, None])}
+        else:
+            out, lse = fp._ref_packed_fwd(*hf, sg, "max", with_lse=True)
+            gr = torch.randn(B, L, H, D, generator=g, device=dev) * (sg >= 0)[:, :, None, None]
+            dl = (out.permute(0, 2, 1, 3) * gr).sum(-1).transpose(1, 2).contiguous()
+            inputs[key] = {"fwd": (lambda q=q, k=k, v=v: fp._packed_fwd_cuda(q, k, v, sg, nomax=False, with_lse=True)),
+                           "dkv": (lambda a=(q, k, v, gr, lse, dl, sg): fp._packed_bwd_dkv_cuda(*a)),
+                           "ref_fwd": (out, lse),
+                           "ref_dkv": fp._ref_packed_bwd_dkv(*hf, gr.permute(0, 2, 1, 3), lse, dl, sg)}
+    fns = ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_flash_bwd_dkv", "srhep_packed_bwd_dkv", "srhep_packed_band")
+    for name, (p, d) in procs.items():
+        line = _build_line(name, p)
+        if not line["built"]:
+            continue
+        lib_path = os.path.join(d, "lib.so")
+        _load(lib_path, kernels, fns)
+        line["ms"], line["max_rel_err"] = {}, {}
+        for key, x in inputs.items():
+            for kind in ("fwd", "dkv"):
+                line["ms"][f"{kind}_{key}"] = graph_ms(x[kind], 20, chain=8)
+                got = x[kind]()
+                got = (got[0],) if kind == "fwd" else got
+                ref = (x["ref_fwd"][0],) if kind == "fwd" else x["ref_dkv"]
+                line["max_rel_err"][f"{kind}_{key}"] = max(
+                    ((a - b.permute(0, 2, 1, 3)).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
+        if hasattr(kernels._lib, "srhep_read_f32_clocks"):
+            buf = (ctypes.c_ulonglong * 16)()
+            kernels._lib.srhep_read_f32_clocks(buf)
+            for key in ("d16", "d64"):
+                inputs[key]["fwd"]()
+                torch.cuda.synchronize()
+                kernels._lib.srhep_read_f32_clocks(buf)
+                live = max(buf[8], 1)
+                line[f"clocks_fwd_{key}"] = {
+                    "live_blocks": buf[8], "dead_blocks": buf[9], "tiles_per_live_block": buf[7] / live,
+                    "cycles_per_live_block": buf[10] / live,
+                    **{n: buf[i] / live for i, n in enumerate(("prologue", "loop", "epilogue"))}}
+        line["sass_fwd_d16"] = _sass_counts(lib_path, r"flash_fwd_f32_kernelILi16ELb0ELb0E")
+        line["sass_dkv_d16"] = _sass_counts(lib_path, r"flash_bwd_dkv_f32_kernelILi16ELb0E")
+        print(json.dumps(line), flush=True)
+
+
 def main():
     sys.path.insert(0, os.getcwd())
     import torch
@@ -281,6 +424,8 @@ def main():
         raise SystemExit("fwd_variants: no CUDA device")
     if sys.argv[1:2] == ["bwd"]:
         return main_bwd(sys.argv[2:])
+    if sys.argv[1:2] == ["f32"]:
+        return main_f32(sys.argv[2:])
 
     import chip_smoke as cs
     from superresolutionhep_tpu_torch.ops import attention_probes as ap

@@ -8,7 +8,10 @@
 # (with names, only those mutations run).  The broken copies are made in a
 # fresh temporary directory, never in the repository.  Prints one
 # "MUTATION <name> exit=<code> ..." line per mutation; every exit code must be
-# non-zero and every ok_line count 0.
+# non-zero and every ok_line count 0.  With CASES set to names of
+# chip_smoke.py's case functions (e.g. CASES="fp32_tile_cases kernel_cases"),
+# only those run, past the build's ptxas gate: whether a check of the kernels'
+# results sees a mutation whose build the gate already refuses.
 ROOT=$(pwd)
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT
@@ -21,7 +24,17 @@ run() {  # name, sed expression, file
   sed -i "$2" "$3"
   after=$(md5sum "$3" | cut -d' ' -f1)
   if [ "$before" = "$after" ]; then echo "MUTATION $1 did not change $3"; exit 9; fi
-  SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --skip-train --reps 2 > out.txt 2> err.txt
+  if [ -n "$CASES" ]; then
+    SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 - $CASES > out.txt 2> err.txt <<'EOF'
+import inspect, sys
+import chip_smoke as cs
+for name in sys.argv[1:]:
+    fn = getattr(cs, name)
+    fn(2) if inspect.signature(fn).parameters else fn()
+EOF
+  else
+    SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --skip-train --reps 2 > out.txt 2> err.txt
+  fi
   rc=$?
   oks=$(grep -c '^{"ok": true' out.txt)
   echo "MUTATION $1 exit=$rc ok_line=$oks failing_cases=$(grep -c '"ok": false' out.txt)"
@@ -52,4 +65,8 @@ run segment_rows_pad_to_row0 's/? s : e1 - 1);/? s : 0);/' superresolutionhep_tp
 run qkv_ring_reads_wrong_stage 's/const uint32_t slab = ring_s + stage \* kFusedSlabBytes;/const uint32_t slab = ring_s + (stage + 1) % kQkvStages * kFusedSlabBytes;/' superresolutionhep_tpu_torch/csrc/fused_qkv.cu
 run mlp_ring_reads_wrong_stage 's/    return ring_s + stage \* kFusedSlabBytes;/    return ring_s + (stage + 1) % kMlpStages * kFusedSlabBytes;/' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
 run mlp_drops_second_layernorm 's/      warp_layernorm_rows<R>(v, NCH, F);  \/\/ u2 = LN(u)//' superresolutionhep_tpu_torch/csrc/fused_mlp.cu
+run fp32_fwd_single_tf32 's/constexpr int kFwdTerms = 3;/constexpr int kFwdTerms = 1;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run fp32_dkv_single_tf32 's/constexpr int kDkvTerms = 3;/constexpr int kDkvTerms = 1;/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run fp32_fwd_skips_rescale 's/for (int nt = 0; nt < NT; ++nt) rescale_rows(o\[nt\], al0, al1);/for (int nt = 0; nt < NT; ++nt) continue;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
+run fp32_dkv_sign_of_dl 's/(dpt\[j\]\[\([0-3]\)\] - dlc\.\([xy]\))/(dpt[j][\1] + dlc.\2)/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 exit $status
