@@ -44,11 +44,12 @@ just after, that they really went through the kernels.  Weights are random
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
 ``ptxas`` (registers, spills and serialised wgmma of the bf16 forward,
 backward and fused kernels and of the fp32 attention kernels; any spill or
-serialisation fails the run, except the fp32 dq body's, which is reported),
+serialisation fails the run),
 ``kernel_case`` lines (the bf16 backward also at head dims 16/32/64 and
 both tile heights, launched twice and equal bit for bit; the fp32 attention
 kernels at head dims 16/32/64 and on a guard at base-2 logits of std ~8,
-where single-TF32 products would miss the fp32 bounds), the scripts' own
+where single-TF32 products would miss the fp32 bounds; launched twice,
+equal bit for bit), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
 ``pf_inference``, ``pf_train``), then the card's name and power limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
@@ -85,7 +86,8 @@ TF32_SPLIT_TERMS = 3
 
 # tolerances against the plain version on the card, with their reasons
 TOL = {
-    # fp32: same arithmetic, another summation order (tiles of 32/64 keys, FMA chains)
+    # fp32: same arithmetic, another summation order (tiles of 32/64 keys; the
+    # attention kernels' products as three-term TF32 splits, ~2^-21 of each)
     ("flash", torch.float32): 2e-4,
     ("fused", torch.float32): 1e-4,
     # bf16: inputs and P rounded to 8 bits of mantissa, output rounded once more;
@@ -593,9 +595,10 @@ def ptxas_report():
     """Registers and spills of every instantiation of the bf16 forward and
     backward kernels, of the probes (the forward body at their modes and
     tiles), of the bf16 fused kernels and of the fp32 attention kernels (the
-    forward and dk/dv on the tensor cores, dq on FMA loops), and the
-    functions whose wgmma ptxas serialised (warnings C751x), from nvcc's
-    -Xptxas -v log."""
+    forward, dq and dk/dv on the tensor cores), and the functions whose
+    wgmma ptxas serialised (warnings C751x), from nvcc's -Xptxas -v log.
+    ``ok``: every kind has instantiations, none spills, no wgmma kernel is
+    serialised."""
     import re
 
     from superresolutionhep_tpu_torch.ops import kernels
@@ -644,11 +647,8 @@ def ptxas_report():
                                    "spill_stores": spill[0], "spill_loads": spill[1],
                                    "serialised": [s["code"] for s in serialised if s["function"] == name]})
                 name = None
-    # K5/K8's fp32 body (FMA loops, not yet redesigned) spills a few bytes at
-    # some head dims: reported, not gated
-    gated = {k: rs for k, rs in rows.items() if k != "flash_bwd_dq_f32_kernel"}
     ok = (all(rows.values()) and all(r["spill_stores"] == 0 and r["spill_loads"] == 0 and not r["serialised"]
-                                     for rs in gated.values() for r in rs)
+                                     for rs in rows.values() for r in rs)
           and not any(re.search(r"wgmma_kernel", s["function"]) for s in serialised))
     return {**rows, "serialised_wgmma": serialised, "ok": ok}
 
@@ -872,17 +872,22 @@ def bwd_tile_cases():
 
 
 def fp32_tile_cases():
-    """The fp32 attention kernels on the tensor cores (K1/K2 and K6, K7 and
-    K9 fp32, with K5/K8 fp32 beside them) at head dims 16, 32 and 64 against
+    """The fp32 attention kernels on the tensor cores (K1/K2, K5 and K6, K7,
+    K8 and K9 fp32) at head dims 16, 32 and 64 against
     the plain versions on the same CUDA tensors, from the forward kernel's
     own LSE: masked with Lq != Lk (the backward's neither a multiple of 64,
     keys ending inside tiles, fully padded key tiles), packed on
     ``band_rows``; then the guard: base-2 logits of std ~8 (q and k of std
     (8 / sqrt(D))^(1/2)), at which single TF32 products miss these bounds
-    (``tests/test_torch_port_fp32_split.py``), forward and dk/dv at D = 16
-    and 64.  Forward outputs are held absolutely to TOL["flash"] (the LSE to
-    TOL["lse"]), backward outputs to TOL["flash_bwd"] of each output's max;
-    padding exactly 0; dk/dv launched twice, equal bit for bit."""
+    (``tests/test_torch_port_fp32_split.py``), forward, dq and dk/dv at D =
+    16 and 64; then offset keys at (4, 2048, 4, 16): head-dim column 0 of
+    every key 100 times its spread and 0 in every query, so that the logits
+    do not see it but dQ's running sums along it reach ~100x dQ (the tensor
+    cores round an mma's sum toward zero: dQ summed as one chain misses the
+    bound there, each 8-key step summed apart meets it, PERF.md §6).  Forward
+    outputs are held absolutely to TOL["flash"] (the LSE to TOL["lse"]),
+    backward outputs to TOL["flash_bwd"] of each output's max; padding exactly
+    0; dq and dk/dv launched twice, equal bit for bit."""
     from superresolutionhep_tpu_torch.ops import flash_attention as fa
     from superresolutionhep_tpu_torch.ops import flash_packed as fp
     from superresolutionhep_tpu_torch.ops import kernels
@@ -931,7 +936,7 @@ def fp32_tile_cases():
         cases.append(case)
         emit({"phase": "kernel_case", **case})
 
-    def masked(B, Lq, Lk, D, qlens, klens, logit_std, label):
+    def masked(B, Lq, Lk, D, qlens, klens, logit_std, label, k_offset=0.0):
         qvalid = torch.arange(Lq, device=dev)[None, :] < torch.tensor(qlens, device=dev)[:, None]
         kvalid = torch.arange(Lk, device=dev)[None, :] < torch.tensor(klens, device=dev)[:, None]
         qm, km = qvalid.float().contiguous(), kvalid.float().contiguous()
@@ -940,6 +945,9 @@ def fp32_tile_cases():
         kv = torch.randn(B, Lk, 3, H, D, generator=gen, device=dev)
         kv[:, :, 0] *= sd
         q, k, v = qb[:, :, 1], kv[:, :, 0], kv[:, :, 2]
+        if k_offset:
+            q[..., 0] = 0.0
+            k[..., 0] += k_offset * sd
         qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
         ref, ref_lse = fa._ref_attention_base2(qh, kh, vh, qm[:, None], km[:, None], "max", with_lse=True)
         shape = {"case": label, "B": B, "H": H, "Lq": Lq, "L": Lk, "D": D}
@@ -958,16 +966,16 @@ def fp32_tile_cases():
         ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fa._ref_flash_bwd_dkv(*ref_args))
         got, again = launch("flash_bwd_dkv", lambda: fa._flash_bwd_dkv_cuda(*args), 2)
         bwd("flash_bwd_dkv", shape, got, (ref_dk, ref_dv), ~kvalid, again)
-        if label == "tiles":
-            (dq,), = launch("flash_bwd_dq", lambda: (fa._flash_bwd_dq_cuda(*args),))
-            bwd("flash_bwd_dq", shape, (dq,), (fa._ref_flash_bwd_dq(*ref_args).permute(0, 2, 1, 3),), ~qvalid)
+        got, again = launch("flash_bwd_dq", lambda: (fa._flash_bwd_dq_cuda(*args),), 2)
+        bwd("flash_bwd_dq", shape, got, (fa._ref_flash_bwd_dq(*ref_args).permute(0, 2, 1, 3),), ~qvalid, again)
 
     for D in (16, 32, 64):
         masked(3, 602, 1000, D, [602, 589, 300], [1000, 517, 70], 2.9, "tiles")
     for D in (16, 64):
         masked(4, 640, 640, D, [640, 627, 321, 1], [640, 627, 321, 1], 8.0, "guard")
+    masked(4, 2048, 2048, 16, [2048] * 4, [2048] * 4, 2.9, "offset_keys", k_offset=100.0)
 
-    # ---- K7 / K9 (K8) on rows with bands of one tile, several and none
+    # ---- K7, K8, K9 on rows with bands of one tile, several and none
     seg = torch.from_numpy(band_rows()).to(dev)
     Bs, S = seg.shape
     pad = seg < 0
@@ -990,8 +998,8 @@ def fp32_tile_cases():
         ref_dk, ref_dv = (t.permute(0, 2, 1, 3) for t in fp._ref_packed_bwd_dkv(*ref_args))
         got, again = launch("packed_bwd_dkv", lambda: fp._packed_bwd_dkv_cuda(*args), 2)
         bwd("packed_bwd_dkv", shape, got, (ref_dk, ref_dv), pad, again)
-        (dq,), = launch("packed_bwd_dq", lambda: (fp._packed_bwd_dq_cuda(*args),))
-        bwd("packed_bwd_dq", shape, (dq,), (fp._ref_packed_bwd_dq(*ref_args).permute(0, 2, 1, 3),), pad)
+        got, again = launch("packed_bwd_dq", lambda: (fp._packed_bwd_dq_cuda(*args),), 2)
+        bwd("packed_bwd_dq", shape, got, (fp._ref_packed_bwd_dq(*ref_args).permute(0, 2, 1, 3),), pad, again)
 
     bad = [c for c in cases if not c["ok"]]
     if bad:

@@ -60,51 +60,6 @@ template <bool SEG> __device__ __forceinline__ bool query_valid(const void* qmas
   return SEG ? static_cast<const int*>(qmask)[i] >= 0 : static_cast<const float*>(qmask)[i] > 0.f;
 }
 
-// The band of a segment-packed block: the first and last BT-wide tile of the
-// other axis (keys for a block of queries, queries for a block of keys) that
-// holds a cell of any segment present among the block's valid rows.  Valid
-// ids are nondecreasing along the row (the packer's contract), so every cell
-// of those segments lies inside it; all-pad tiles inside are masked, not
-// skipped.  Each thread passes its rows' (id, valid) pairs (up to two); one
-// coalesced pass over the row's L ids.  Returns (first, last), last < first
-// when the block has no valid row.  Block-uniform; every thread must call it.
-template <int BT>
-__device__ __forceinline__ int2 segment_band(const int* __restrict__ seg_row, int L, int id0, bool v0, int id1,
-                                             bool v1) {
-  __shared__ int sh[4];  // smallest and largest id of the block, first and last cell of the band
-  if (threadIdx.x == 0) {
-    sh[0] = 0x7fffffff;
-    sh[1] = -1;
-    sh[2] = 0x7fffffff;
-    sh[3] = -1;
-  }
-  __syncthreads();
-  if (v0) {
-    atomicMin(&sh[0], id0);
-    atomicMax(&sh[1], id0);
-  }
-  if (v1) {
-    atomicMin(&sh[0], id1);
-    atomicMax(&sh[1], id1);
-  }
-  __syncthreads();
-  const int smin = sh[0], smax = sh[1];
-  int first = 0x7fffffff, last = -1;
-  for (int p = threadIdx.x; p < L; p += kThreads) {
-    const int s = seg_row[p];
-    if (s >= smin && s <= smax) {
-      first = min(first, p);
-      last = max(last, p);
-    }
-  }
-  if (last >= 0) {
-    atomicMin(&sh[2], first);
-    atomicMax(&sh[3], last);
-  }
-  __syncthreads();
-  return sh[3] < 0 ? make_int2(0, -1) : make_int2(sh[2] / BT, sh[3] / BT);
-}
-
 // 16 bytes of padding per shared-memory row: consecutive rows then start 16
 // bytes apart modulo 128, so 16-byte reads of 8 consecutive rows hit distinct banks.
 template <typename T> struct Pad { static constexpr int value = 16 / (int)sizeof(T); };

@@ -72,11 +72,11 @@
 //     part overlaps the other's products;
 //   * the outputs leave in the input dtype through the block's own (no
 //     longer needed) tiles as swizzled staging, one TMA store each.
-// The fp32 build: dk/dv (flash_bwd_dkv_f32_kernel) takes its four products
-// on the tensor cores as three-term TF32 splits (tf32_attention.cuh; its
-// section says what holds it); dq (flash_bwd_dq_f32_kernel) is still FMA
-// loops, two threads a row, no tensor cores, and finds its packed band itself
-// (common.cuh::segment_band).
+// The fp32 build: dk/dv (flash_bwd_dkv_f32_kernel, four products) and dq
+// (flash_bwd_dq_f32_kernel, three) take their products on the tensor cores
+// as three-term TF32 splits (tf32_attention.cuh), on one design with the
+// roles of the axes swapped, and find their band of streamed tiles
+// themselves (a flag per tile); their sections say what holds them.
 #include "common.cuh"
 #include "tf32_attention.cuh"
 
@@ -755,141 +755,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 
 
 // ---------------------------------------------------------------------------
-// fp32: two threads per row (each holds half of D; dot products meet through
-// one shuffle), 64 rows per block, streamed tiles of 32 rows through shared
-// memory (both threads of a row read the same tile row: a broadcast).
-// ---------------------------------------------------------------------------
-namespace bwd {
-
-constexpr int BR = 64;    // rows per block
-constexpr int BT32 = 32;  // rows of a streamed tile
-
-template <int D>
-__device__ __forceinline__ void load_half_row(float (&r)[D / 2], const float* __restrict__ base, Strides s, int b,
-                                              int h, int row, bool in_range, int half) {
-  const float* p = base + (size_t)b * s.b + (size_t)(in_range ? row : 0) * s.l + (size_t)h * s.h + half * (D / 2);
-#pragma unroll
-  for (int d = 0; d < D / 2; d += 4) {
-    const float4 x = in_range ? *reinterpret_cast<const float4*>(p + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[d] = x.x;
-    r[d + 1] = x.y;
-    r[d + 2] = x.z;
-    r[d + 3] = x.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void stage_rows_f32(float* S, const float* __restrict__ base, Strides s, int b, int h,
-                                               int row0, int L) {
-  constexpr int CPR = D / 4;
-  for (int c = threadIdx.x; c < BT32 * CPR; c += kThreads) {
-    const int r = c / CPR, cc = c % CPR;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < L)
-      x = *reinterpret_cast<const float4*>(base + (size_t)b * s.b + (size_t)(row0 + r) * s.l + (size_t)h * s.h + 4 * cc);
-    *reinterpret_cast<float4*>(&S[r * D + 4 * cc]) = x;
-  }
-}
-
-// dot product of a register half-row with half a shared-memory row, summed
-// over the two threads of the row
-template <int D>
-__device__ __forceinline__ float dot_pair(const float (&r)[D / 2], const float* srow) {
-  float a = 0.f;
-#pragma unroll
-  for (int d = 0; d < D / 2; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(srow + d);
-    a = fmaf(r[d], x.x, a);
-    a = fmaf(r[d + 1], x.y, a);
-    a = fmaf(r[d + 2], x.z, a);
-    a = fmaf(r[d + 3], x.w, a);
-  }
-  return a + __shfl_xor_sync(0xffffffffu, a, 1);
-}
-
-template <int D>
-__device__ __forceinline__ void axpy_half(float (&acc)[D / 2], float a, const float* srow) {
-#pragma unroll
-  for (int d = 0; d < D / 2; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(srow + d);
-    acc[d] = fmaf(a, x.x, acc[d]);
-    acc[d + 1] = fmaf(a, x.y, acc[d + 1]);
-    acc[d + 2] = fmaf(a, x.z, acc[d + 2]);
-    acc[d + 3] = fmaf(a, x.w, acc[d + 3]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_half_row(float* __restrict__ out, const float (&acc)[D / 2], int b, int h,
-                                               int H, int row, int L, int half) {
-  if (row >= L) return;
-  float* p = out + (((size_t)b * L + row) * H + h) * D + half * (D / 2);
-#pragma unroll
-  for (int d = 0; d < D / 2; d += 4)
-    *reinterpret_cast<float4*>(p + d) = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
-}
-
-}  // namespace bwd
-
-template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                        const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
-                        const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ dq,
-                        int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
-  using namespace bwd;
-  constexpr int HD = D / 2;
-  __shared__ __align__(16) float Ks[BT32 * D];
-  __shared__ __align__(16) float Vs[BT32 * D];
-  __shared__ int kid[BT32];
-
-  const int tid = threadIdx.x, half = tid & 1;
-  const int row = blockIdx.x * BR + (tid >> 1), h = blockIdx.y, b = blockIdx.z;
-  const bool in_range = row < Lq;
-  const bool my_valid = in_range && query_valid<SEG>(qmask, (size_t)b * Lq + row);
-  const int my_qid = in_range ? query_id<SEG>(qmask, (size_t)b * Lq + row) : kPadSeg;
-  const int live_q = __syncthreads_or(my_valid);
-
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-
-  if (live_q) {
-    float qr[HD], gr[HD];
-    load_half_row<D>(qr, q, qs, b, h, row, in_range, half);
-    load_half_row<D>(gr, g, gs, b, h, row, in_range, half);
-    const size_t rb = ((size_t)b * H + h) * Lq;
-    const float lse_r = in_range ? lse[rb + row] : 0.f, dl_r = in_range ? dl[rb + row] : 0.f;
-
-    const int2 band = SEG ? segment_band<BT32>(static_cast<const int*>(kmask) + (size_t)b * Lk, Lk, my_qid, my_valid,
-                                               0, false)
-                          : make_int2(0, (Lk + BT32 - 1) / BT32 - 1);
-    for (int kt = band.x; kt <= band.y; ++kt) {
-      const int k0 = kt * BT32;
-      __syncthreads();
-      int my_kid = kNoKey;
-      if (tid < BT32) {
-        my_kid = (k0 + tid) < Lk ? key_id<SEG>(kmask, (size_t)b * Lk + k0 + tid) : kNoKey;
-        kid[tid] = my_kid;
-      }
-      if (!__syncthreads_or(my_kid >= 0)) continue;
-      stage_rows_f32<D>(Ks, k, ks, b, h, k0, Lk);
-      stage_rows_f32<D>(Vs, v, vs, b, h, k0, Lk);
-      __syncthreads();
-#pragma unroll 4
-      for (int j = 0; j < BT32; ++j) {
-        const float* kj = &Ks[j * D + half * HD];
-        const float s = dot_pair<D>(qr, kj);
-        const float dp = dot_pair<D>(gr, &Vs[j * D + half * HD]);
-        const float p = exp2f(fminf((s + (kid[j] == my_qid ? 0.f : -kBig)) - lse_r, 0.f));
-        axpy_half<D>(acc, p * (dp - dl_r), kj);
-      }
-    }
-  }
-  store_half_row<D>(dq, acc, b, h, H, row, Lq, half);
-}
-
-// ---------------------------------------------------------------------------
 // fp32 dk/dv (K6, K9 on fp32 operands: PF training, SR training at "default"
 // precision): the four products on the tensor cores as three-term TF32
 // splits (tf32_attention.cuh), fp32-faithful, deterministic (no atomics).
@@ -917,12 +782,18 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 // ---------------------------------------------------------------------------
 constexpr int kDkvTerms = 3;  // terms of each split product (1: single TF32)
 
-template <int D> struct DkvF32 {
+// The fp32 backward kernels' dynamic shared memory (dk/dv: ROWS = 3, OWN =
+// 2; dq: ROWS = 1, OWN = 2 or 4): OWN arrays of A fragments of the block's
+// own rows (dk/dv: K, V; dq: Q, G raw, or each split into hi and lo); a ring
+// of stages, each a tile of the two streamed operands (dk/dv: Q, G; dq: K,
+// V) and ROWS rows of 64 32-bit values (dk/dv: lse, dl, query ids; dq: key
+// ids); a flag per streamed tile.
+template <int D, int ROWS, int OWN> struct BwdF32 {
   static constexpr int kStages = 2;  // ring depth: deeper rings gained nothing (PERF.md)
-  static constexpr int kLd = D + 4;  // Q and G rows: 4-byte reads at (g, t) and at (2t, g) hit distinct banks
-  static constexpr int kOwnBytes = 2 * kF32Rows * D * 4;  // K and V of the block's rows, raw A fragments
+  static constexpr int kLd = D + 4;  // streamed rows: 4-byte reads at (g, t) and at (2t, g) hit distinct banks
+  static constexpr int kOwnBytes = OWN * kF32Rows * D * 4;
   static constexpr int kTileBytes = kF32Tile * kLd * 4;
-  static constexpr int kStageBytes = 2 * kTileBytes + 3 * kF32Tile * 4;  // Q, G, then lse, dl, query ids
+  static constexpr int kStageBytes = 2 * kTileBytes + ROWS * kF32Tile * 4;
   static constexpr int smem_bytes(int n_tiles) {
     return kOwnBytes + kStages * kStageBytes + ((n_tiles + 15) & ~15);
   }
@@ -930,7 +801,7 @@ template <int D> struct DkvF32 {
 
 // q, k, v, g: (B, L, H, D) fp32 views with D contiguous; lse, dl (B, H, Lq);
 // one block per (key tile of 64, head, batch row); dynamic shared memory
-// DkvF32<D>::smem_bytes.
+// BwdF32<D, 3, 2>::smem_bytes.
 template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -938,7 +809,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ dk,
                          float* __restrict__ dv, int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
                          Strides gs) {
-  using T = DkvF32<D>;
+  using T = BwdF32<D, 3, 2>;
   constexpr int KS = D / 8, NT = D / 8, NJ = kF32Tile / 8;  // k-steps over D, output n-tiles, query n-tiles
   // query steps a pass takes: at D = 64 a tile goes in two halves of 32
   // queries (S^T and dP^T for 64 queries beside the dK, dV accumulators spilled)
@@ -1117,6 +988,227 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// fp32 dq (K5, K8 on fp32 operands: PF training, SR training at "default"
+// precision): dk/dv's design with the roles of the two axes swapped, its
+// three products (S = Q K^T, dP = G V^T, dQ += dS K) on the tensor cores as
+// three-term TF32 splits (tf32_attention.cuh), fp32-faithful, deterministic.
+//
+// What bounds it: at D = 16 (PF) the least time is the split products (3
+// TF32 products for each of the 6*D flops a pair, ~11 us at (32, 640, 4,
+// 16)); beside them each warp reads and splits every K value of a streamed
+// tile twice, once in each of the two orders the products read it (as the B
+// operand of S = Q K^T, and of dQ += dS K), every V value once, dS once, and
+// runs the elementwise part (mask select, - lse, min, exp2, - dl, multiply)
+// beside one exp2 a pair.  On the card the products' mma.sync rate holds it,
+// as it does dk/dv (PERF.md §6: with single TF32 products, a third of the
+// mma.sync, it takes 0.039 against 0.068 ms at (32, 640, 4, 16); S and dP
+// take about half of a block's cycles, dQ a fifth).  The design: a block of
+// 4 warps owns 64 query rows; their Q and G A fragments are stored once in
+// shared memory in fragment order (dq_own_split), their lse and dl wait in
+// registers; K and V tiles with their key ids stream through a two-stage
+// cp.async ring (one barrier a tile) whose rows (D + 4 floats) make K's
+// reads in both orders free of bank conflicts; dS goes from the accumulator
+// into the A operand of dQ with no shuffle (K's rows read at 2t, 2t + 1,
+// tf32_attention.cuh); each 8-key step of dQ is summed apart and added in
+// fp32 (add_frag); at D = 64 a tile goes in two halves of 32 keys
+// (registers); only key tiles with a key of the block's ids are visited.
+// ---------------------------------------------------------------------------
+constexpr int kDqTerms = 3;  // terms of each split product (1: single TF32)
+
+// The block's own Q and G fragments: at D = 16 split once, hi and lo, into
+// shared memory (four 16-byte reads a k-step, no split in the loop: ~5%
+// faster); from D = 32 raw (two 16-byte reads and two splits a k-step: split,
+// they took a block an SM at D = 64, +14%) (PERF.md §6).
+template <int D> __host__ __device__ constexpr bool dq_own_split() { return D == 16; }
+template <int D> using DqSmem = BwdF32<D, 1, dq_own_split<D>() ? 4 : 2>;
+
+
+// q, k, v, g: (B, L, H, D) fp32 views with D contiguous; lse, dl (B, H, Lq);
+// dq (B, Lq, H, D) contiguous; one block per (query tile of 64, head, batch
+// row); dynamic shared memory DqSmem<D>::smem_bytes.
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ dl,
+                        const void* __restrict__ qmask, const void* __restrict__ kmask, float* __restrict__ dq,
+                        int H, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides gs) {
+  using T = DqSmem<D>;
+  constexpr int KS = D / 8, NT = D / 8, NJ = kF32Tile / 8;  // k-steps over D, output n-tiles, key n-tiles
+  // key steps a pass takes: at D = 64 a tile goes in two halves of 32 keys
+  // (S and dP for 64 keys beside the dQ accumulators), as dk/dv's queries
+  constexpr int NJS = D == 64 ? NJ / 2 : NJ;
+  constexpr int NS = T::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* own = reinterpret_cast<uint4*>(smem);  // [Q, G] or [Q hi, Q lo, G hi, G lo]; [warp][k-step][lane]
+  unsigned char* ring = smem + T::kOwnBytes;
+  unsigned char* live = ring + NS * T::kStageBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, nkt = (Lk + kF32Tile - 1) / kF32Tile;
+  const int r0 = blockIdx.x * kF32Rows + warp * 16 + gq, r1 = r0 + 8;  // this thread's query rows
+  auto slot = [&](int a, int kk) { return ((4 * a + warp) * KS + kk) * 32 + lane; };  // this thread's, of array a
+  const bool in0 = r0 < Lq, in1 = r1 < Lq;
+  const size_t qrow = (size_t)b * Lq;
+  const bool val0 = in0 && query_valid<SEG>(qmask, qrow + r0), val1 = in1 && query_valid<SEG>(qmask, qrow + r1);
+  // the ids the rows compare the keys' with: segment ids, or with padding
+  // masks 0 for every row
+  const int qid0 = SEG ? (in0 ? query_id<SEG>(qmask, qrow + r0) : kPadSeg) : 0;
+  const int qid1 = SEG ? (in1 ? query_id<SEG>(qmask, qrow + r1) : kPadSeg) : 0;
+  // this thread's A fragments of Q and G (rows r0, r1; head-dim columns
+  // 8kk + t, 8kk + t + 4), raw or split, into its own slots (before the
+  // first barrier, so that the loads' latency overlaps it)
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const float* q0p = q + (size_t)b * qs.b + (size_t)(in0 ? r0 : 0) * qs.l + (size_t)h * qs.h + 8 * kk + tq;
+    const float* q1p = q + (size_t)b * qs.b + (size_t)(in1 ? r1 : 0) * qs.l + (size_t)h * qs.h + 8 * kk + tq;
+    const float* g0p = g + (size_t)b * gs.b + (size_t)(in0 ? r0 : 0) * gs.l + (size_t)h * gs.h + 8 * kk + tq;
+    const float* g1p = g + (size_t)b * gs.b + (size_t)(in1 ? r1 : 0) * gs.l + (size_t)h * gs.h + 8 * kk + tq;
+    const float4 qf = make_float4(in0 ? q0p[0] : 0.f, in1 ? q1p[0] : 0.f, in0 ? q0p[4] : 0.f, in1 ? q1p[4] : 0.f);
+    const float4 gf = make_float4(in0 ? g0p[0] : 0.f, in1 ? g1p[0] : 0.f, in0 ? g0p[4] : 0.f, in1 ? g1p[4] : 0.f);
+    if constexpr (dq_own_split<D>()) {
+      uint32_t hi[4], lo[4];
+      split_frag(qf.x, qf.y, qf.z, qf.w, hi, lo);
+      own[slot(0, kk)] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      own[slot(1, kk)] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      split_frag(gf.x, gf.y, gf.z, gf.w, hi, lo);
+      own[slot(2, kk)] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      own[slot(3, kk)] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      own[slot(0, kk)] = make_uint4(__float_as_uint(qf.x), __float_as_uint(qf.y), __float_as_uint(qf.z),
+                                    __float_as_uint(qf.w));
+      own[slot(1, kk)] = make_uint4(__float_as_uint(gf.x), __float_as_uint(gf.y), __float_as_uint(gf.z),
+                                    __float_as_uint(gf.w));
+    }
+  }
+  // the split A fragments of Q and G at k-step kk
+  auto own_frags = [&](int kk, uint32_t (&qh)[4], uint32_t (&ql)[4], uint32_t (&gh)[4], uint32_t (&gl)[4]) {
+    if constexpr (dq_own_split<D>()) {
+      const uint4 a = own[slot(0, kk)], c = own[slot(1, kk)], e = own[slot(2, kk)], f = own[slot(3, kk)];
+      qh[0] = a.x, qh[1] = a.y, qh[2] = a.z, qh[3] = a.w;
+      ql[0] = c.x, ql[1] = c.y, ql[2] = c.z, ql[3] = c.w;
+      gh[0] = e.x, gh[1] = e.y, gh[2] = e.z, gh[3] = e.w;
+      gl[0] = f.x, gl[1] = f.y, gl[2] = f.z, gl[3] = f.w;
+    } else {
+      const uint4 qa = own[slot(0, kk)], ga = own[slot(1, kk)];
+      split_frag(__uint_as_float(qa.x), __uint_as_float(qa.y), __uint_as_float(qa.z), __uint_as_float(qa.w), qh, ql);
+      split_frag(__uint_as_float(ga.x), __uint_as_float(ga.y), __uint_as_float(ga.z), __uint_as_float(ga.w), gh, gl);
+    }
+  };
+  const size_t rb = ((size_t)b * H + h) * Lq;
+  const float lse0 = in0 ? lse[rb + r0] : 0.f, lse1 = in1 ? lse[rb + r1] : 0.f;
+  const float dl0 = in0 ? dl[rb + r0] : 0.f, dl1 = in1 ? dl[rb + r1] : 0.f;
+  // padding masks: a key tile is live if it holds a valid key, whatever the queries
+  if (!SEG) flag_live_tiles<SEG>(kmask, (size_t)b * Lk, Lk, make_int2(0, 0), live);
+  const int2 ids = block_id_range(val0, qid0, val1, qid1);
+
+  float dqa[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.f;
+
+  if (ids.x <= ids.y) {
+    if (SEG) {  // segments: a key tile is live if it holds a key of the block's segments
+      flag_live_tiles<SEG>(kmask, (size_t)b * Lk, Lk, ids, live);
+      __syncthreads();
+    }
+    auto stage = [&](int s) { return ring + s * T::kStageBytes; };
+    auto issue = [&](int s, int kt) {
+      unsigned char* st = stage(s);
+      tile_async<D, T::kLd>(reinterpret_cast<float*>(st), k, ks, b, h, kt * kF32Tile, Lk);
+      tile_async<D, T::kLd>(reinterpret_cast<float*>(st + T::kTileBytes), v, vs, b, h, kt * kF32Tile, Lk);
+      row_async(st + 2 * T::kTileBytes, static_cast<const unsigned char*>(kmask) + (size_t)b * Lk * 4,
+                kt * kF32Tile, Lk);
+    };
+    TileQueue<NS> tq_;
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      tq_.pend[s] = tq_.advance(live, nkt);
+      if (tq_.pend[s] < nkt) issue(s, tq_.pend[s]);
+      cp_async_commit();
+    }
+    for (int i = 0; tq_.pend[0] < nkt; ++i) {
+      const int cur = tq_.pend[0], s = i % NS;
+      cp_async_wait<NS - 2>();  // this thread's copies of tile i have landed
+      unsigned char* st = stage(s);
+      const float* Ks = reinterpret_cast<const float*>(st);
+      const float* Vs = reinterpret_cast<const float*>(st + T::kTileBytes);
+      int* kid = reinterpret_cast<int*>(st + 2 * T::kTileBytes);
+      ids_in_place<SEG, true>(kid, cur * kF32Tile, Lk);
+      __syncthreads();
+      // one barrier a tile: tile i is visible, and every warp is past tile
+      // i - 1, whose stage takes the copy of tile i + NS - 1
+      const int nxt = tq_.advance(live, nkt);
+      if (nxt < nkt) issue((i + NS - 1) % NS, nxt);
+      cp_async_commit();
+
+#pragma unroll 1
+      for (int sub = 0; sub < NJ / NJS; ++sub) {  // a loop: unrolled, ptxas hoisted the halves into each other and spilled
+        const int j0 = sub * NJS;
+        // ---- S = Q K^T and dP = G V^T: 16 queries x 8 NJS keys a warp
+        // (c: query rows g, g+8; keys 8(j0 + j) + 2t, +1)
+        float sc[NJS][4], dp[NJS][4];
+#pragma unroll
+        for (int j = 0; j < NJS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll  // unrolled at every head dim: unlike dk/dv's, no spill (PERF.md §6)
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t qh[4], ql[4], gh[4], gl[4];
+          own_frags(kk, qh, ql, gh, gl);
+#pragma unroll
+          for (int j = 0; j < NJS; ++j) {
+            const int o = (8 * (j0 + j) + gq) * T::kLd + 8 * kk + tq;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(Ks[o], bh0, bl0);
+            split_tf32(Ks[o + 4], bh1, bl1);
+            mma_split<kDqTerms>(sc[j], qh, ql, bh0, bh1, bl0, bl1);
+            split_tf32(Vs[o], bh0, bl0);
+            split_tf32(Vs[o + 4], bh1, bl1);
+            mma_split<kDqTerms>(dp[j], gh, gl, bh0, bh1, bl0, bl1);
+          }
+        }
+
+        // ---- P = exp2(min(s - lse, 0)) on attended pairs, dS = P (dP - dl)
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          const int2 id = *reinterpret_cast<const int2*>(kid + 8 * (j0 + j) + 2 * tq);
+          dp[j][0] = ex2(fminf((id.x == qid0 ? sc[j][0] : kNegInf) - lse0, 0.f)) * (dp[j][0] - dl0);
+          dp[j][1] = ex2(fminf((id.y == qid0 ? sc[j][1] : kNegInf) - lse0, 0.f)) * (dp[j][1] - dl0);
+          dp[j][2] = ex2(fminf((id.x == qid1 ? sc[j][2] : kNegInf) - lse1, 0.f)) * (dp[j][2] - dl1);
+          dp[j][3] = ex2(fminf((id.y == qid1 ? sc[j][3] : kNegInf) - lse1, 0.f)) * (dp[j][3] - dl1);
+        }
+
+        // ---- dQ += dS K: dS's accumulator is the A operand (keys 8j + 2t,
+        // +1), K's rows read in that order
+#pragma unroll
+        for (int j = 0; j < NJS; ++j) {
+          uint32_t dh[4], dlo[4];
+          split_frag(dp[j][0], dp[j][2], dp[j][1], dp[j][3], dh, dlo);
+          const int o = (8 * (j0 + j) + 2 * tq) * T::kLd + gq;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t bh0, bl0, bh1, bl1;
+            float t[4] = {0.f, 0.f, 0.f, 0.f};  // each step summed apart (add_frag)
+            split_tf32(Ks[o + 8 * nt], bh0, bl0);
+            split_tf32(Ks[o + T::kLd + 8 * nt], bh1, bl1);
+            mma_split<kDqTerms>(t, dh, dlo, bh0, bh1, bl0, bl1);
+            add_frag(dqa[nt], t);
+          }
+        }
+      }
+      tq_.push(nxt);
+    }
+    cp_async_wait<0>();
+  }
+
+  // ---- epilogue: rows of padded queries exactly 0
+  const size_t o0 = (((size_t)b * Lq + r0) * H + h) * D + 2 * tq, o1 = (((size_t)b * Lq + r1) * H + h) * D + 2 * tq;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (in0) *reinterpret_cast<float2*>(dq + o0 + 8 * nt) = val0 ? make_float2(dqa[nt][0], dqa[nt][1]) : make_float2(0.f, 0.f);
+    if (in1) *reinterpret_cast<float2*>(dq + o1 + 8 * nt) = val1 ? make_float2(dqa[nt][2], dqa[nt][3]) : make_float2(0.f, 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch: the bf16 kernels by tensor maps (block_rows 64 or 128: NC = 1 or
 // 2), the fp32 kernels by strides
 // ---------------------------------------------------------------------------
@@ -1128,6 +1220,9 @@ template <int D, bool SEG, int NC> static cudaError_t bwd_opt_in_smem() {
                              BwdSmem<D, NC, true>::kBytes);
   if (e == cudaSuccess && NC == 1)
     e = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kF32MaxSmem);
+  if (e == cudaSuccess && NC == 1)
+    e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kF32MaxSmem);
   return e;
 }
@@ -1169,8 +1264,12 @@ static int launch_dq(const void* q, const void* k, const void* v, const void* g,
                      Strides qs, Strides ks, Strides vs, Strides gs, int is_bf16, int block_rows, int ldr,
                      cudaStream_t stream) {
   if (!is_bf16) {
-    const dim3 grid((Lq + bwd::BR - 1) / bwd::BR, H, B);
-    flash_bwd_dq_f32_kernel<D, SEG><<<grid, kThreads, 0, stream>>>(
+    const cudaError_t opt = bwd_opt_in_all();
+    if (opt != cudaSuccess) return (int)opt;
+    const int smem = DqSmem<D>::smem_bytes((Lk + kF32Tile - 1) / kF32Tile);
+    if (smem > kF32MaxSmem) return (int)cudaErrorInvalidValue;
+    const dim3 grid((Lq + kF32Rows - 1) / kF32Rows, H, B);
+    flash_bwd_dq_f32_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<const float*>(dl), qmask, kmask,
         static_cast<float*>(dq), H, Lq, Lk, qs, ks, vs, gs);
@@ -1203,7 +1302,7 @@ static int launch_dkv(const void* q, const void* k, const void* v, const void* g
   if (!is_bf16) {
     const cudaError_t opt = bwd_opt_in_all();
     if (opt != cudaSuccess) return (int)opt;
-    const int smem = DkvF32<D>::smem_bytes((Lq + kF32Tile - 1) / kF32Tile);
+    const int smem = BwdF32<D, 3, 2>::smem_bytes((Lq + kF32Tile - 1) / kF32Tile);
     if (smem > kF32MaxSmem) return (int)cudaErrorInvalidValue;
     const dim3 grid((Lk + kF32Rows - 1) / kF32Rows, H, B);
     flash_bwd_dkv_f32_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(

@@ -1,6 +1,7 @@
 // What the fp32 attention kernels built on Hopper's tensor cores share
 // (flash_attention.cu::flash_fwd_f32_kernel, K1/K2/K7 in fp32, and
-// flash_attention_bwd.cu::flash_bwd_dkv_f32_kernel, K6/K9 in fp32):
+// flash_attention_bwd.cu::flash_bwd_dq_f32_kernel and ::flash_bwd_dkv_f32_kernel,
+// K5/K8 and K6/K9 in fp32):
 //
 //   * fp32-accurate products from TF32 ones: mma.sync m16n8k8 with each fp32
 //     operand x split into hi = rna(x) and lo = rna(x - hi) (x - hi is exact
@@ -68,8 +69,8 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4]
 // one accumulator that bias adds up coherently, and where the result is small
 // against its running sum (an attention output that averages many values, a
 // gradient summed over many rows) it moved O by ~2e-5 of its size and failed
-// a train step's gradient check at 1e-3.  So the long sums (O, dK, dV: every
-// key or query of the row) take the split products of each 8-deep step into
+// a train step's gradient check at 1e-3.  So the long sums (O, dQ, dK, dV:
+// every key or query of the row) take the split products of each 8-deep step into
 // a fresh accumulator t and add it to d (two steps a t spilled at D = 64);
 // the short ones over the head dim (S, dP) stay one chain.
 __device__ __forceinline__ void add_frag(float (&d)[4], const float (&t)[4]) {

@@ -26,10 +26,10 @@ transposed entry costs no copy when its input is a transposed view of a
 (B, L, 3F) projection (which is what ``ops/fused_qkv.py`` returns).
 
 Each kernel has a bf16 and an fp32 build.  bf16: TMA + wgmma.  fp32 (PF's
-default precision, SR's "default"): the forward and dk/dv take their
+default precision, SR's "default"): the forward, dq and dk/dv take their
 products on the tensor cores as three-term TF32 splits, lo*hi + hi*lo +
 hi*hi, fp32-faithful (``csrc/tf32_attention.cuh``; ``ops/tf32_split.py``
-states that arithmetic for the CPU tests); dq is FMA loops.
+states that arithmetic for the CPU tests).
 
 On a CPU tensor the wrappers compute the plain PyTorch versions below; on a
 CUDA tensor they launch the kernel or raise.

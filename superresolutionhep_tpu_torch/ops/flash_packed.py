@@ -21,8 +21,8 @@ Hopper kernels walk the exact band at their own tiles: the bf16 kernels read
 it from a table that ``packed_band`` computes once per call for all heads
 (one launch of its own kernel; for the backward the same table serves dq,
 key tiles per query block, and dk/dv, query tiles per key block); the fp32
-kernels (K7 and K9 on the tensor cores as three-term TF32 splits, K8 on FMA
-loops) find it per block; so the entries take no block arguments.
+kernels (K7, K8 and K9 on the tensor cores as three-term TF32 splits) find
+it per block; so the entries take no block arguments.
 ``PACKED_DEFAULTS`` and ``set_packed_defaults`` are kept for parity with the
 JAX package's API and change nothing here.  As in the TPU kernels' mask
 (segment equality alone), padding cells attend each other: their output is

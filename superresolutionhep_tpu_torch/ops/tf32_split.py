@@ -1,6 +1,6 @@
 """The arithmetic of the fp32 attention kernels on Hopper's tensor cores
-(``csrc/tf32_attention.cuh``: K1/K2/K7 and K6/K9 on fp32 operands), stated
-in PyTorch so that the CPU tests can hold it against the JAX package.
+(``csrc/tf32_attention.cuh``: K1/K2/K7, K5/K8 and K6/K9 on fp32 operands),
+stated in PyTorch so that the CPU tests can hold it against the JAX package.
 
 Each fp32 operand x of a product is split into two TF32 values, hi =
 rna(x) and lo = rna(x - hi) (``tf32_round`` is ``cvt.rna.tf32.f32``), and
@@ -13,13 +13,13 @@ checks can see.
 The summed axis is read in the kernels' order: in the forward's S = Q K^T
 the head dim is permuted within 16-column groups (k-step 2m reads columns
 16m + {0, 1, 4, 5, 8, 9, 12, 13}, k-step 2m + 1 the others), and in every
-product whose A operand comes from an accumulator (P V, P^T G, dS^T Q) the
+product whose A operand comes from an accumulator (P V, P^T G, dS^T Q, dS K) the
 keys or queries within each 8-wide step are read as (0, 2, 4, 6, 1, 3, 5,
 7).  The online softmax runs over 64-key tiles as the kernel's (from D = 32
 in two passes of 32 keys each), and key (query) tiles without a cell the
 block attends are skipped; the output is
 O * (1 / max(l, 1e-30)), as the kernel's epilogue takes it.  The long sums
-(O, dK, dV) take the split products of each 8-deep step in a fresh
+(O, dQ, dK, dV) take the split products of each 8-deep step in a fresh
 accumulator and add it to the running one (``fresh=1``), as the kernels do:
 the tensor cores round an mma's sum toward zero, and over a long chain into
 one accumulator that bias adds up (``csrc/tf32_attention.cuh``).
@@ -34,7 +34,9 @@ import torch
 
 from .flash_attention import BIG, CLIP_HI, CLIP_LO
 
-TILE = 64  # rows of a streamed tile (keys in the forward, queries in dk/dv)
+PAD_SEG = -1  # segment id of padding cells (flash_packed.PAD_SEG)
+
+TILE = 64  # rows of a block and of a streamed tile (keys in the forward and dq, queries in dk/dv)
 STEP = 8   # depth of one m16n8k8 product
 FWD_PASS = {16: 64}  # keys a softmax pass of the forward takes, by head dim (else 32)
 
@@ -166,3 +168,51 @@ def flash_bwd_dkv_split(q_pre, k, v, g, lse, dl, km, terms: int = 3):
         dv = split_matmul(p, g[:, :, qt], terms, perm, dv, fresh=1)
         dk = split_matmul(ds, q_pre[:, :, qt], terms, perm, dk, fresh=1)
     return torch.where(keep, dk, torch.zeros(())), torch.where(keep, dv, torch.zeros(()))
+
+
+def flash_bwd_dq_split(q_pre, k, v, g, lse, dl, km, seg=None, terms: int = 3):
+    """The fp32 dq kernel's arithmetic (K5; K8 with ``seg``; dq without ln 2):
+    (B, H, L, D) fp32 operands, g zeroed on padded queries, lse/dl (B, H, Lq),
+    km (B, 1, Lk) float mask, as ``flash_attention._ref_flash_bwd_dq`` takes
+    them, or seg (B, S) segment ids (``PAD_SEG`` on padding; km unused), as
+    ``flash_packed._ref_packed_bwd_dq``.  A block of 64 queries visits the
+    key tiles of 64, in order, that hold a key it attends (padding masks: a
+    valid key; segments: a key whose id lies between the smallest and the
+    largest id of the block's valid queries); S = Q K^T and dP = G V^T (head
+    dim in natural order), p = exp2(min(s - lse, 0)) with the logits of the
+    other keys -1e30, dS = P (dP - dl), dQ += dS K (keys permuted within
+    8-wide steps, each step summed apart); padding rows 0 (with padding
+    masks the zero cotangent gives them 0)."""
+    B, H, Lq, D = q_pre.shape
+    Lk = k.shape[2]
+    if seg is None:
+        qid = torch.zeros((B, Lq), dtype=torch.int64)
+        kid = torch.where(km[:, 0] > 0, 0, -2)  # (B, Lk): a padded key attends nothing
+        qvalid = torch.ones((B, Lq), dtype=torch.bool)  # the keys alone decide a tile's flag
+    else:
+        qid = kid = seg.long()
+        qvalid = seg != PAD_SEG
+    # the id range of each block's valid queries, per query row: (B, Lq)
+    big = torch.iinfo(torch.int64).max
+    nb = (Lq + TILE - 1) // TILE
+    pad_rows = nb * TILE - Lq
+    blocks = torch.nn.functional.pad(torch.where(qvalid, qid, big), (0, pad_rows), value=big).view(B, nb, TILE)
+    lo = blocks.amin(-1).repeat_interleave(TILE, -1)[:, :Lq]
+    blocks = torch.nn.functional.pad(torch.where(qvalid, qid, -big), (0, pad_rows), value=-big).view(B, nb, TILE)
+    hi = blocks.amax(-1).repeat_interleave(TILE, -1)[:, :Lq]
+    dq = torch.zeros((B, H, Lq, D))
+    for k0 in range(0, Lk, TILE):
+        kt = slice(k0, min(k0 + TILE, Lk))
+        n = kt.stop - kt.start
+        ids = kid[:, kt]  # (B, n)
+        live = ((ids[:, None, :] >= lo[:, :, None]) & (ids[:, None, :] <= hi[:, :, None])).any(-1)  # (B, Lq)
+        if not bool(live.any()):
+            continue
+        s = split_matmul(q_pre, k[:, :, kt].transpose(-1, -2), terms)
+        dp = split_matmul(g, v[:, :, kt].transpose(-1, -2), terms)
+        s = torch.where((qid[:, :, None] == ids[:, None, :])[:, None], s, torch.full((), -BIG))
+        p = torch.exp2(torch.clamp_max(s - lse[..., None], 0.0))
+        ds = torch.where(live[:, None, :, None], p * (dp - dl[..., None]), torch.zeros(()))
+        perm = _step_perm(n, _ACC_STEP_ORDER) if n % STEP == 0 else None
+        dq = split_matmul(ds, k[:, :, kt], terms, perm, dq, fresh=1)
+    return torch.where(qvalid[:, None, :, None], dq, torch.zeros(()))

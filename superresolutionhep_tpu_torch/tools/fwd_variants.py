@@ -23,10 +23,12 @@ device time of K5/K6 at (10, 2048, 4, 64) with ragged masks and of K8/K9 at
 the (8, 5120) packed batch (each wrapper call with its band launch), and
 each output's error against its plain version; f32: the fp32 tensor-core
 kernels (``csrc/tf32_attention.cuh`` and its two users), the device time of
-the forward (with LSE) and dk/dv at (32, 640, 4, 16) and (10, 2048, 4, 64)
-with ragged masks and at the (8, 5120, 4, 64) packed batch, each output's
-error against its plain version, and the SASS opcode counts of the D = 16
-forward and dk/dv instantiations (``cuobjdump``).
+the forward (with LSE), dq and dk/dv at (32, 640, 4, 16) and (10, 2048, 4,
+64) with ragged masks and at the (8, 5120, 4, 64) packed batch, dq also on
+``chip_smoke.py``'s offset keys at (4, 2048, 4, 16), each
+output's error against its plain version, for ``clocks`` the forward's and
+dq's cycles a live block by stage, and the SASS opcode counts of the D = 16
+forward, dq and dk/dv instantiations (``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -162,11 +164,44 @@ BWD_VARIANTS = {
 # the fp32 kernels on the tensor cores (csrc/tf32_attention.cuh, flash_attention.cu, flash_attention_bwd.cu)
 _RNA = "__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }"
 _STAGES = "  static constexpr int kStages = 2;\n"
+# dq's clock64 counters (clocks variant): slots of the debug array, cycles a live block's thread 0 spends
+DQ_CLOCK_SLOTS = {0: "prologue", 1: "wait_barrier_issue", 2: "s_dp", 3: "elementwise", 4: "dq_products",
+                  5: "epilogue"}
+_DQ_CLOCKS = [
+    ("constexpr int kDqTerms = 3;",
+     "static __device__ unsigned long long srhep_dq_clocks[16];\n"
+     "#define DQ_CP(slot) { const long long _n = clock64(); dbg[slot] += _n - _tp; _tp = _n; }\n"
+     "constexpr int kDqTerms = 3;"),
+    ("  const int r0 = blockIdx.x * kF32Rows + warp * 16 + gq, r1 = r0 + 8;  // this thread's query rows\n",
+     "  const int r0 = blockIdx.x * kF32Rows + warp * 16 + gq, r1 = r0 + 8;  // this thread's query rows\n"
+     "  const long long _tb = clock64();\n  long long _tp = _tb;\n  long long dbg[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"),
+    ("      ids_in_place<SEG, true>(kid, cur * kF32Tile, Lk);\n",
+     "      if (i == 0) DQ_CP(0);\n      ids_in_place<SEG, true>(kid, cur * kF32Tile, Lk);\n"),
+    ("        // ---- S = Q K^T and dP = G V^T: 16 queries", "        DQ_CP(1);\n        // ---- S = Q K^T and dP = G V^T: 16 queries"),
+    ("        // ---- P = exp2(min(s - lse, 0)) on attended pairs", "        DQ_CP(2);\n        // ---- P = exp2(min(s - lse, 0)) on attended pairs"),
+    ("        // ---- dQ += dS K: dS's accumulator", "        DQ_CP(3);\n        // ---- dQ += dS K: dS's accumulator"),
+    ("            add_frag(dqa[nt], t);\n          }\n        }\n      }\n      tq_.push(nxt);\n",
+     "            add_frag(dqa[nt], t);\n          }\n        }\n        DQ_CP(4);\n      }\n      dbg[7] += 1;\n"
+     "      tq_.push(nxt);\n"),
+    ("make_float2(dqa[nt][2], dqa[nt][3]) : make_float2(0.f, 0.f);\n  }\n}\n",
+     "make_float2(dqa[nt][2], dqa[nt][3]) : make_float2(0.f, 0.f);\n  }\n  DQ_CP(5);\n"
+     "  if (threadIdx.x == 0 && ids.x <= ids.y) {\n"
+     "    for (int i = 0; i < 8; ++i) atomicAdd(&srhep_dq_clocks[i], (unsigned long long)dbg[i]);\n"
+     "    atomicAdd(&srhep_dq_clocks[10], (unsigned long long)(clock64() - _tb));\n  }\n"
+     "  if (threadIdx.x == 0) atomicAdd(&srhep_dq_clocks[ids.x > ids.y ? 9 : 8], 1ull);\n}\n"),
+    ("// launch: the bf16 kernels by tensor maps",
+     "}  // namespace srhep\n"
+     'extern "C" int srhep_read_dq_clocks(void* host) {\n'
+     "  cudaMemcpyFromSymbol(host, srhep::srhep_dq_clocks, sizeof(srhep::srhep_dq_clocks));\n"
+     "  unsigned long long z[16] = {0};\n  return (int)cudaMemcpyToSymbol(srhep::srhep_dq_clocks, z, sizeof(z));\n}\n"
+     "namespace srhep {\n// launch: the bf16 kernels by tensor maps"),
+]
 F32_VARIANTS = {
     "base": [],
     # single TF32 products: what the two lo terms cost
     "terms1": [("constexpr int kFwdTerms = 3;", "constexpr int kFwdTerms = 1;"),
-               ("constexpr int kDkvTerms = 3;", "constexpr int kDkvTerms = 1;")],
+               ("constexpr int kDkvTerms = 3;", "constexpr int kDkvTerms = 1;"),
+               ("constexpr int kDqTerms = 3;", "constexpr int kDqTerms = 1;")],
     # the PTX rounding instruction instead of the two integer instructions
     "cvt_rna": [(_RNA, "__device__ __forceinline__ uint32_t tf32_rna(float x) {\n  uint32_t r;\n"
                        "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n  return r;\n}")],
@@ -175,7 +210,8 @@ F32_VARIANTS = {
     "stages3": [(_STAGES, "  static constexpr int kStages = 3;"),
                 ("  static constexpr int kStages = 2;  // ring depth: deeper rings gained nothing (PERF.md)",
                  "  static constexpr int kStages = 3;")],
-    # clock64 counters of the forward (every block's thread 0): cycles to the ring, in the loop, after it
+    # clock64 counters (every block's thread 0) of the forward: cycles to the ring, in the loop, after it;
+    # of dq: to the ring, then per stage of the loop (DQ_CLOCK_SLOTS), after it
     "clocks": [
         ('#include "tf32_attention.cuh"\n',
          '#include "tf32_attention.cuh"\nstatic __device__ unsigned long long srhep_f32_clocks[16];\n'
@@ -197,7 +233,20 @@ F32_VARIANTS = {
          'extern "C" int srhep_read_f32_clocks(void* host) {\n'
          "  cudaMemcpyFromSymbol(host, srhep_f32_clocks, sizeof(srhep_f32_clocks));\n"
          "  unsigned long long z[16] = {0};\n  return (int)cudaMemcpyToSymbol(srhep_f32_clocks, z, sizeof(z));\n}\n\n"
-         "// The band table of a packed batch (K7's bf16 kernel)")],
+         "// The band table of a packed batch (K7's bf16 kernel)"),
+        *_DQ_CLOCKS],
+    # dq: four blocks an SM at D = 16 (at most 128 registers a thread)
+    "dq_min_blocks4": [("__launch_bounds__(kThreads)\nflash_bwd_dq_f32_kernel(",
+                        "__launch_bounds__(kThreads, D == 16 ? 4 : 1)\nflash_bwd_dq_f32_kernel(")],
+    # dq: Q's and G's fragments raw at D = 16 too, split per tile
+    "dq_own_raw": [("template <int D> __host__ __device__ constexpr bool dq_own_split() { return D == 16; }",
+                    "template <int D> __host__ __device__ constexpr bool dq_own_split() { return false; }")],
+    # dq: dQ summed as one chain of mma.sync (no step summed apart)
+    "dq_one_chain": [("            mma_split<kDqTerms>(t, dh, dlo, bh0, bh1, bl0, bl1);",
+                      "            mma_split<kDqTerms>(dqa[nt], dh, dlo, bh0, bh1, bl0, bl1);")],
+    # dq: a key tile in two halves of 32 keys at every head dim (fewer registers)
+    "dq_halves": [("  constexpr int NJS = D == 64 ? NJ / 2 : NJ;\n  constexpr int NS = T::kStages;\n  extern",
+                   "  constexpr int NJS = NJ / 2;\n  constexpr int NS = T::kStages;\n  extern")],
     # more blocks an SM at D = 16 (fewer registers a thread)
     "fwd_min_blocks": [("__launch_bounds__(kThreads)\nflash_fwd_f32_kernel(",
                         "__launch_bounds__(kThreads, D == 16 ? 4 : 1)\nflash_fwd_f32_kernel(")],
@@ -370,20 +419,39 @@ def main_f32(names):
             out, lse = fa._ref_attention_base2(*hf, m[:, None], m[:, None], "max", with_lse=True)
             gr = torch.randn(B, L, H, D, generator=g, device=dev) * m[:, :, None, None]
             dl = (out.permute(0, 2, 1, 3) * gr).sum(-1).transpose(1, 2).contiguous()
+            ref_args = (*hf, gr.permute(0, 2, 1, 3), lse, dl, m[:, None])
             inputs[key] = {"fwd": (lambda q=q, k=k, v=v, m=m: fa._flash_fwd_cuda(q, k, v, m, m, nomax=False,
                                                                                    with_lse=True)),
+                           "dq": (lambda a=(q, k, v, gr, lse, dl, m, m): fa._flash_bwd_dq_cuda(*a)),
                            "dkv": (lambda a=(q, k, v, gr, lse, dl, m, m): fa._flash_bwd_dkv_cuda(*a)),
-                           "ref_fwd": (out, lse),
-                           "ref_dkv": fa._ref_flash_bwd_dkv(*hf, gr.permute(0, 2, 1, 3), lse, dl, m[:, None])}
+                           "ref_fwd": (out, lse), "ref_dq": (fa._ref_flash_bwd_dq(*ref_args),),
+                           "ref_dkv": fa._ref_flash_bwd_dkv(*ref_args)}
         else:
             out, lse = fp._ref_packed_fwd(*hf, sg, "max", with_lse=True)
             gr = torch.randn(B, L, H, D, generator=g, device=dev) * (sg >= 0)[:, :, None, None]
             dl = (out.permute(0, 2, 1, 3) * gr).sum(-1).transpose(1, 2).contiguous()
+            ref_args = (*hf, gr.permute(0, 2, 1, 3), lse, dl, sg)
             inputs[key] = {"fwd": (lambda q=q, k=k, v=v: fp._packed_fwd_cuda(q, k, v, sg, nomax=False, with_lse=True)),
+                           "dq": (lambda a=(q, k, v, gr, lse, dl, sg): fp._packed_bwd_dq_cuda(*a)),
                            "dkv": (lambda a=(q, k, v, gr, lse, dl, sg): fp._packed_bwd_dkv_cuda(*a)),
-                           "ref_fwd": (out, lse),
-                           "ref_dkv": fp._ref_packed_bwd_dkv(*hf, gr.permute(0, 2, 1, 3), lse, dl, sg)}
-    fns = ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_flash_bwd_dkv", "srhep_packed_bwd_dkv", "srhep_packed_band")
+                           "ref_fwd": (out, lse), "ref_dq": (fp._ref_packed_bwd_dq(*ref_args),),
+                           "ref_dkv": fp._ref_packed_bwd_dkv(*ref_args)}
+    # dq on chip_smoke.py's offset keys (fp32_tile_cases): head-dim column 0 of every key 100 times its
+    # spread, 0 in every query; dQ's running sums along it ~100x dQ
+    B, L, D = 4, 2048, 16
+    sd = (2.9 / D ** 0.5) ** 0.5
+    q, k = (torch.randn(B, L, H, D, generator=g, device=dev) * sd for _ in range(2))
+    v, gr = (torch.randn(B, L, H, D, generator=g, device=dev) for _ in range(2))
+    q[..., 0] = 0.0
+    k[..., 0] += 100.0 * sd
+    m = torch.ones(B, L, device=dev)
+    hf = fa._heads_first(q, k, v)
+    out, lse = fa._ref_attention_base2(*hf, m[:, None], m[:, None], "max", with_lse=True)
+    dl = (out.permute(0, 2, 1, 3) * gr).sum(-1).transpose(1, 2).contiguous()
+    inputs["offset"] = {"dq": (lambda a=(q, k, v, gr, lse, dl, m, m): fa._flash_bwd_dq_cuda(*a)),
+                        "ref_dq": (fa._ref_flash_bwd_dq(*hf, gr.permute(0, 2, 1, 3), lse, dl, m[:, None]),)}
+    fns = ("srhep_flash_fwd", "srhep_packed_fwd", "srhep_flash_bwd_dq", "srhep_flash_bwd_dkv", "srhep_packed_bwd_dq",
+           "srhep_packed_bwd_dkv", "srhep_packed_band")
     for name, (p, d) in procs.items():
         line = _build_line(name, p)
         if not line["built"]:
@@ -392,11 +460,13 @@ def main_f32(names):
         _load(lib_path, kernels, fns)
         line["ms"], line["max_rel_err"] = {}, {}
         for key, x in inputs.items():
-            for kind in ("fwd", "dkv"):
+            for kind in ("fwd", "dq", "dkv"):
+                if kind not in x:
+                    continue
                 line["ms"][f"{kind}_{key}"] = graph_ms(x[kind], 20, chain=8)
                 got = x[kind]()
-                got = (got[0],) if kind == "fwd" else got
-                ref = (x["ref_fwd"][0],) if kind == "fwd" else x["ref_dkv"]
+                got = (got[0],) if kind == "fwd" else got if kind == "dkv" else (got,)
+                ref = (x["ref_fwd"][0],) if kind == "fwd" else x["ref_" + kind]
                 line["max_rel_err"][f"{kind}_{key}"] = max(
                     ((a - b.permute(0, 2, 1, 3)).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
         if hasattr(kernels._lib, "srhep_read_f32_clocks"):
@@ -411,7 +481,20 @@ def main_f32(names):
                     "live_blocks": buf[8], "dead_blocks": buf[9], "tiles_per_live_block": buf[7] / live,
                     "cycles_per_live_block": buf[10] / live,
                     **{n: buf[i] / live for i, n in enumerate(("prologue", "loop", "epilogue"))}}
+        if hasattr(kernels._lib, "srhep_read_dq_clocks"):
+            buf = (ctypes.c_ulonglong * 16)()
+            kernels._lib.srhep_read_dq_clocks(buf)
+            for key in ("d16", "d64"):
+                inputs[key]["dq"]()
+                torch.cuda.synchronize()
+                kernels._lib.srhep_read_dq_clocks(buf)
+                live = max(buf[8], 1)
+                line[f"clocks_dq_{key}"] = {
+                    "live_blocks": buf[8], "dead_blocks": buf[9], "tiles_per_live_block": buf[7] / live,
+                    "cycles_per_live_block": buf[10] / live,
+                    **{n: buf[i] / live for i, n in DQ_CLOCK_SLOTS.items()}}
         line["sass_fwd_d16"] = _sass_counts(lib_path, r"flash_fwd_f32_kernelILi16ELb0ELb0E")
+        line["sass_dq_d16"] = _sass_counts(lib_path, r"flash_bwd_dq_f32_kernelILi16ELb0E")
         line["sass_dkv_d16"] = _sass_counts(lib_path, r"flash_bwd_dkv_f32_kernelILi16ELb0E")
         print(json.dumps(line), flush=True)
 

@@ -8,7 +8,9 @@
 # (with names, only those mutations run).  The broken copies are made in a
 # fresh temporary directory, never in the repository.  Prints one
 # "MUTATION <name> exit=<code> ..." line per mutation; every exit code must be
-# non-zero and every ok_line count 0.  With CASES set to names of
+# non-zero, every ok_line count 0 and every unseen count 0 (the run --skip-serve
+# --skip-train always ends non-zero: a mutation is seen only if the run stopped
+# before that, at the ptxas gate or at a check).  With CASES set to names of
 # chip_smoke.py's case functions (e.g. CASES="fp32_tile_cases kernel_cases"),
 # only those run, past the build's ptxas gate: whether a check of the kernels'
 # results sees a mutation whose build the gate already refuses.
@@ -37,9 +39,10 @@ EOF
   fi
   rc=$?
   oks=$(grep -c '^{"ok": true' out.txt)
-  echo "MUTATION $1 exit=$rc ok_line=$oks failing_cases=$(grep -c '"ok": false' out.txt)"
+  unseen=$(grep -c 'a main path was not driven' err.txt)
+  echo "MUTATION $1 exit=$rc ok_line=$oks unseen=$unseen failing_cases=$(grep -c '"ok": false' out.txt)"
   tail -n 2 err.txt | cut -c 1-600
-  if [ "$rc" = "0" ] || [ "$oks" != "0" ]; then status=1; fi
+  if [ "$rc" = "0" ] || [ "$oks" != "0" ] || [ "$unseen" != "0" ]; then status=1; fi
   cd "$ROOT" || exit 9
 }
 run nomax_drops_key_mask 's/id\.\([xy]\) == qid\([01]\) ? kClipHi : kMaskedLogit/kClipHi/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
@@ -69,4 +72,13 @@ run fp32_fwd_single_tf32 's/constexpr int kFwdTerms = 3;/constexpr int kFwdTerms
 run fp32_dkv_single_tf32 's/constexpr int kDkvTerms = 3;/constexpr int kDkvTerms = 1;/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
 run fp32_fwd_skips_rescale 's/for (int nt = 0; nt < NT; ++nt) rescale_rows(o\[nt\], al0, al1);/for (int nt = 0; nt < NT; ++nt) continue;/' superresolutionhep_tpu_torch/csrc/flash_attention.cu
 run fp32_dkv_sign_of_dl 's/(dpt\[j\]\[\([0-3]\)\] - dlc\.\([xy]\))/(dpt[j][\1] + dlc.\2)/' superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+# the fp32 dq body (flash_bwd_dq_f32_kernel; the sed address keeps each edit inside it)
+DQ='/^flash_bwd_dq_f32_kernel(/,/^}/'
+BWD=superresolutionhep_tpu_torch/csrc/flash_attention_bwd.cu
+run fp32_dq_drops_lo_hi "${DQ}s/own_frags(kk, qh, ql, gh, gl);/own_frags(kk, qh, ql, gh, gl); ql[0] = ql[1] = ql[2] = ql[3] = gl[0] = gl[1] = gl[2] = gl[3] = 0u;/" $BWD
+run fp32_dq_single_tf32 's/constexpr int kDqTerms = 3;/constexpr int kDqTerms = 1;/' $BWD
+run fp32_dq_one_chain "${DQ}s/mma_split<kDqTerms>(t, dh, dlo, bh0, bh1, bl0, bl1);/mma_split<kDqTerms>(dqa[nt], dh, dlo, bh0, bh1, bl0, bl1);/" $BWD
+run fp32_dq_k_natural_order "${DQ}s/const int o = (8 \* (j0 + j) + 2 \* tq) \* T::kLd + gq;/const int o = (8 * (j0 + j) + tq) * T::kLd + gq;/;${DQ}s/split_tf32(Ks\[o + T::kLd + 8 \* nt\], bh1, bl1);/split_tf32(Ks[o + 4 * T::kLd + 8 * nt], bh1, bl1);/" $BWD
+run fp32_dq_ignores_segments "${DQ}s/(id\.\([xy]\) == qid\([01]\) ? sc\[j\]\[\([0-3]\)\] : kNegInf)/sc[j][\3]/g" $BWD
+run fp32_dq_band_drops_last_tile "${DQ}s/      if (nxt < nkt) issue((i + NS - 1) % NS, nxt);/      if (nxt < nkt) issue((i + NS - 1) % NS, nxt); else break;/" $BWD
 exit $status

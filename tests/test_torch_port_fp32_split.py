@@ -1,5 +1,5 @@
 """PyTorch port: the arithmetic of the fp32 attention kernels on the tensor
-cores (``csrc/tf32_attention.cuh``; K1/K2/K7 and K6/K9 on fp32 operands),
+cores (``csrc/tf32_attention.cuh``; K1/K2/K7, K5/K8 and K6/K9 on fp32 operands),
 stated in ``ops/tf32_split.py``, on the CPU.
 
   * ``tf32_round`` (the port's ``cvt.rna.tf32.f32``) bit for bit against a
@@ -12,7 +12,7 @@ stated in ``ops/tf32_split.py``, on the CPU.
   * single TF32 (the lo terms dropped) on the guard inputs of
     ``chip_smoke.py`` (base-2 logits of std ~8) misses the card's fp32
     bounds (2e-4 of each output's max), which the three-term split meets:
-    the card's fp32 checks can see a missing term."""
+    the card's fp32 checks can see a missing term (forward, dq, dk/dv)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,7 +99,7 @@ def _port_bwd_operands(q, k, v, g, valid, out, lse):
 
 @pytest.mark.parametrize("D", [16, 64])
 def test_split_arithmetic_matches_jax(D):
-    """Forward (robust with LSE, no-max) and dk/dv at (4, 256, 4, D) with
+    """Forward (robust with LSE, no-max), dq and dk/dv at (4, 256, 4, D) with
     ragged masks (a full row, one ending inside a tile, one with two dead key
     tiles, an empty one): the split emulation against JAX within 2e-5."""
     B, H, L = 4, 4, 256
@@ -109,7 +109,7 @@ def test_split_arithmetic_matches_jax(D):
     tT = [jnp.asarray(np.swapaxes(x, -1, -2)) for x in (q, k, v, g)]  # (B, H, D, L)
     outT, lse = jfa._flash_fwd(*tT[:3], jnp.asarray(m), jnp.asarray(m))
     out_nomax = np.swapaxes(np.asarray(jfa._flash_fwd_nomax(*tT[:3], jnp.asarray(m), jnp.asarray(m))), -1, -2)
-    _, dkT, dvT = jfa._flash_bwd(*tT[:3], jnp.asarray(m), jnp.asarray(m), outT, lse, tT[3])
+    dqT, dkT, dvT = jfa._flash_bwd(*tT[:3], jnp.asarray(m), jnp.asarray(m), outT, lse, tT[3])
     out, lse = np.swapaxes(np.asarray(outT), -1, -2), np.asarray(lse)[:, :, 0]
 
     mt = _t(m)
@@ -125,23 +125,28 @@ def test_split_arithmetic_matches_jax(D):
     assert _rel(dk * tfa.LN2, np.asarray(dkT).swapaxes(-1, -2)) <= EMUL_TOL
     assert _rel(dv, np.asarray(dvT).swapaxes(-1, -2)) <= EMUL_TOL
     assert np.all(dk.numpy()[np.broadcast_to(~valid[:, None, :, None], dk.shape)] == 0.0)
+    dq = ts.flash_bwd_dq_split(_t(q), _t(k), _t(v), gm, lse_t, dl, mt)
+    assert _rel(dq * tfa.LN2, np.asarray(dqT).swapaxes(-1, -2)) <= EMUL_TOL
+    assert np.all(dq.numpy()[np.broadcast_to(~valid[:, None, :, None], dq.shape)] == 0.0)
 
 
 @pytest.mark.parametrize("D", [16, 64])
 def test_single_tf32_misses_the_guard(D):
     """chip_smoke.py's guard inputs (base-2 logits of std ~8, ragged keys):
     against the plain versions, the three-term split meets the card's fp32
-    bound and single TF32 misses it, forward and dk/dv alike."""
+    bound and single TF32 misses it, forward, dq and dk/dv alike."""
     B, H, L = 2, 4, 192
     q, k, v, g, valid = _inputs(B, H, L, D, [L, 150], logit_std=8.0, seed=100 + D)
     mt = _t(valid.astype(np.float32)[:, None, :])
     ref_out, ref_lse = tfa._ref_attention_base2(_t(q), _t(k), _t(v), mt, mt, "max", with_lse=True)
     gm, lse_t, dl = _port_bwd_operands(q, k, v, g, valid, ref_out.numpy(), ref_lse.numpy())
     ref_dk, ref_dv = tfa._ref_flash_bwd_dkv(_t(q), _t(k), _t(v), gm, lse_t, dl, mt)
+    ref_dq = tfa._ref_flash_bwd_dq(_t(q), _t(k), _t(v), gm, lse_t, dl, mt)
     errs = {}
     for terms in (3, 1):
         out = ts.flash_fwd_split(_t(q), _t(k), _t(v), mt, mt, "max", terms=terms)
         dk, dv = ts.flash_bwd_dkv_split(_t(q), _t(k), _t(v), gm, lse_t, dl, mt, terms=terms)
-        errs[terms] = (_rel(out, ref_out), max(_rel(dk, ref_dk), _rel(dv, ref_dv)))
+        dq = ts.flash_bwd_dq_split(_t(q), _t(k), _t(v), gm, lse_t, dl, mt, terms=terms)
+        errs[terms] = (_rel(out, ref_out), max(_rel(dk, ref_dk), _rel(dv, ref_dv)), _rel(dq, ref_dq))
     assert max(errs[3]) <= CARD_TOL / 10, errs
     assert min(errs[1]) > CARD_TOL, errs
