@@ -37,9 +37,25 @@ SR-predicted trees of 32 synthetic events:
     resumed; fp32 gradients through K1/K5/K6 against the dense path, a bf16
     step by its loss, step times on a fit batch and at the published bucket
     sizes;
+then the shipped trained checkpoints, read from their Flax msgpack blobs:
+  * trained: ``closure_sr`` (the multipart model with 9 Fourier geometry
+    octaves) against its frozen goldens from the JAX sampler's noise
+    (``tests/golden_torch/sr_golden_x0.npz``): fp32 ``ab2`` within the
+    golden's tolerances, fp32 ``dopri5`` beside them; ``SRInference.predict``
+    with the serving settings (bf16, ``ab2e``; on this checkpoint its gate
+    takes the robust K1 path), its distances to fp32 and to the TPU-frozen
+    golden beside their bound, its call time; the gate-rejected no-max fused
+    path (K2, K3/K4) within a bound on its distance to that golden;
+    ``closure_pf`` through K1 against the dense path;
+and the second model family:
+  * normformer: the ``GPT-2+Normformer`` FlowModel at the multipart width,
+    fp32 and bf16 through K1, bf16 through K2, fp32 against the dense path;
+in both, each launch of K1-K4 against its plain version on its own inputs,
+and a control with a planted fault (each row's last 64-key tile masked out
+in the attention kernels) that those checks must catch;
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
-(seeded); events are synthetic (seeded).
+(seeded) but for the trained phase; events are synthetic (seeded).
 
 Output: one JSON object per phase on a line of its own (``device``, ``build``,
 ``ptxas`` (registers, spills and serialised wgmma of the bf16 forward,
@@ -51,7 +67,7 @@ kernels at head dims 16/32/64 and on a guard at base-2 logits of std ~8,
 where single-TF32 products would miss the fp32 bounds; launched twice,
 equal bit for bit), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
-``pf_inference``, ``pf_train``), then the card's name and power limit as nvidia-smi gives them,
+``pf_inference``, ``pf_train``, ``trained``, ``normformer``), then the card's name and power limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths; the
 attention entries also their fp32 cases under ``fp32``), then,
@@ -59,7 +75,7 @@ last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and
 prints no ``ok`` line.  Without a CUDA device it exits 2.
 
 Options (for development; the default run does everything):
-    --skip-serve      no serve, packed and pf inference phases (exits 1 by design)
+    --skip-serve      no serve, packed and pf inference, trained and normformer phases (exits 1 by design)
     --skip-train      no train, dopri5 ensemble, packed and pf train phases (exits 1 by design)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
@@ -69,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -78,6 +95,7 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 outside them
 H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
@@ -2275,6 +2293,490 @@ def pf_inference_phase(trees):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase: trained (the shipped checkpoints, their frozen goldens)
+# ---------------------------------------------------------------------------
+
+GOLDEN_TOL = 2e-3  # tests/test_golden_sr_trained.py: samples within rtol = atol = 2e-3
+GOLDEN_SIGMOID_TOL = 5e-4  # ... and the sigmoid (HR share of the proxy energy) within 5e-4
+PRODUCTION_TOL = 3e-2  # scripts/make_tpu_golden.py: bf16 production path, max |diff| in sample space
+# the no-max fused bf16 sampler on closure_sr against sr_tpu_golden, the 99th
+# percentile of |diff| over valid cells: 0.034 on an H100, 0.036 with the
+# port's plain versions and 0.050 with the JAX package's kernels in interpret
+# mode on the CPU (``tests/test_torch_port_trained.py gaps``); 0.125 with the
+# planted fault below.  The limit sits at twice the port's sound readings, and
+# the phase's control run with the fault has to exceed it
+NOMAX_GOLDEN_P99_LIMIT = 0.07
+# LaunchChecker's bound on the mean |kernel - plain| of a launch, relative to
+# the plain output's mean |.|: one rounding unit of the dtype (on an H100 the
+# Normformer model's bf16 K1 launches read at most 3.9e-5, and 7.9e-3 with the
+# planted fault below)
+MEAN_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -16}
+# the planted fault of the controls: the masked attention kernels skip the
+# keys of each row's last 64-key tile that holds a valid key
+FAULT_TILE = 64
+
+
+class LaunchChecker:
+    """Inside the window every launch of K1/K2 (masked form), K3 and K4 is
+    held against the kernel's plain version on the same inputs, on the card,
+    by two numbers of |kernel - plain| over the launch's output: its max
+    relative to the plain output's max (bound: the kernel's ``TOL``) and its
+    mean relative to the plain output's mean |.| (bound: ``MEAN_TOL``, one
+    rounding unit of the dtype: rounding-order flips move few elements by one
+    unit, a wrong tile moves every row that reads it).  ``worst`` keeps the
+    largest of each per kernel, ``calls`` the launches seen.  On the trained
+    weights this is the check a wrong kernel cannot pass: the samplers'
+    outputs there are bf16-chaotic (``ROADMAP.md`` C4).  With ``fault`` the
+    attention kernels run with each row's last 64-key tile masked out
+    (``FAULT_TILE``) while the plain version keeps the true mask: the
+    control that shows the checks catch a wrong tail tile."""
+
+    def __init__(self, fault=False):
+        self.fault = fault
+        self.worst, self.calls, self.dtypes = {}, {}, {}
+
+    def _note(self, name, out, ref):
+        ref, d = ref.float(), (out.float() - ref.float()).abs()
+        errs = (float(d.max() / ref.abs().max().clamp_min(1e-30)), float(d.mean() / ref.abs().mean().clamp_min(1e-30)))
+        if not bool(torch.isfinite(out.float()).all()):
+            errs = (float("inf"), float("inf"))
+        old = self.worst.get(name, (0.0, 0.0))
+        self.worst[name] = (max(old[0], errs[0]), max(old[1], errs[1]))
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.dtypes[name] = out.dtype
+
+    def _tols(self, name):
+        return TOL[("flash" if name.startswith("flash") else "fused", self.dtypes[name])], MEAN_TOL[self.dtypes[name]]
+
+    def _within(self):
+        return [w[0] <= t[0] and w[1] <= t[1] for w, t in ((self.worst[n], self._tols(n)) for n in self.worst)]
+
+    def ok(self):
+        """Launches were seen, every kernel within both bounds."""
+        return bool(self.worst) and all(self._within())
+
+    def caught(self):
+        """Launches were seen, and some kernel outside its bounds."""
+        return bool(self.worst) and not all(self._within())
+
+    def summary(self):
+        return {n: {"launches": self.calls[n], "max_rel_err": self.worst[n][0], "mean_rel_err": self.worst[n][1],
+                    "tol_max_rel": self._tols(n)[0], "tol_mean_rel": self._tols(n)[1]} for n in sorted(self.worst)}
+
+    def __enter__(self):
+        from superresolutionhep_tpu_torch.ops import flash_attention as fa
+        from superresolutionhep_tpu_torch.ops import fused_mlp as fm
+        from superresolutionhep_tpu_torch.ops import fused_qkv as fq
+
+        self._saved = [(fa, "_flash_fwd_cuda", fa._flash_fwd_cuda), (fq, "_cuda_ln_mod_proj", fq._cuda_ln_mod_proj),
+                       (fm, "_cuda_dit_mlp", fm._cuda_dit_mlp)]
+        flash, qkv, mlp = (fn for _, _, fn in self._saved)
+
+        def flash_checked(q_pre, k, v, qm, km, nomax, with_lse, block_q=None):
+            km_run = km
+            if self.fault:
+                n = km.sum(1, keepdim=True)
+                tail = torch.div(n - 1, FAULT_TILE, rounding_mode="floor") * FAULT_TILE
+                km_run = km * (torch.arange(km.shape[1], device=km.device)[None] < tail).to(km.dtype)
+            out, lse = flash(q_pre, k, v, qm, km_run, nomax=nomax, with_lse=with_lse, block_q=block_q)
+            ref = fa._ref_attention_base2(*fa._heads_first(q_pre, k, v), qm[:, None], km[:, None],
+                                          "nomax_clip" if nomax else "max")
+            self._note("flash_fwd_nomax" if nomax else "flash_fwd", out, ref.permute(0, 2, 1, 3))
+            return out, lse
+
+        def qkv_checked(x, a, b, w, bias, segment_ids=None):
+            out = qkv(x, a, b, w, bias, segment_ids)
+            self._note("fused_qkv", out, fq._ref_ln_mod_proj_rows(x, a, b, w, bias, segment_ids))
+            return out
+
+        def mlp_checked(*args):
+            out = mlp(*args)
+            self._note("fused_mlp", out, fm._ref_dit_mlp_rows(*args))
+            return out
+
+        fa._flash_fwd_cuda, fq._cuda_ln_mod_proj, fm._cuda_dit_mlp = flash_checked, qkv_checked, mlp_checked
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _sha256(path):
+    import hashlib
+
+    with open(path, "rb") as fp:
+        return hashlib.sha256(fp.read()).digest()
+
+
+def _golden_inputs(name, x0s):
+    """A frozen SR golden's batch on the card, its expected samples, its
+    valid mask and the fixture's x0 (the JAX sampler's draw); the golden's
+    bytes must be those the fixture was made from."""
+    path = os.path.join(ROOT, "tests", "golden", f"{name}.npz")
+    if _sha256(path) != bytes(x0s[f"golden_sha256::{name}"]):
+        fail(f"trained: {path} is not the file the x0 fixture was made from")
+    z = np.load(path)
+    batch = {k: torch.from_numpy(z[f"batch::{k}"]).cuda() for k in
+             ("eta", "cosphi", "sinphi", "layer", "e_proxy", "q_mask")}
+    x0 = torch.from_numpy(x0s[f"x0::{name}"]).cuda()
+    return z, batch, x0, z["batch::q_mask"].astype(bool)
+
+
+class GoldenEvents:
+    """A frozen SR golden's batch as an in-memory dataset for
+    ``SRInference.predict``: one event a row, its valid cells, its
+    per-event statistics.  The golden holds no low-resolution cells and no
+    particles, so those output trees come out empty."""
+
+    def __init__(self, z):
+        from superresolutionhep_tpu_torch.data.sr_dataset import HIGH_KEYS_F32, SupResEvent
+
+        self.cell_count_high = z["batch::q_mask"].astype(bool).sum(1)
+        empty = np.zeros(0, np.float32)
+        self.events = []
+        for i, n in enumerate(self.cell_count_high):
+            high = {k: z[f"batch::{k}"][i, :n, 0] for k in HIGH_KEYS_F32 + ["layer"]}
+            self.events.append(SupResEvent(
+                high=high, low={k: empty for k in ("eta_raw", "phi", "layer", "e_meas_raw")},
+                particles={k: empty for k in ("pt", "eta", "phi", "e", "pdgid", "dep_e")},
+                high_e_part=None, low_e_part=None, idx=i,
+                cond_params={"mean": float(z["batch::cond_mean"][i, 0]), "std": float(z["batch::cond_std"][i, 0])}))
+
+    def __len__(self):
+        return len(self.events)
+
+    def get_event(self, idx):
+        return self.events[idx]
+
+
+def trained_phase(trees, reps):
+    """The shipped trained checkpoints through the port's entry points, read
+    from their Flax msgpack blobs (``saved_checkpoints/closure_{sr,pf}/
+    params.msgpack``, ``train/msgpack_io.py``), against their frozen goldens.
+    The JAX sampler's noise comes from ``tests/golden_torch/sr_golden_x0.npz``.
+    ``closure_sr`` is the multipart model at full width (h 256, 6 DiT layers,
+    4 heads of 64) with 9 Fourier geometry octaves.
+      * fp32 (K1's fp32 build), ``generate_samples`` at n_steps 25 on
+        ``sr_trained_golden``'s (2, 640) batch; each counted window holds
+        exactly 6 K1 per model evaluation and nothing else.  ``ab2`` must
+        meet the golden's tolerances.  ``dopri5``'s distance to its golden
+        is a reading: its adaptive steps turn a one-ulp change of the first
+        step size into differences far above the tolerance on this model
+        (the JAX package's own solver run op by op misses its golden so;
+        ``tests/test_torch_port_trained.py gaps``);
+      * bf16 production: ``SRInference.predict`` with the serving settings
+        (bf16, ``fast_softmax``, fused prologue, ``ab2e``, n_steps 25) on
+        ``sr_tpu_golden``'s four events.  Its first-batch gate rejects the
+        no-max kernel on this checkpoint (the attention logits leave the
+        clip), so it samples on the robust unfused bf16 model: exactly 6 K1
+        per evaluation (24, and one for the gate) plus the gate's one
+        evaluation of the fast model (6 K2, 6 K3, 6 K4); each launch held
+        against its plain version (``LaunchChecker``), and a control with
+        the planted fault that must fail it; finite samples.  Readings
+        beside 3e-2: the distance to the port's fp32 run from the same x0
+        and to the golden frozen on a TPU (bf16 is chaotic on this
+        checkpoint: the JAX package's own bf16 path is 2.96 from its fp32
+        one, ``ROADMAP.md`` C4); the predict call's and its sampler call's
+        wall time;
+      * the path the gate rejects, run for its kernels: the no-max fused
+        bf16 model (24 evaluations, exactly 144 each of K2/K3/K4, held
+        against their plain versions) against ``sr_tpu_golden``, which was
+        frozen from that function: the 99th percentile of |diff| within
+        ``NOMAX_GOLDEN_P99_LIMIT``, and the planted fault beyond it.  Its
+        launches are not the main path's and stay out of the phase's total;
+      * ``closure_pf``: ``PFInference`` loaded from its blob on the
+        SR-predicted events at high resolution, exactly 3 K1 per batch, its
+        K1 path against the dense path (fp32, 2e-4 of each output's max)."""
+    from superresolutionhep_tpu_torch.configs import (CLOSURE_PF_DIR, CLOSURE_SR_CONFIG_MV, CLOSURE_SR_CONFIG_T,
+                                                      CLOSURE_SR_DIR, PF_CONFIG_MV, PF_CONFIG_T,
+                                                      serve_inference_config)
+    from superresolutionhep_tpu_torch.data.bucketing import BucketBatcher
+    from superresolutionhep_tpu_torch.data.pf_dataset import PflowEvents, collate_pf
+    from superresolutionhep_tpu_torch.flow.sampling import generate_samples
+    from superresolutionhep_tpu_torch.inference.pf import PFInference, pf_batch_to_device
+    from superresolutionhep_tpu_torch.inference.sr import SRInference
+    from superresolutionhep_tpu_torch.models.pf import SAPF
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    sr_blob = os.path.join(ROOT, CLOSURE_SR_DIR, "params.msgpack")
+    x0s = np.load(os.path.join(ROOT, "tests", "golden_torch", "sr_golden_x0.npz"))
+    n_layers = int(CLOSURE_SR_CONFIG_MV["flow_model"]["transformer"]["num_transformer_layers"])
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    total = dict(zero)
+    checks, line = {}, {"phase": "trained", "checkpoint": CLOSURE_SR_DIR}
+
+    t0 = time.time()
+    inf32 = SRInference({"model": {"config_mv": CLOSURE_SR_CONFIG_MV, "config_t": CLOSURE_SR_CONFIG_T,
+                                   "checkpoint_path": sr_blob, "n_steps": 25}}, device="cuda")
+    line["load_s"] = round(time.time() - t0, 3)
+    z, batch, x0, mask = _golden_inputs("sr_trained_golden", x0s)
+    checks["params_are_the_goldens"] = _sha256(sr_blob) == bytes(z["params_sha256"])
+
+    def counted(model):
+        calls = [0]
+
+        def apply(b, x, t):
+            calls[0] += 1
+            return model(b, x, t)
+        return apply, calls
+
+    # ---- fp32: ab2 and dopri5 against sr_trained_golden, one counted window each
+    fp32 = {}
+    for method in ("ab2", "dopri5"):
+        apply, calls = counted(inf32.model)
+        kernels.reset_launches()
+        out = generate_samples(apply, batch, n_steps=int(z["n_steps"]), method=method, x0=x0)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        got, want = out[..., 0].float().cpu().numpy()[mask], z[f"expected::{method}"][..., 0][mask]
+        excess = np.abs(got - want) - (GOLDEN_TOL + GOLDEN_TOL * np.abs(want))
+        sig = np.abs(1.0 / (1.0 + np.exp(-got)) - 1.0 / (1.0 + np.exp(-want)))
+        fp32[method] = {"model_calls": calls[0], "max_abs_diff": float(np.abs(got - want).max()),
+                        "max_excess_over_tol": float(excess.max()), "sigmoid_max_abs_diff": float(sig.max()),
+                        "launches": {k: v for k, v in counts.items() if v}}
+        within = bool(excess.max() <= 0) and bool(sig.max() <= GOLDEN_SIGMOID_TOL)
+        fp32[method]["within_golden_tol"] = within
+        if method == "ab2":
+            checks["ab2_within_golden_tol"] = within
+        checks[f"{method}_finite"] = bool(np.isfinite(got).all())
+        checks[f"{method}_launch_counts"] = counts == dict(zero, flash_fwd=n_layers * calls[0])
+        total = {k: total[k] + counts[k] for k in total}
+    line.update(fp32=fp32, golden_tol={"rtol": GOLDEN_TOL, "atol": GOLDEN_TOL, "sigmoid": GOLDEN_SIGMOID_TOL})
+
+    # ---- bf16 production: SRInference.predict with the serving settings on
+    # sr_tpu_golden's four events, the fixture's x0 through the noise hook
+    ztpu, batch, x0, mask = _golden_inputs("sr_tpu_golden", x0s)
+    method, n_steps = bytes(ztpu["method"]).decode(), int(ztpu["n_steps"])
+    evals = n_steps - 1  # ab2e: one model evaluation per grid interval
+    prod = SRInference(serve_inference_config(CLOSURE_SR_CONFIG_MV, CLOSURE_SR_CONFIG_T, checkpoint_path=sr_blob,
+                                              n_steps=n_steps), device="cuda")
+    events = GoldenEvents(ztpu)
+    inf_dict = {"n_ensemble": 1, "ode_method": method, "batch_size": len(events), "seed": 0}
+    x0_host = x0.cpu().numpy()[None]
+
+    def noise(bi, shape):
+        if bi != 0 or tuple(shape) != x0_host.shape:
+            fail(f"trained: predict asked for noise {bi}, {shape}; the golden's four events make one batch")
+        return x0_host
+
+    kernels.reset_launches()
+    with LaunchChecker() as chk:
+        pred = prod.predict(events, inf_dict, noise=noise)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    total = {k: total[k] + counts[k] for k in total}
+    passed = bool(prod.nomax_selfcheck_passed)
+    # the first-batch gate evaluates the model once on each path, then the
+    # sampler runs on the path it chose
+    robust, fast = (1, 1 + evals) if passed else (1 + evals, 1)
+    checks["production_launch_counts"] = counts == dict(
+        zero, flash_fwd=n_layers * robust, flash_fwd_nomax=n_layers * fast, fused_qkv=n_layers * fast,
+        fused_mlp=n_layers * fast)
+    checks["production_vs_plain"] = chk.ok()
+    got = np.concatenate([pred["High_Tree"]["raw_nn_pred"][i] for i in range(len(events))])
+    checks["production_finite"] = got.shape == (int(mask.sum()),) and bool(np.isfinite(got).all())
+    in_use = prod.model_fast if passed else prod.model
+    readings = {}
+    # the same sampler on the same model called directly: predict's rows are the events' own
+    direct = generate_samples(in_use, batch, n_steps=n_steps, method=method, x0=x0)[..., 0].float().cpu().numpy()
+    readings["vs_direct_sampler_max_abs"] = float(np.abs(got - direct[mask]).max())
+    ref32 = generate_samples(lambda b, x, t: inf32.model(b, x, t), batch, n_steps=n_steps, method=method, x0=x0)
+    d32 = np.abs(got - ref32[..., 0].float().cpu().numpy()[mask])
+    readings["vs_port_fp32"] = {"max_abs_diff": float(d32.max()), "p99_abs_diff": float(np.percentile(d32, 99)),
+                                "within": bool(d32.max() <= PRODUCTION_TOL)}
+    d_tpu = np.abs(got - ztpu["expected"][..., 0][mask])
+    readings["vs_tpu_golden"] = {"max_abs_diff": float(d_tpu.max()), "p99_abs_diff": float(np.percentile(d_tpu, 99)),
+                                 "within": bool(d_tpu.max() <= PRODUCTION_TOL)}
+    # control: one evaluation of the path in use with the planted fault
+    with torch.no_grad(), LaunchChecker(fault=True) as bad:
+        in_use(batch, x0, torch.full((batch["eta"].shape[0],), 0.5, device="cuda"))
+    checks["production_control_caught"] = bad.caught()
+
+    def timed(fn):
+        wall = []
+        for _ in range(max(3, reps // 4)):
+            torch.cuda.synchronize()
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.time() - t) * 1e3)
+        return {"median": statistics.median(wall), "all": [round(w, 2) for w in wall]}
+
+    from superresolutionhep_tpu_torch.scripts.common import card
+
+    line.update(production={
+        "entry": "SRInference.predict", "events": len(events), "batch": list(mask.shape), "method": method,
+        "n_steps": n_steps, "dtype": "bf16", "selfcheck_passed": passed,
+        "path": "no-max K2, fused K3/K4" if passed else "robust K1, unfused",
+        "launches": {k: v for k, v in counts.items() if v}, "vs_plain": chk.summary(),
+        "control_vs_plain": bad.summary(), "readings": readings, "tol": PRODUCTION_TOL,
+        "predict_call_ms": timed(lambda: prod.predict(events, inf_dict, noise=noise)),
+        "sampler_call_ms": timed(lambda: generate_samples(in_use, batch, n_steps=n_steps, method=method, x0=x0)),
+        "card": card()})
+
+    # ---- the path the gate rejects on this checkpoint, run for its kernels:
+    # the no-max fused bf16 model (K2/K3/K4 on trained weights) through the
+    # same sampler, against sr_tpu_golden, frozen from that function on a TPU
+    if prod.model_fast is None:
+        fail("trained: the serving settings built no fast model")
+    kernels.reset_launches()
+    with LaunchChecker() as chk:
+        out = generate_samples(prod.model_fast, batch, n_steps=n_steps, method=method, x0=x0)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    per = n_layers * evals
+    checks["nomax_launch_counts"] = counts == dict(zero, flash_fwd_nomax=per, fused_qkv=per, fused_mlp=per)
+    checks["nomax_vs_plain"] = chk.ok()
+    got = out[..., 0].float().cpu().numpy()[mask]
+    d_tpu = np.abs(got - ztpu["expected"][..., 0][mask])
+    with LaunchChecker(fault=True) as bad:
+        out_bad = generate_samples(prod.model_fast, batch, n_steps=n_steps, method=method, x0=x0)
+    d_bad = np.abs(out_bad[..., 0].float().cpu().numpy()[mask] - ztpu["expected"][..., 0][mask])
+    p99, p99_bad = float(np.percentile(d_tpu, 99)), float(np.percentile(d_bad, 99))
+    checks["nomax_finite"] = bool(np.isfinite(got).all())
+    checks["nomax_golden_p99"] = p99 <= NOMAX_GOLDEN_P99_LIMIT
+    checks["nomax_control_caught"] = bad.caught() and p99_bad > NOMAX_GOLDEN_P99_LIMIT
+    line.update(gate_rejected_nomax={
+        "launches": {k: v for k, v in counts.items() if v}, "vs_plain": chk.summary(),
+        "control_vs_plain": bad.summary(),
+        "vs_tpu_golden": {"max_abs_diff": float(d_tpu.max()), "p99_abs_diff": p99, "tol_max": PRODUCTION_TOL,
+                          "limit_p99": NOMAX_GOLDEN_P99_LIMIT, "control_p99_abs_diff": p99_bad}})
+
+    # ---- closure_pf from its blob: the K1 path against the dense path
+    pf_cfg = PF_CONFIG_MV["pf_model"]
+    n_enc = int(pf_cfg["encoder"]["transformer"]["num_transformer_layers"])
+    pf = PFInference({"model": {"config_mv": PF_CONFIG_MV, "config_t": dict(PF_CONFIG_T, resolution="high"),
+                                "checkpoint_path": os.path.join(ROOT, CLOSURE_PF_DIR, "params.msgpack")},
+                      "batch_size": 32}, device="cuda")
+    dense = SAPF(pf_cfg, pf.transforms, inference=True, attn_impl="einsum")
+    dense.load_state_dict(pf.model.state_dict(), strict=True)
+    dense.to("cuda").eval()
+    ds = PflowEvents.from_trees(trees, PF_CONFIG_MV, energy_threshold=float(PF_CONFIG_T["energy_threshold"]),
+                                res="high", load_incidence=True)
+    worst = {"logits": 0.0, "kin": 0.0, "inc": 0.0}
+    n_batches = 0
+    kernels.reset_launches()
+    for idxs, bucket in BucketBatcher(ds.cell_count, quantum=128, max_batch_size=32, shuffle=False):
+        b = pf_batch_to_device(collate_pf([ds.get_event(i) if i >= 0 else None for i in idxs], bucket.pad_n, 4),
+                               torch.device("cuda"))
+        with torch.no_grad():
+            res = [pf.model(b), dense(b)]
+        n_batches += 1
+        for name, a, r in zip(("logits", "kin", "inc"), res[0], res[1]):
+            worst[name] = max(worst[name], float((a - r).abs().max() / r.abs().max().clamp_min(1e-30)))
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    total = {k: total[k] + counts[k] for k in total}
+    checks["closure_pf_launch_counts"] = counts == dict(zero, flash_fwd=n_enc * n_batches)
+    checks["closure_pf_flash_vs_dense"] = max(worst.values()) <= TOL[("flash", torch.float32)]
+    line.update(closure_pf={"batches": n_batches, "flash_vs_dense_max_rel_err": worst,
+                            "tol_rel": TOL[("flash", torch.float32)], "launches": {k: v for k, v in counts.items() if v}})
+    line.update(checks=checks, ok=all(checks.values()))
+    emit(line)
+    if not line["ok"]:
+        fail("trained checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase: normformer (the GPT-2 + Normformer FlowModel)
+# ---------------------------------------------------------------------------
+
+
+def normformer_phase(seed=5):
+    """The FlowModel with ``transformer.type: GPT-2+Normformer`` at the
+    multipart model's width (h 256, 6 layers, 4 heads of 64), random Xavier
+    weights from a seed, one evaluation on a (4, 1024) batch of synthetic
+    two-particle events (~860 cells) through K1 in fp32 and bf16 and through
+    the no-max K2 in bf16.  Each counted window holds exactly 6 launches of
+    its kernel and nothing else, and each launch is held against the
+    kernel's plain version on its own inputs (``LaunchChecker``).  fp32 is
+    also held against the fp32 dense path, within 2e-4 of the output's max.
+    The bf16 paths' distance to the bf16 dense path is a reading: bf16
+    rounding through 6 layers of random weights moves the output by ~9% of
+    its max on every path, the dense one included, and the planted tail-tile
+    fault hides in it (0.099 of the max with the fault, 0.090 without, on an
+    H100).
+    Controls: each evaluation again with the planted fault (``FAULT_TILE``)
+    must fail its checks."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS, collate
+    from superresolutionhep_tpu_torch.inference.sr import batch_to_device
+    from superresolutionhep_tpu_torch.models.flow_model import FlowModel
+    from superresolutionhep_tpu_torch.models.precision import cast_params_for_inference
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    cfg = cfg_mv["flow_model"]
+    cfg["transformer"]["type"] = "GPT-2+Normformer"
+    n_layers = int(cfg["transformer"]["num_transformer_layers"])
+    sd = params_from_jax(init_params_jax_layout(cfg, seed=seed), cfg)
+    ds = multipart_dataset(cfg_mv, 4, seed, min_particles=2, max_particles=2, window_lr_cells=1)  # ~860 cells
+    events = [ds.get_event(i) for i in range(len(ds))]
+    pad = 1024
+    batch = batch_to_device(collate(events, pad), torch.device("cuda"), MODEL_BATCH_KEYS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(batch["e_proxy"].shape, generator=gen, device="cuda")
+    t = torch.rand((len(events),), generator=gen, device="cuda")
+    mask = batch["q_mask"]
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    total = dict(zero)
+    checks, results = {}, {}
+
+    def model(impl, dtype):
+        m = FlowModel(cfg, attn_impl=impl)
+        m.load_reference_state_dict(sd, strict=True)
+        m.to("cuda").eval().requires_grad_(False)
+        return cast_params_for_inference(m, dtype) if dtype is not None else m
+
+    def rel(a, b):
+        return float((a - b)[mask].abs().max() / b[mask].abs().max().clamp_min(1e-30))
+
+    with torch.no_grad():
+        ref32 = model("einsum", None)(batch, x, t).float()
+        ref16 = model("einsum", torch.bfloat16)(batch, x, t).float()
+    for label, impl, dtype, kernel in (("fp32", "flash", None, "flash_fwd"),
+                                       ("bf16", "flash", torch.bfloat16, "flash_fwd"),
+                                       ("bf16_nomax", "flash_nomax", torch.bfloat16, "flash_fwd_nomax")):
+        m = model(impl, dtype)
+        kernels.reset_launches()
+        with torch.no_grad(), LaunchChecker() as chk:
+            out = m(batch, x, t).float()
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        total = {k: total[k] + counts[k] for k in total}
+        with torch.no_grad(), LaunchChecker(fault=True) as bad:
+            out_bad = m(batch, x, t).float()
+        res = {"launches": {k: v for k, v in counts.items() if v}, "vs_plain": chk.summary(),
+               "control_vs_plain": bad.summary()}
+        checks[f"{label}_launch_counts"] = counts == dict(zero, **{kernel: n_layers})
+        checks[f"{label}_vs_plain"] = chk.ok() and bool(torch.isfinite(out[mask]).all())
+        if dtype is None:
+            tol = TOL[("flash", torch.float32)]
+            res.update(max_rel_err_vs_fp32_dense=rel(out, ref32), tol_rel=tol,
+                       control_max_rel_err_vs_fp32_dense=rel(out_bad, ref32))
+            checks[f"{label}_flash_vs_einsum"] = res["max_rel_err_vs_fp32_dense"] <= tol
+            checks[f"{label}_control_caught"] = bad.caught() and res["control_max_rel_err_vs_fp32_dense"] > tol
+        else:
+            res.update(max_rel_err_vs_bf16_dense=rel(out, ref16), max_rel_err_vs_fp32_dense=rel(out, ref32),
+                       control_max_rel_err_vs_bf16_dense=rel(out_bad, ref16))
+            checks[f"{label}_control_caught"] = bad.caught()
+        results[label] = res
+    results["bf16_dense_max_rel_err_vs_fp32_dense"] = rel(ref16, ref32)
+    line = {"phase": "normformer", "batch": [len(events), pad], "cells": [len(e.high["e_proxy"]) for e in events],
+            "layers": n_layers, **results, "checks": checks, "ok": all(checks.values())}
+    emit(line)
+    if not line["ok"]:
+        fail("normformer checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return total
+
+
 def budget_sized_pf_events(ds, n_cells, rng):
     """Stage-2 events of ``n_cells[i]`` cells each, for timing at realistic
     sizes: cells drawn with replacement from all the cells of ``ds`` (every
@@ -2450,8 +2952,12 @@ def main():
     from superresolutionhep_tpu_torch.scripts.common import card
 
     smi = card()
+    import importlib.util
+
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
+          "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+          # the live validation plots (n_event_displays > 0) need it
+          "matplotlib": importlib.util.find_spec("matplotlib") is not None})
 
     t0 = time.time()
     lib = kernels.build(verbose=True)
@@ -2479,6 +2985,8 @@ def main():
         trees = sr_predicted_trees()
         by_phase["pf_inference"] = pf_inference_phase(trees) if not args.skip_serve else zero
         by_phase["pf_train"] = pf_train_phase(trees, args.reps) if not args.skip_train else zero
+        by_phase["trained"] = trained_phase(trees, args.reps) if not args.skip_serve else zero
+    by_phase["normformer"] = normformer_phase() if not args.skip_serve else zero
 
     # one entry per kernel: the main paths' shape class (bf16; L=2048 with
     # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9, the

@@ -5,7 +5,8 @@
 Runs every item of the config's ``items`` with ``run_pred: true``; an item
 without ``pred_path`` writes ``inference/<pred_file_name>`` beside the
 model's config.  ``model.checkpoint_path`` names a checkpoint of the port's
-PF trainer (train/checkpoint.py).
+PF trainer or a Flax ``.msgpack`` blob such as the shipped
+``saved_checkpoints/closure_pf/params.msgpack`` (train/checkpoint.py).
 """
 
 from __future__ import annotations

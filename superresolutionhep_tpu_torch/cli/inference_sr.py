@@ -9,7 +9,8 @@ Two modes, as the JAX package's:
   * the config's ``items`` loop: every item with ``run_pred: true``.
 
 ``model.checkpoint_path`` in the YAML names a checkpoint of the port's
-trainer (train/checkpoint.py).  ``--precision bfloat16`` runs the dense stack
+trainer or a Flax ``.msgpack`` blob such as the shipped
+``saved_checkpoints/closure_sr/params.msgpack`` (train/checkpoint.py).  ``--precision bfloat16`` runs the dense stack
 in bf16 (the YAML's ``model.dtype: bfloat16``).
 """
 

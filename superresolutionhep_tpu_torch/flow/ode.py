@@ -1,13 +1,12 @@
 """ODE integrators for flow-matching sample generation.
 
-Counterpart of the JAX package's ``flow/ode.py``.  Ported so far: the
-fixed-step solvers ``euler`` and ``midpoint``, the Adams-Bashforth-2
-multistep solver with both bootstraps (``ab2``: Heun, ``ab2e``: Euler) and
-the adaptive Dormand-Prince 5(4) solver with dense output (``dopri5``, the
-trainer's validation sampler).  A Python loop over the time grid takes the
-place of ``lax.scan`` / ``lax.while_loop``: PyTorch runs eagerly and each step
-is a handful of kernel launches.  heun, rk4 and ab3 are not ported yet and
-raise.
+Counterpart of the JAX package's ``flow/ode.py``: the fixed-step solvers
+``euler``, ``midpoint``, ``heun`` and ``rk4``, the Adams-Bashforth multistep
+solvers (``ab2`` with a Heun bootstrap, ``ab2e`` with an Euler one, ``ab3``
+on a uniform grid) and the adaptive Dormand-Prince 5(4) solver with dense
+output (``dopri5``, the trainer's validation sampler).  A Python loop over the
+time grid takes the place of ``lax.scan`` / ``lax.while_loop``: PyTorch runs
+eagerly and each step is a handful of kernel launches.
 
 All integrators share the signature ``odeint(f, y0, ts)`` with
 ``f(t, y) -> dy/dt`` (t a 0-dim tensor; for dopri5 a (groups,) tensor, one
@@ -31,16 +30,32 @@ def _midpoint_step(f, t0, t1, y):
     return y + h * f(t0 + h / 2, y + (h / 2) * f(t0, y))
 
 
+def _heun_step(f, t0, t1, y):
+    h = t1 - t0
+    k1 = f(t0, y)
+    k2 = f(t1, y + h * k1)
+    return y + (h / 2) * (k1 + k2)
+
+
+def _rk4_step(f, t0, t1, y):
+    h = t1 - t0
+    k1 = f(t0, y)
+    k2 = f(t0 + h / 2, y + (h / 2) * k1)
+    k3 = f(t0 + h / 2, y + (h / 2) * k2)
+    k4 = f(t1, y + h * k3)
+    return y + (h / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
 FIXED_STEP_METHODS = {
     "euler": _euler_step,
     "midpoint": _midpoint_step,
+    "heun": _heun_step,
+    "rk4": _rk4_step,
 }
 
-# multistep methods reuse previous evaluations (1 f-eval per step at 2nd
+# multistep methods reuse previous evaluations (1 f-eval per step at 2nd/3rd
 # order).  "ab2e" is ab2 with an Euler bootstrap (one fewer eval in all).
-MULTISTEP_METHODS = ("ab2", "ab2e")
-
-NOT_PORTED = ("heun", "rk4", "ab3")
+MULTISTEP_METHODS = ("ab2", "ab2e", "ab3")
 
 
 def _store_list(store_idx):
@@ -87,6 +102,39 @@ def odeint_ab2(f: Callable, y0, ts, store_idx=None, bootstrap: str = "heun"):
             kept[n] = y
     if store is None:
         return torch.stack(states[:T], dim=0)
+    return torch.stack([kept[pos] for pos in store], dim=0)
+
+
+def odeint_ab3(f: Callable, y0, ts, store_idx=None):
+    """Adams-Bashforth-3 on a UNIFORM grid: Heun bootstrap for y1, AB2 for
+    y2, then x_{n+1} = x_n + h(23 f_n - 16 f_{n-1} + 5 f_{n-2}) / 12 — one
+    vector-field evaluation per step at 3rd order.  The step is the first
+    interval's.  A grid of fewer than 3 points goes to ``odeint_ab2``.  Same
+    ``store_idx`` contract as ``odeint_ab2``."""
+    T = ts.shape[0]
+    if T < 3:
+        return odeint_ab2(f, y0, ts, store_idx=store_idx)
+    store = _store_list(store_idx)
+
+    h = ts[1] - ts[0]
+    f0 = f(ts[0], y0)
+    y1 = y0 + (h / 2) * (f0 + f(ts[1], y0 + h * f0))  # Heun bootstrap
+    f1 = f(ts[1], y1)
+    y2 = y1 + h * (1.5 * f1 - 0.5 * f0)  # uniform-step AB2
+
+    states = [y0, y1, y2]
+    kept = {0: y0, 1: y1, 2: y2}
+    y, f_nm1, f_nm2 = y2, f1, f0
+    for n in range(3, T):
+        f_n = f(ts[n - 1], y)
+        y = y + (h / 12.0) * (23.0 * f_n - 16.0 * f_nm1 + 5.0 * f_nm2)
+        f_nm1, f_nm2 = f_n, f_nm1
+        if store is None:
+            states.append(y)
+        elif n in store:
+            kept[n] = y
+    if store is None:
+        return torch.stack(states, dim=0)
     return torch.stack([kept[pos] for pos in store], dim=0)
 
 
@@ -280,6 +328,6 @@ def odeint(f, y0, ts, method: str = "ab2e", rtol: float = 1e-4, atol: float = 1e
         return odeint_ab2(f, y0, ts)
     if method == "ab2e":
         return odeint_ab2(f, y0, ts, bootstrap="euler")
-    if method in NOT_PORTED:
-        raise NotImplementedError(f"ODE method {method!r} is not ported yet")
+    if method == "ab3":
+        return odeint_ab3(f, y0, ts)
     raise ValueError(f"unknown ODE method {method!r}")

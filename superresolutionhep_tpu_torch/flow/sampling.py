@@ -19,7 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .ode import FIXED_STEP_METHODS, odeint, odeint_ab2, odeint_fixed_store
+from .ode import FIXED_STEP_METHODS, odeint, odeint_ab2, odeint_ab3, odeint_fixed_store
 
 
 def _draw_x0(shape, dtype, device, generator):
@@ -63,6 +63,8 @@ def generate_samples(
         if store_indices is not None and method in ("ab2", "ab2e"):
             boot = "euler" if method == "ab2e" else "heun"
             return odeint_ab2(vector_field, x0, ts, store_idx=store_indices, bootstrap=boot)
+        if store_indices is not None and method == "ab3":
+            return odeint_ab3(vector_field, x0, ts, store_idx=store_indices)
         if store_indices is not None and method in FIXED_STEP_METHODS:
             return odeint_fixed_store(vector_field, x0, ts, store_indices, method)
         traj = odeint(vector_field, x0, ts, method=method, groups=groups)

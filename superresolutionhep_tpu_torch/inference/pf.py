@@ -16,7 +16,9 @@ Differences a caller sees:
     of ``model.config_path_mv`` / ``model.config_path_t``.
   * ``params`` is a reference-layout ``state_dict`` (tools/convert.py); by
     default it is read from ``model.checkpoint_path``, a checkpoint of the
-    port's PF trainer.
+    port's PF trainer or a Flax ``.msgpack`` blob such as
+    ``saved_checkpoints/closure_pf/params.msgpack``
+    (train/checkpoint.py::load_reference_params).
   * random slots (``init_particles.type: random``) take their noise from an
     injected callable ``noise(batch_index, shape)``, the counterpart of the
     JAX package's ``fold_in(PRNGKey(0), batch_index)``, or else from a
@@ -39,7 +41,7 @@ from ..data.jagged import JaggedArray
 from ..data.pf_dataset import PflowEvents, collate_pf
 from ..losses.set2set import set_to_set_incidence_loss, set_to_set_kinematics_loss
 from ..models.pf.model_pf import SAPF
-from ..train.checkpoint import load_params
+from ..train.checkpoint import load_reference_params
 from ..transforms import build_var_transforms
 from .sr import _config, resolve_device
 
@@ -71,7 +73,7 @@ class PFInference:
         self.model = SAPF(pf_cfg, transforms=self.transforms, inference=True,
                           fused_prologue=bool(mcfg.get("fused_prologue", True)))
         if params is None:
-            params = load_params(mcfg["checkpoint_path"])
+            params = load_reference_params(mcfg["checkpoint_path"], pf_cfg, "pf")
         self.model.load_reference_state_dict(params)
         self.model.to(self.device).eval().requires_grad_(False)
         self.loss_on_inc = bool(self.config_t.get("loss_on_inc_wts", False))

@@ -15,7 +15,9 @@ Differences a caller sees:
     (``model.config_mv`` / ``model.config_t``).
   * ``params`` is a reference-layout ``state_dict`` (tools/convert.py); by
     default it is read from ``model.checkpoint_path``, a checkpoint of the
-    port's trainer (train/checkpoint.py::load_params).
+    port's trainer or a Flax ``.msgpack`` blob such as
+    ``saved_checkpoints/closure_sr/params.msgpack``
+    (train/checkpoint.py::load_reference_params).
   * noise comes from a ``torch.Generator`` on the device seeded from
     ``inf_dict["seed"]``, or from an injected callable
     ``noise(batch_index, shape) -> x0`` (the tests feed the JAX package's
@@ -47,7 +49,7 @@ from ..flow.sampling import generate_ensemble
 from ..models.flow_model import FlowModel
 from ..models.precision import cast_params_for_inference
 from ..ops.flash_attention import nomax_selfcheck
-from ..train.checkpoint import load_params
+from ..train.checkpoint import load_reference_params
 from ..transforms import TargetTransform
 
 PACKED_BATCH_KEYS = MODEL_BATCH_KEYS + ("seg",)
@@ -102,10 +104,10 @@ class SRInference:
         self.nomax_selfcheck_passed = None  # outcome of the first-batch gate
         self.target_transform = TargetTransform.from_config(self.config_mv["target_transform"])
 
-        if params is None:
-            params = load_params(mcfg["checkpoint_path"])
-
         flow_cfg = self.config_mv["flow_model"]
+        if params is None:
+            params = load_reference_params(mcfg["checkpoint_path"], flow_cfg, "sr")
+
         self.model = FlowModel(flow_cfg).to(self.device)
         self.model.load_reference_state_dict(params)
         if self.dtype is not None:

@@ -1,10 +1,18 @@
 """Masked multi-head attention over padded variable-length sets.
 
-Counterpart of the JAX package's ``models/attention.py``, for now self- and
-cross-attention with padding masks, and self-attention over segment-packed
-rows: edges, attention bias, adjacency masks and sequence/tensor parallelism
-raise ``NotImplementedError``.
+Counterpart of the JAX package's ``models/attention.py``: self- and
+cross-attention with padding masks, self-attention over segment-packed rows,
+and the general path: per-edge features (an additive bias ``E`` from
+``linear_e`` and a sigmoid gate ``G`` from ``linear_g``, optional edge
+updates ``linear_e_out`` from the raw scores), an additive ``attn_bias``, an
+adjacency mask ``attn_valid`` merged into the padding masks, and dropout on
+the raw scores before the softmax (the reference's quirk).  Sequence and
+tensor parallelism are not ported.
 
+  * the JAX package's rule ``_can_use_flash`` decides where a flash kernel
+    may be taken: only without edges, bias, adjacency mask, edge updates and
+    score dropout.  The general path is the dense formulation, on the CPU and
+    the card alike;
   * cross-attention (``k`` given, ``v`` defaults to ``k``, ``kv_valid`` the
     keys' mask; Lq may differ from Lk) takes the flash kernel when
     ``flash_shapes_ok(Lq, Lk, D)`` holds and the dense formulation otherwise,
@@ -24,7 +32,10 @@ raise ``NotImplementedError``.
   * ``fused_ln=(eff_a, eff_b)``: the input arrives RAW (pre-norm) and
     LayerNorm + adaLN modulate + the QKV projections run as one kernel
     (ops/fused_qkv.py) straight into the flash kernel's layout; with
-    ``segment_ids`` the rows are per-segment tables (B, E + 1, F).
+    ``segment_ids`` the rows are per-segment tables (B, E + 1, F);
+  * score dropout acts in training mode only (``module.train()``, the JAX
+    package's ``deterministic=False``); its keep mask is drawn from the
+    ``dropout_generator`` passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -50,6 +61,20 @@ from .dense import Linear, xavier_uniform_
 IMPLS = ("flash", "flash_nomax", "einsum", "auto")
 
 
+def _can_use_flash(edges, attn_bias, attn_valid, update_edges, dropout) -> bool:
+    """The JAX package's rule: a flash kernel computes padding-masked
+    attention only."""
+    return edges is None and attn_bias is None and attn_valid is None and not update_edges and dropout == 0.0
+
+
+def score_dropout(scores, rate: float, generator=None):
+    """Flax ``nn.Dropout`` on the raw scores: each kept with probability
+    1 - rate and scaled by 1 / (1 - rate), the others set to 0 (before the
+    softmax, so a dropped score weighs exp(0), not nothing)."""
+    keep = torch.rand(scores.shape, generator=generator, device=scores.device) < 1.0 - rate
+    return torch.where(keep, scores / (1.0 - rate), torch.zeros((), dtype=scores.dtype, device=scores.device))
+
+
 class MultiheadAttention(nn.Module):
     def __init__(
         self,
@@ -60,19 +85,27 @@ class MultiheadAttention(nn.Module):
         dropout: float = 0.0,
         impl: str = "auto",
         dtype=None,
+        edge_embed_dim: int = 0,
+        update_edges: bool = False,
     ):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
+        if edge_embed_dim % num_heads:
+            raise ValueError("edge_embed_dim must be divisible by num_heads")
         if impl not in IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
-        if dropout:
-            raise NotImplementedError("pre-softmax score dropout is not ported yet")
         self.embed_dim, self.num_heads, self.impl = embed_dim, num_heads, impl
+        self.dropout, self.update_edges = float(dropout), bool(update_edges)
         in_dim = q_dim or embed_dim
         self.linear_q = xavier_uniform_(Linear(in_dim, embed_dim, dtype=dtype))
         self.linear_k = xavier_uniform_(Linear(in_dim, embed_dim, dtype=dtype))
         self.linear_v = xavier_uniform_(Linear(in_dim, embed_dim, dtype=dtype))
+        if edge_embed_dim:
+            self.linear_e = xavier_uniform_(Linear(edge_embed_dim, num_heads, dtype=dtype))
+            self.linear_g = xavier_uniform_(Linear(edge_embed_dim, num_heads, dtype=dtype))
+            if update_edges:
+                self.linear_e_out = xavier_uniform_(Linear(num_heads, edge_embed_dim, dtype=dtype))
         self.linear_out = xavier_uniform_(Linear(embed_dim, in_dim, dtype=dtype)) if out_proj else None
         self._fold = None  # cached (version key, w (F, 3F) view, bias) of the fused path, grad disabled
 
@@ -98,14 +131,19 @@ class MultiheadAttention(nn.Module):
         attn_bias=None,
         segment_ids=None,
         fused_ln=None,
+        dropout_generator=None,
     ):
         """q: (B, Lq, F); k, v: (B, Lk, F) for cross-attention (v defaults to
-        k).  Masks are True==valid.  Returns (B, Lq, q_dim or embed_dim)."""
-        if edges is not None or attn_bias is not None or attn_valid is not None:
-            raise NotImplementedError("edge features / attention bias / adjacency masks are not ported yet")
+        k).  Masks are True==valid; ``attn_valid`` (B, Lq, Lk) and
+        ``attn_bias`` / ``edges`` (B, Lq, Lk, H / edge_embed_dim).  Returns
+        (B, Lq, q_dim or embed_dim); with ``edges`` given, (out, edge_out),
+        edge_out (B, Lq, Lk, edge_embed_dim) or None without edge updates."""
+        general = not _can_use_flash(edges, attn_bias, attn_valid, self.update_edges, self.dropout)
         if fused_ln is not None:
-            if k is not None or v is not None:
-                raise ValueError("fused_ln supports padding-masked self-attention only (no k/v)")
+            if k is not None or v is not None or edges is not None or attn_bias is not None \
+                    or attn_valid is not None or (self.dropout and self.training):
+                raise ValueError("fused_ln supports padding-masked self-attention only "
+                                 "(no k/v, edges, attn_bias/valid or active dropout)")
             return self._fused_self_attention(q, q_valid, fused_ln, segment_ids)
         if k is None:
             k = q
@@ -123,7 +161,38 @@ class MultiheadAttention(nn.Module):
         q_p = self.linear_q(q).reshape(B, Lq, H, HD)
         k_p = self.linear_k(k).reshape(B, Lk, H, HD)
         v_p = self.linear_v(v).reshape(B, Lk, H, HD)
+        if general:
+            if segment_ids is not None:
+                raise ValueError("segment packing supports padding masks only")
+            return self._attend_general(q_p, k_p, v_p, q_valid, kv_valid, attn_valid, attn_bias, edges,
+                                        dropout_generator)
         return self._project_out(self._attend(q_p, k_p, v_p, q_valid, kv_valid, segment_ids))
+
+    def _attend_general(self, q_p, k_p, v_p, q_valid, kv_valid, attn_valid, attn_bias, edges, generator):
+        """The dense formulation with the edge bias and gate, the additive
+        bias, the adjacency mask and the score dropout (JAX
+        ``models/attention.py``, the path past ``_can_use_flash``)."""
+        B, Lq, H, HD = q_p.shape
+        Lk = k_p.shape[1]
+        g = None
+        if edges is not None:
+            e = self.linear_e(edges)  # (B, Lq, Lk, H)
+            attn_bias = e if attn_bias is None else attn_bias + e
+            g = torch.sigmoid(self.linear_g(edges))
+        mask = merge_masks(q_valid, kv_valid, attn_valid, Lq, Lk)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_p, k_p) / math.sqrt(HD)
+        if attn_bias is not None:  # (B, Lq, Lk, H) -> (B, H, Lq, Lk)
+            scores = scores + attn_bias.permute(0, 3, 1, 2)
+        if self.dropout and self.training:
+            scores = score_dropout(scores, self.dropout, generator)
+        weights = masked_softmax(scores, mask[:, None] if mask is not None else None, axis=-1)
+        if g is not None:
+            weights = weights * g.permute(0, 3, 1, 2)
+        out = self._project_out(torch.einsum("bhqk,bkhd->bqhd", weights, v_p).reshape(B, Lq, self.embed_dim))
+        if edges is None:
+            return out
+        edge_out = self.linear_e_out(scores.permute(0, 2, 3, 1)) if self.update_edges else None
+        return out, edge_out
 
     def _attend(self, q_p, k_p, v_p, q_valid, kv_valid, segment_ids=None):
         """(B, Lq, H, HD) queries, (B, Lk, H, HD) keys and values ->

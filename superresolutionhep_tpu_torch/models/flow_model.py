@@ -3,10 +3,14 @@
 Counterpart of the JAX package's ``models/flow_model.py``: embeds cell
 geometry (eta/cosphi/sinphi), calorimeter layer, proxy energy and the noisy
 per-cell state, each conditioned on the timestep embedding; pools a
-masked-mean global conditioning vector; runs a DiT stack over the cell set;
-skip-concatenates the conditional features; optional final adaLN modulation;
-and predicts a per-cell scalar velocity.  ``type: DiT`` only for now; no
-Fourier geometry features.  A segment-packed batch (``batch["seg"]``) carries
+masked-mean global conditioning vector; runs a transformer stack over the
+cell set; skip-concatenates the conditional features; optional final adaLN
+modulation; and predicts a per-cell scalar velocity.  The stack is the DiT
+(``type: DiT``) or the GPT-2 + Normformer encoder (``type:
+GPT-2+Normformer``, models/transformer.py; padding masks only, and the fused
+prologue and remat do not apply to it).  ``etaphi_emb.fourier_features: K``
+appends sin and cos of eta and of the phi angle at the octaves 2^k pi,
+k < K, to the geometry input, in fp32.  A segment-packed batch (``batch["seg"]``) carries
 several events per row: the pooled context becomes per segment (and per cell
 for the Dense concat paths), and attention stays within a segment.
 
@@ -20,6 +24,8 @@ are the reference checkpoint's (see tools/convert.py).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 
@@ -28,6 +34,7 @@ from ..ops.masked import masked_mean, segment_mean, segment_onehot
 from .dense import Dense, LayerNorm, cast
 from .dit import DiTEncoder, adaln_modulation, modulate, scatter_segments
 from .embed import TimestepEmbedder
+from .transformer import TransformerEncoder
 
 N_CALO_LAYERS = 3  # ECAL layers kept after the layer<3 cut
 
@@ -39,11 +46,10 @@ class FlowModel(nn.Module):
         super().__init__()
         self.compute_dtype = dtype
         cfg = self.config = config
-        if int(cfg["etaphi_emb"].get("fourier_features", 0) or 0):
-            raise NotImplementedError("Fourier geometry features are not ported yet")
+        self.n_fourier = int(cfg["etaphi_emb"].get("fourier_features", 0) or 0)
         tcfg = cfg["transformer"]
-        if tcfg["type"] != "DiT":
-            raise NotImplementedError(f"transformer type {tcfg['type']!r} is not ported yet (DiT only)")
+        if tcfg["type"] not in ("DiT", "GPT-2+Normformer"):
+            raise ValueError(f"unknown transformer type {tcfg['type']!r}")
         C = int(cfg["time_embedding_size"])
         h_dim = int(cfg["h_dim"])
 
@@ -58,7 +64,8 @@ class FlowModel(nn.Module):
         # computes in full fp32 (TF32 off) — bf16 inputs would quantize
         # normalized eta below the HR subcell half-pitch, the SR task's whole
         # signal.
-        self.etaphi_emb_net = Dense.from_config(dict(cfg["etaphi_emb"], context_size=C), input_size=3)
+        self.etaphi_emb_net = Dense.from_config(dict(cfg["etaphi_emb"], context_size=C),
+                                                input_size=3 + 4 * self.n_fourier)
         self.proxy_emb_net = Dense.from_config(dict(cfg["e_proxy_emb"], context_size=C), input_size=1, dtype=dtype)
         self.noisy_input_emb_net = Dense.from_config(
             dict(cfg["noisy_input_emb"], context_size=C), input_size=1, dtype=dtype
@@ -78,17 +85,28 @@ class FlowModel(nn.Module):
         )
         if int(cfg["feat_0_mlp"]["output_size"]) != h_dim:
             raise ValueError("feat_0_mlp.output_size must equal h_dim")
-        self.transformer = DiTEncoder(
-            embed_dim=h_dim,
-            num_layers=tcfg["num_transformer_layers"],
-            num_heads=tcfg["num_heads"],
-            context_size=ctx,
-            dense_config=dict(tcfg["dense_config"]),
-            attn_impl=attn_impl,
-            fused_prologue=fused_prologue,
-            dtype=dtype,
-            remat=remat,
-        )
+        self.normformer = tcfg["type"] == "GPT-2+Normformer"
+        if self.normformer:
+            self.transformer = TransformerEncoder(
+                embed_dim=h_dim,
+                num_layers=tcfg["num_transformer_layers"],
+                num_heads=tcfg["num_heads"],
+                dense_config=dict(tcfg["dense_config"]),
+                attn_impl=attn_impl,
+                dtype=dtype,
+            )
+        else:
+            self.transformer = DiTEncoder(
+                embed_dim=h_dim,
+                num_layers=tcfg["num_transformer_layers"],
+                num_heads=tcfg["num_heads"],
+                context_size=ctx,
+                dense_config=dict(tcfg["dense_config"]),
+                attn_impl=attn_impl,
+                fused_prologue=fused_prologue,
+                dtype=dtype,
+                remat=remat,
+            )
         feat_dim = h_dim + cond_dim
         self.final_modulation = bool(cfg.get("final_modulation", False))
         if self.final_modulation:
@@ -126,6 +144,11 @@ class FlowModel(nn.Module):
         layer_emb = self.layer_emb_net(layer_tab, context=time_emb)
 
         geo = torch.cat([eta, cosphi, sinphi], dim=-1).float()
+        if self.n_fourier:
+            freqs = (2.0 ** torch.arange(self.n_fourier, dtype=torch.float32, device=geo.device)) * math.pi
+            phi_ang = torch.atan2(sinphi.float(), cosphi.float())
+            ang = torch.cat([eta.float() * freqs, phi_ang * freqs], dim=-1)  # (..., 2K)
+            geo = torch.cat([geo, torch.sin(ang), torch.cos(ang)], dim=-1)
         etaphi_emb = self.etaphi_emb_net(geo, context=time_emb.float()).to(self.dtype)
 
         e_proxy_emb = self.proxy_emb_net(e_proxy, context=time_emb)
@@ -133,6 +156,8 @@ class FlowModel(nn.Module):
         # mixed dtypes promote (fp32 e_proxy wins over bf16 embeddings)
         cond_feat = torch.cat([etaphi_emb, layer_emb, e_proxy_emb, e_proxy], dim=-1)
         seg = batch.get("seg")
+        if seg is not None and self.normformer:
+            raise NotImplementedError("segment packing requires the DiT transformer")
         if seg is not None:
             n_seg = seg.shape[1] // SEG_ALIGN  # the packer aligns events to this
             seg_onehot = segment_onehot(seg, n_seg, cond_feat.dtype)  # (B, S, E)
@@ -158,7 +183,10 @@ class FlowModel(nn.Module):
         feat_0 = torch.cat([cond_feat, noisy_input_emb], dim=-1)
         feat = self.feat_0_mlp(feat_0, context=context)
 
-        feat = self.transformer(feat, q_valid=q_mask, context=context, **seg_kw)
+        if self.normformer:
+            feat = self.transformer(feat, valid=q_mask, context=context)
+        else:
+            feat = self.transformer(feat, q_valid=q_mask, context=context, **seg_kw)
 
         # final skip connection with the conditional features
         feat = torch.cat([feat, cond_feat], dim=-1)

@@ -92,6 +92,23 @@ def _dit_stack_pairs(jpath, tkey, mlp_cfg, n_layers):
     return pairs
 
 
+def _normformer_stack_pairs(jpath, tkey, mlp_cfg, n_layers):
+    """A Normformer TransformerEncoder's parameters (no edges): per layer the
+    attention's four linears, both LayerNorms and the MLP, then the final
+    LayerNorm and the optional final linear."""
+    pairs = []
+    for i in range(n_layers):
+        jp, tp = jpath + (f"layers_{i}",), f"{tkey}.layers.{i}"
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            pairs += _linear_pairs(jp + ("mha", name), f"{tp}.mha.{name}")
+        pairs += _layernorm_pairs(jp + ("norm1",), f"{tp}.norm1")
+        pairs += _layernorm_pairs(jp + ("norm2",), f"{tp}.norm2")
+        pairs += _dense_pairs(jp + ("dense",), f"{tp}.dense", mlp_cfg)
+    pairs += _layernorm_pairs(jpath + ("final_norm",), f"{tkey}.final_norm")
+    pairs += _linear_pairs(jpath + ("final_linear",), f"{tkey}.final_linear")
+    return pairs
+
+
 def flow_key_pairs(flow_config: dict, n_layers: Optional[int] = None):
     """Every FlowModel parameter as (JAX path, reference key without
     ``net.``, transposed?) — Flax ``kernel`` (in, out) is the transpose of
@@ -111,7 +128,8 @@ def flow_key_pairs(flow_config: dict, n_layers: Optional[int] = None):
     ):
         pairs += _dense_pairs((name,), name, dcfg)
     n_layers = int(cfg["transformer"]["num_transformer_layers"]) if n_layers is None else n_layers
-    pairs += _dit_stack_pairs(("transformer",), "transformer", cfg["transformer"]["dense_config"], n_layers)
+    stack = _normformer_stack_pairs if cfg["transformer"]["type"] == "GPT-2+Normformer" else _dit_stack_pairs
+    pairs += stack(("transformer",), "transformer", cfg["transformer"]["dense_config"], n_layers)
     pairs += _linear_pairs(("v_t_adaLN_modulation",), "v_t_adaLN_modulation.1")
     pairs += _layernorm_pairs(("norm_v_t",), "norm_v_t")
     return pairs
@@ -122,7 +140,7 @@ def _fill(out, node, pairs):
     for jpath, key, transpose in pairs:
         leaf = _get(node, *jpath)
         if leaf is not None:
-            arr = np.asarray(leaf, np.float32)
+            arr = leaf.float().numpy() if torch.is_tensor(leaf) else np.asarray(leaf, np.float32)
             out[key] = _t(arr.T if transpose else arr)
 
 
@@ -262,7 +280,7 @@ def init_params_jax_layout(flow_config: dict, seed: int = 0) -> dict:
         "time_step_embedder": {"mlp_0": linear(256, C), "mlp_2": linear(C, C)},
         "layer_emb_table": {"embedding": rng.normal(size=(3, emb_dim)).astype(np.float32)},
         "layer_emb_net": dense(cfg["layer_emb"]["dense_config"], emb_dim, C),
-        "etaphi_emb_net": dense(cfg["etaphi_emb"], 3, C),
+        "etaphi_emb_net": dense(cfg["etaphi_emb"], 3 + 4 * int(cfg["etaphi_emb"].get("fourier_features", 0) or 0), C),
         "proxy_emb_net": dense(cfg["e_proxy_emb"], 1, C),
         "noisy_input_emb_net": dense(cfg["noisy_input_emb"], 1, C),
         "feat_0_mlp": dense(cfg["feat_0_mlp"], cond + cfg["noisy_input_emb"]["output_size"], ctx),
@@ -270,7 +288,15 @@ def init_params_jax_layout(flow_config: dict, seed: int = 0) -> dict:
         "transformer": {"final_norm": _init_norm(h)},
     }
     for i in range(int(tcfg["num_transformer_layers"])):
-        tree["transformer"][f"layers_{i}"] = _init_dit_layer(rng, h, ctx, tcfg["dense_config"])
+        if tcfg["type"] == "GPT-2+Normformer":
+            mlp_in = h + int(tcfg["dense_config"].get("context_size", 0) or 0)
+            layer = {"mha": {name: _init_linear(rng, h, h) for name in ("linear_q", "linear_k", "linear_v",
+                                                                         "linear_out")},
+                     "norm1": _init_norm(h), "norm2": _init_norm(h),
+                     "dense": _init_dense(rng, dict(tcfg["dense_config"], output_size=h), mlp_in)}
+        else:
+            layer = _init_dit_layer(rng, h, ctx, tcfg["dense_config"])
+        tree["transformer"][f"layers_{i}"] = layer
     if cfg.get("final_modulation", False):
         tree["v_t_adaLN_modulation"] = linear(ctx, 2 * (h + cond))
         tree["norm_v_t"] = _init_norm(h + cond)

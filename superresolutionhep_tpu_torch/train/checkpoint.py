@@ -21,6 +21,8 @@ from typing import Any, Optional
 
 import torch
 
+from .msgpack_io import read_msgpack
+
 
 def _steps(d: str):
     return sorted(int(f[:-3]) for f in os.listdir(d) if f.endswith(".pt") and f[:-3].isdigit())
@@ -103,11 +105,41 @@ class CheckpointManager:
 
 def load_params(path: str, map_location="cpu") -> dict:
     """The model parameters saved at ``path``: a ``CheckpointManager``
-    directory (its best step), one of its ``.pt`` files, or a saved state
-    dict (under ``state_dict`` or bare)."""
+    directory (its best step), one of its ``.pt`` files, a saved state dict
+    (under ``state_dict`` or bare), or a Flax ``.msgpack`` blob (the shipped
+    checkpoints under ``saved_checkpoints/``).  A ``.msgpack`` path gives the
+    JAX package's parameter tree as ``{"params": tree}`` of numpy arrays, as
+    the JAX package's ``load_params`` does (``load_reference_params`` maps
+    it to the reference layout)."""
+    if str(path).endswith(".msgpack"):
+        tree = read_msgpack(path)
+        return tree if "params" in tree else {"params": tree}
     if os.path.isdir(path):
         return CheckpointManager(path).restore(which="best", map_location=map_location)["params"]
     ckpt = torch.load(path, map_location=map_location, weights_only=True)
     if "state" in ckpt:
         return ckpt["state"]["params"]
     return ckpt.get("state_dict", ckpt)
+
+
+def is_jax_tree(params) -> bool:
+    """True for the JAX package's nested parameter tree (``{"params": {...}}``,
+    what ``load_params`` gives for a ``.msgpack`` blob), False for a state
+    dict of tensors."""
+    return isinstance(params, dict) and isinstance(params.get("params"), dict)
+
+
+def load_reference_params(path: str, model_cfg: dict, kind: str = "sr", map_location="cpu") -> dict:
+    """The model parameters saved at ``path`` as a reference-layout state
+    dict, whatever the file (``load_params``): a Flax ``.msgpack`` tree is
+    mapped with ``tools/convert.py::params_from_jax`` (``kind="sr"``,
+    ``model_cfg`` the ``flow_model`` config) or ``::pf_params_from_jax``
+    (``kind="pf"``, the ``pf_model`` config)."""
+    from ..tools.convert import params_from_jax, pf_params_from_jax
+
+    if kind not in ("sr", "pf"):
+        raise ValueError(f"kind must be 'sr' or 'pf', got {kind!r}")
+    params = load_params(path, map_location)
+    if not is_jax_tree(params):
+        return params
+    return (params_from_jax if kind == "sr" else pf_params_from_jax)(params, model_cfg)

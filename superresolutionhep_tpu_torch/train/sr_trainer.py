@@ -14,8 +14,11 @@ Differences a caller sees:
     setting); parameters, gradients and optimizer state stay fp32.
   * noise and times come from a ``torch.Generator`` seeded from ``seed``, or
     are passed to ``train_step`` (the tests feed the JAX package's draws).
-  * ``n_event_displays > 0`` raises ``NotImplementedError``: the live
-    validation plots are not ported yet.
+  * ``n_event_displays > 0`` turns on the live validation plots at each
+    evaluation (analysis/live.py): event displays of the first validation
+    batch, the event and cell residual plots, and the event residuals'
+    summary scalars in the returned metrics.  Without matplotlib such a
+    config raises when the trainer is built.
   * ``packed: true`` packs the training events once into rows of
     ``pack_s`` cells (``pack_rows`` rows a batch; an event longer than a row
     raises, training has no bucketed mop-up), permutes the batch order per
@@ -162,10 +165,13 @@ class SRTrainer:
         'einsum')."""
         ct = config_t
         if int(ct.get("n_event_displays", 0) or 0) > 0:
-            raise NotImplementedError(
-                "n_event_displays > 0 needs the live validation plots (analysis/live.py), which are not "
-                "ported yet; set n_event_displays: 0"
-            )
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError as e:
+                raise RuntimeError(
+                    "n_event_displays > 0 draws the live validation plots with matplotlib, which does not "
+                    "import here; install it or set n_event_displays: 0"
+                ) from e
         self.config_mv, self.config_t, self.run_dir = config_mv, config_t, run_dir
         self.device = resolve_device(device)
         # the geometry embedder and every plain fp32 product run in full fp32
@@ -375,7 +381,8 @@ class SRTrainer:
                 raise FloatingPointError(f"non-finite training loss at epoch {epoch}; diagnostics at {diag}")
 
             if val_ds is not None and (epoch % eval_every == 0 or epoch == num_epochs - 1):
-                ep.update(self.evaluate(val_ds, epoch=epoch))
+                make_plots = int(ct.get("n_event_displays", 0) or 0) > 0
+                ep.update(self.evaluate(val_ds, make_plots=make_plots, epoch=epoch))
 
             self.metrics.log_scalars(ep, step=epoch)
             self.ckpt.save(epoch, self.state(), ep)
@@ -403,16 +410,32 @@ class SRTrainer:
         return path
 
     # ------------------------------------------------------------------
-    def evaluate(self, val_ds: SupResEvents, n_steps: Optional[int] = None, epoch: int = 0) -> Dict[str, float]:
+    def evaluate(self, val_ds: SupResEvents, n_steps: Optional[int] = None, make_plots: bool = False,
+                 epoch: int = 0) -> Dict[str, float]:
         """Full generative validation: sample every validation event with
         ``val_ode_method`` (default dopri5) and report the node-count
-        weighted mean squared error in NN space and in raw energy."""
+        weighted mean squared error in NN space and in raw energy.  With
+        ``make_plots``, the live plots of the JAX trainer: event displays of
+        the first batch's first ``n_event_displays`` events, the event and
+        cell residual plots (figures under ``<run_dir>/figures``), and the
+        event residuals' summary scalars (``res_event/*``) in the result."""
         method = self.config_t.get("val_ode_method", "dopri5")
         n_steps = n_steps or self.n_steps
+        n_displays = int(self.config_t.get("n_event_displays", 0) or 0) if make_plots else 0
+        perf_live = None
+        if make_plots:
+            import matplotlib
+
+            matplotlib.use("Agg")  # files only, as the PF trainer's plots
+            from ..analysis.live import PerformanceCOCOALive
+
+            perf_live = PerformanceCOCOALive(int(self.config_mv.get("res_factor", 2)))
         tot_nn = tot_raw = tot_n = 0.0
+        first_batch = True
         for idxs, bucket in self._batcher(val_ds, "val", seed=0):
             events = [val_ds.get_event(i) if i >= 0 else None for i in idxs]
-            batch = self._device_batch(collate(events, bucket.pad_n), VAL_BATCH_KEYS)
+            hb = collate(events, bucket.pad_n, with_low=make_plots)
+            batch = self._device_batch(hb, VAL_BATCH_KEYS)
             pred = generate_samples(
                 lambda b, x, t: self.model(b, x, t), batch, n_steps=n_steps, method=method,
                 generator=self.generator,
@@ -425,5 +448,45 @@ class SRTrainer:
             tot_nn += float(se_nn)
             tot_raw += float(se_raw)
             tot_n += float(m.sum().clamp_min(1.0))
+            if perf_live is not None:
+                e_pred_np = e_pred_raw.float().cpu().numpy()
+                perf_live.update(hb, e_pred_np)
+                if first_batch and n_displays > 0:
+                    self._event_displays(hb, events[:n_displays], pred.float().cpu().numpy(), e_pred_np)
+                first_batch = False
+
+        extra = {}
+        if perf_live is not None and perf_live.n_events:
+            import matplotlib.pyplot as plt
+
+            fig, summ = perf_live.plot_residual_event()
+            self.metrics.log_figure(fig, "residual_event_energy")
+            plt.close(fig)
+            extra.update(summ)
+            fig = perf_live.plot_residual_cell()
+            self.metrics.log_figure(fig, "residual_cell_energy")
+            plt.close(fig)
         n = max(tot_n, 1.0)
-        return {"val/loss": tot_nn / n, "val/loss_raw": tot_raw / n}
+        return {"val/loss": tot_nn / n, "val/loss_raw": tot_raw / n, **extra}
+
+    def _event_displays(self, hb, events, pred, e_pred_raw):
+        """One event display figure (``ED_<i>``) per real event of the batch."""
+        import matplotlib.pyplot as plt
+
+        from ..analysis.live import event_display_figure
+
+        for p_i, ev in enumerate(events):
+            if ev is None:
+                continue
+            m = hb["q_mask"][p_i]
+            fig = event_display_figure({
+                "eta_raw": hb["eta_raw"][p_i, m, 0],
+                "phi": hb["phi"][p_i, m, 0],
+                "layer": hb["layer"][p_i, m, 0],
+                "target": hb["target"][p_i, m, 0],
+                "e_truth_raw": hb["e_truth_raw"][p_i, m, 0] * 1e3,
+                "pred": pred[p_i, m, 0],
+                "e_pred_raw": e_pred_raw[p_i, m, 0] * 1e3,
+            })
+            self.metrics.log_figure(fig, f"ED_{p_i}")
+            plt.close(fig)

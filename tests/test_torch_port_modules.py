@@ -145,13 +145,38 @@ def test_multihead_attention_matches_jax(impl, jimpl):
 
 
 def test_multihead_attention_unported_features_raise():
-    tm = MultiheadAttention(32, 2)
-    x = torch.zeros(1, 4, 32)
-    for kw in ({"edges": x}, {"attn_bias": x}, {"attn_valid": x}):
-        with pytest.raises(NotImplementedError):
-            tm(x, **kw)
+    """Edge features (bias E, gate G, edge updates), an additive attention
+    bias and an adjacency mask, once refused here, are ported: each alone
+    and all together equal the JAX module (its general path); impl='xla'
+    stays refused."""
+    rng = np.random.default_rng(7)
+    B, L, F, H, E = 2, 6, 32, 2, 4
+    x = rng.normal(size=(B, L, F)).astype(np.float32)
+    edges = rng.normal(size=(B, L, L, E)).astype(np.float32)
+    bias = rng.normal(size=(B, L, L, H)).astype(np.float32)
+    adj = (rng.uniform(size=(B, L, L)) < 0.6) | np.eye(L, dtype=bool)[None]
+    valid = _valid(B, L, [L, 4])
+    jm = JMHA(embed_dim=F, num_heads=H, edge_embed_dim=E, update_edges=True, impl="xla")
+    params = _randomize(_np_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), edges=jnp.asarray(edges),
+                                         q_valid=jnp.asarray(valid))["params"]), 8)
+    sd = {}
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_e", "linear_g", "linear_e_out"):
+        convert._linear(sd, params[name], name)
+    tm = _load(MultiheadAttention(F, H, edge_embed_dim=E, update_edges=True), sd)
+    for kw in ({"edges": edges}, {"attn_bias": bias}, {"attn_valid": adj},
+               {"edges": edges, "attn_bias": bias, "attn_valid": adj}):
+        want = jm.apply({"params": params}, jnp.asarray(x), q_valid=jnp.asarray(valid),
+                        **{k: jnp.asarray(v) for k, v in kw.items()})
+        with torch.no_grad():
+            got = tm(_t(x), q_valid=_t(valid), **{k: _t(v) for k, v in kw.items()})
+        if "edges" in kw:
+            (got, got_e), (want, want_e) = got, want
+            assert got_e.shape == (B, L, L, E)
+            np.testing.assert_allclose(got_e.numpy(), np.asarray(want_e), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     with pytest.raises(ValueError):
         MultiheadAttention(32, 2, impl="xla")
+    tm = MultiheadAttention(32, 2)
     # cross-attention is ported: Lq = 4 queries over 40 keys with both masks
     # (the dense path, as the JAX package takes it) equals the JAX module
     rng = np.random.default_rng(2)

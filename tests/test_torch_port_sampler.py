@@ -74,16 +74,27 @@ def test_fixed_step_solvers_match_jax(method):
 
 @pytest.mark.parametrize("method", ["heun", "rk4", "ab3", "dopri5"])
 def test_unported_solvers_raise(method):
-    """Solvers not ported yet raise; dopri5 has been ported since, and must
-    then integrate as the JAX package does."""
-    ts = np.linspace(0, 1, 4).astype(np.float32)
-    if method == "dopri5":
-        got = tode.odeint(_tfield, torch.from_numpy(Y0), torch.from_numpy(ts), method=method)
-        want = jode.odeint(_jfield, jnp.asarray(Y0), jnp.asarray(ts), method=method)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
-        return
-    with pytest.raises(NotImplementedError):
-        tode.odeint(_tfield, torch.from_numpy(Y0), torch.from_numpy(ts), method=method)
+    """The solvers that once raised here are ported: each integrates as the
+    JAX package does (the whole trajectory, and for the fixed-step and
+    multistep ones also the stored grid states)."""
+    ts = np.linspace(0, 1, 6).astype(np.float32)
+    got = tode.odeint(_tfield, torch.from_numpy(Y0), torch.from_numpy(ts), method=method)
+    want = jode.odeint(_jfield, jnp.asarray(Y0), jnp.asarray(ts), method=method)
+    assert got.shape == (6, *Y0.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    if method == "ab3":
+        store = (0, 2, 5)
+        got_s = tode.odeint_ab3(_tfield, torch.from_numpy(Y0), torch.from_numpy(ts), store_idx=store)
+        want_s = jode.odeint_ab3(_jfield, jnp.asarray(Y0), jnp.asarray(ts), store_idx=store)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-5, rtol=0)
+        short = np.linspace(0, 1, 2).astype(np.float32)  # fewer than 3 points: the AB2 path
+        np.testing.assert_allclose(
+            tode.odeint_ab3(_tfield, torch.from_numpy(Y0), torch.from_numpy(short)).numpy(),
+            np.asarray(jode.odeint_ab3(_jfield, jnp.asarray(Y0), jnp.asarray(short))), atol=1e-5, rtol=0)
+    elif method != "dopri5":
+        got_s = tode.odeint_fixed_store(_tfield, torch.from_numpy(Y0), torch.from_numpy(ts), (1, 5), method)
+        want_s = jode.odeint_fixed_store(_jfield, jnp.asarray(Y0), jnp.asarray(ts), (1, 5), method)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-5, rtol=0)
 
 
 def _small_flow_config():

@@ -81,8 +81,8 @@ def test_nonfinite_loss_aborts_with_diagnostics(tmp_path):
 
 def test_entry_points_refuse_what_is_not_there(tmp_path):
     """Without a card, ``device='cuda'`` (the default of the trainer and the
-    CLI) raises instead of training on the CPU; the options waiting for
-    unported modules raise ``NotImplementedError``."""
+    CLI) raises instead of training on the CPU; the options that once waited
+    for unported modules build a trainer now."""
     from superresolutionhep_tpu_torch.cli import train_sr
     from superresolutionhep_tpu_torch.config import load_yaml
 
@@ -98,5 +98,6 @@ def test_entry_points_refuse_what_is_not_there(tmp_path):
                            "--precision", "bfloat16", "--run_dir", str(tmp_path / "cli")])
     # packed training is ported: the option builds a trainer (tests/test_torch_port_packed_model.py trains it)
     assert SRTrainer(config_mv, dict(config_t, packed=True), run_dir=str(tmp_path / "b"), device="cpu").config_t["packed"]
-    with pytest.raises(NotImplementedError, match="live"):
-        SRTrainer(config_mv, dict(config_t, n_event_displays=2), run_dir=str(tmp_path / "c"), device="cpu")
+    # the live plots are ported (tests/test_torch_port_live.py draws them)
+    tr = SRTrainer(config_mv, dict(config_t, n_event_displays=2), run_dir=str(tmp_path / "c"), device="cpu")
+    assert tr.config_t["n_event_displays"] == 2
