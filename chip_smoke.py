@@ -53,6 +53,14 @@ and the second model family:
 in both, each launch of K1-K4 against its plain version on its own inputs,
 and a control with a planted fault (each row's last 64-key tile masked out
 in the attention kernels) that those checks must catch;
+and parallelism on ``torch.distributed`` (always run, also under the skip
+flags), ranks spawned from the phase at the multipart width:
+  * parallel: at world size 1 over NCCL, ``SRTrainer.fit`` through the
+    data-parallel code equal to the run with no process group bit for bit,
+    a PF step likewise, the SP and TP forwards; at two ranks on the one card
+    over gloo, a data-parallel ``SRTrainer`` step, the TP = 2 and SP = 2
+    forwards and train steps against one rank in fp32, each rank's launches
+    exact and its sharded K1 launches under the checker with its control;
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
 (seeded) but for the trained phase; events are synthetic (seeded).
@@ -67,7 +75,8 @@ kernels at head dims 16/32/64 and on a guard at base-2 logits of std ~8,
 where single-TF32 products would miss the fp32 bounds; launched twice,
 equal bit for bit), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
-``pf_inference``, ``pf_train``, ``trained``, ``normformer``), then the card's name and power limit as nvidia-smi gives them,
+``pf_inference``, ``pf_train``, ``trained``, ``normformer``, ``parallel``), then the card's name and power
+limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths; the
 attention entries also their fp32 cases under ``fp32``), then,
@@ -77,6 +86,7 @@ prints no ``ok`` line.  Without a CUDA device it exits 2.
 Options (for development; the default run does everything):
     --skip-serve      no serve, packed and pf inference, trained and normformer phases (exits 1 by design)
     --skip-train      no train, dopri5 ensemble, packed and pf train phases (exits 1 by design)
+                      (the parallel phase runs under both)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
 """
@@ -2330,11 +2340,19 @@ class LaunchChecker:
     outputs there are bf16-chaotic (``ROADMAP.md`` C4).  With ``fault`` the
     attention kernels run with each row's last 64-key tile masked out
     (``FAULT_TILE``) while the plain version keeps the true mask: the
-    control that shows the checks catch a wrong tail tile."""
+    control that shows the checks catch a wrong tail tile.  With
+    ``backward`` every launch of K5 and K6 (the masked form) is held too,
+    against ``_ref_flash_bwd_{dq,dkv}`` on the same inputs, by its max alone
+    (bound ``TOL["flash_bwd"]``, dk and dv each, as ``fp32_tile_cases``
+    holds them): the rows of ds sum to 0, so keys that share an offset in a
+    model multiply ds's rounding in dq (the offset-keys case there), and a
+    mean bound of one rounding unit does not hold for it.  For dq, ``fp64``
+    keeps the worst error of the kernel and of the plain version against an
+    fp64 evaluation of the same formula (a reading)."""
 
-    def __init__(self, fault=False):
-        self.fault = fault
-        self.worst, self.calls, self.dtypes = {}, {}, {}
+    def __init__(self, fault=False, backward=False):
+        self.fault, self.backward = fault, backward
+        self.worst, self.calls, self.dtypes, self.fp64 = {}, {}, {}, {}
 
     def _note(self, name, out, ref):
         ref, d = ref.float(), (out.float() - ref.float()).abs()
@@ -2347,10 +2365,14 @@ class LaunchChecker:
         self.dtypes[name] = out.dtype
 
     def _tols(self, name):
-        return TOL[("flash" if name.startswith("flash") else "fused", self.dtypes[name])], MEAN_TOL[self.dtypes[name]]
+        if name.startswith("flash_bwd"):
+            return TOL[("flash_bwd", self.dtypes[name])], None
+        kind = "flash" if name.startswith("flash") else "fused"
+        return TOL[(kind, self.dtypes[name])], MEAN_TOL[self.dtypes[name]]
 
     def _within(self):
-        return [w[0] <= t[0] and w[1] <= t[1] for w, t in ((self.worst[n], self._tols(n)) for n in self.worst)]
+        return [w[0] <= t[0] and (t[1] is None or w[1] <= t[1])
+                for w, t in ((self.worst[n], self._tols(n)) for n in self.worst)]
 
     def ok(self):
         """Launches were seen, every kernel within both bounds."""
@@ -2361,8 +2383,11 @@ class LaunchChecker:
         return bool(self.worst) and not all(self._within())
 
     def summary(self):
-        return {n: {"launches": self.calls[n], "max_rel_err": self.worst[n][0], "mean_rel_err": self.worst[n][1],
-                    "tol_max_rel": self._tols(n)[0], "tol_mean_rel": self._tols(n)[1]} for n in sorted(self.worst)}
+        out = {n: {"launches": self.calls[n], "max_rel_err": self.worst[n][0], "mean_rel_err": self.worst[n][1],
+                   "tol_max_rel": self._tols(n)[0], "tol_mean_rel": self._tols(n)[1]} for n in sorted(self.worst)}
+        for n, (kernel, plain) in self.fp64.items():
+            out[n].update(kernel_vs_fp64=kernel, plain_vs_fp64=plain)
+        return out
 
     def __enter__(self):
         from superresolutionhep_tpu_torch.ops import flash_attention as fa
@@ -2396,6 +2421,41 @@ class LaunchChecker:
             return out
 
         fa._flash_fwd_cuda, fq._cuda_ln_mod_proj, fm._cuda_dit_mlp = flash_checked, qkv_checked, mlp_checked
+        if self.backward:
+            self._saved += [(fa, "_flash_bwd_dq_cuda", fa._flash_bwd_dq_cuda),
+                            (fa, "_flash_bwd_dkv_cuda", fa._flash_bwd_dkv_cuda)]
+            dq_fn, dkv_fn = fa._flash_bwd_dq_cuda, fa._flash_bwd_dkv_cuda
+
+            def plain_args(q_pre, k, v, g, lse, dl, km):
+                return (*fa._heads_first(q_pre, k, v, g), lse, dl, km[:, None])
+
+            def dq_fp64(q_pre, k, v, g, lse, dl, km):  # _ref_flash_bwd_dq's formula in fp64
+                q_pre, k, v, g = (t.double() for t in fa._heads_first(q_pre, k, v, g))
+                kmf = km[:, None, None, :].double()
+                s = torch.matmul(q_pre, k.transpose(-1, -2)) + (kmf - 1.0) * fa.BIG
+                p = torch.exp2(torch.clamp_max(s - lse.double()[..., None], 0.0)) * kmf
+                ds = p * (torch.matmul(g, v.transpose(-1, -2)) - dl.double()[..., None])
+                return torch.matmul(ds, k).permute(0, 2, 1, 3)
+
+            def dq_checked(q_pre, k, v, g, lse, dl, qm, km, block_rows=None):
+                dq = dq_fn(q_pre, k, v, g, lse, dl, qm, km, block_rows=block_rows)
+                ref = fa._ref_flash_bwd_dq(*plain_args(q_pre, k, v, g, lse, dl, km)).permute(0, 2, 1, 3)
+                self._note("flash_bwd_dq", dq, ref)
+                exact = dq_fp64(q_pre, k, v, g, lse, dl, km)
+                top = exact.abs().max().clamp_min(1e-300)
+                errs = [float((t.double() - exact).abs().max() / top) for t in (dq, ref)]
+                old = self.fp64.get("flash_bwd_dq", (0.0, 0.0))
+                self.fp64["flash_bwd_dq"] = (max(old[0], errs[0]), max(old[1], errs[1]))
+                return dq
+
+            def dkv_checked(q_pre, k, v, g, lse, dl, qm, km, block_rows=None):
+                dk, dv = dkv_fn(q_pre, k, v, g, lse, dl, qm, km, block_rows=block_rows)
+                ref_dk, ref_dv = fa._ref_flash_bwd_dkv(*plain_args(q_pre, k, v, g, lse, dl, km))
+                self._note("flash_bwd_dk", dk, ref_dk.permute(0, 2, 1, 3))
+                self._note("flash_bwd_dv", dv, ref_dv.permute(0, 2, 1, 3))
+                return dk, dv
+
+            fa._flash_bwd_dq_cuda, fa._flash_bwd_dkv_cuda = dq_checked, dkv_checked
         return self
 
     def __exit__(self, *exc):
@@ -2933,6 +2993,475 @@ def pf_train_phase(trees, reps):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase: parallel (data, sequence and tensor parallelism on torch.distributed)
+# ---------------------------------------------------------------------------
+
+# two ranks against one, fp32, relative to each output's max: the same
+# arithmetic with the shards' partial sums added in another order
+PARALLEL_TOL = 1e-5
+# gradients, relative to each leaf's max (floored at 1e-3 of the largest
+# leaf).  The multipart model's LeakyReLUs have a kink at 0: where a
+# pre-activation lies within rounding of 0, another summation order of the
+# forward (TP's split sums, SP's gathered keys) takes the other slope (1
+# against 0.01) for that cell, and the gradients move by up to 3.1e-4 of a
+# leaf's max, 1.2e-5 for the median leaf, at tp = 2 on the H100 (on the CPU,
+# one rank's fp32 against fp64: 2.9e-4).  So the multipart model's gradients
+# are held to PARALLEL_GRAD_TOL, and the same weights with SiLU in the DiT MLP
+# and the v_t head (``smooth_config``; on the CPU every path then agrees with
+# fp64 within 2e-6) to PARALLEL_TOL, every leaf
+PARALLEL_GRAD_TOL = 2e-3
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_LR = 1e-3
+
+
+def parallel_sr_setup():
+    """The multipart model's config, its parameters (seed 3, Xavier adaLN:
+    attention not gated off) in ``state_dict`` names, and a global (8, 2048)
+    fp32 host batch of random features whose rows hold 2048 ... 300 valid
+    cells: the two data shards hold 7648 and 3000 cells, and under seq = 2 a
+    few rows' second half is all padding.  Also the flow times and noise of
+    one step."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV
+    from superresolutionhep_tpu_torch.tools.convert import init_params_jax_layout, params_from_jax
+
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    fm = cfg_mv["flow_model"]
+    params = {k[4:]: v for k, v in params_from_jax(init_params_jax_layout(fm, seed=3), fm).items()}
+    rng = np.random.default_rng(21)
+    B, N = 8, 2048
+    lengths = np.array([2048, 2000, 1900, 1700, 1200, 900, 600, 300])
+    phi = rng.uniform(-np.pi, np.pi, size=(B, N, 1))
+    host = {
+        "eta": rng.uniform(-1.5, 1.5, size=(B, N, 1)).astype(np.float32),
+        "cosphi": np.cos(phi).astype(np.float32), "sinphi": np.sin(phi).astype(np.float32),
+        "layer": rng.integers(0, 3, size=(B, N, 1)).astype(np.int32),
+        "e_proxy": rng.normal(size=(B, N, 1)).astype(np.float32),
+        "q_mask": np.arange(N)[None, :] < lengths[:, None],
+        "target": rng.normal(size=(B, N, 1)).astype(np.float32),
+        "t": rng.uniform(size=(B,)).astype(np.float32),
+        "x0": rng.normal(size=(B, N, 1)).astype(np.float32),
+    }
+    return cfg_mv, params, host
+
+
+def smooth_config(fm):
+    """``fm`` with SiLU in place of the DiT MLP's and the v_t head's
+    activations: the same parameters, no kink (see ``PARALLEL_GRAD_TOL``)."""
+    import copy
+
+    fm = copy.deepcopy(fm)
+    fm["transformer"]["dense_config"].update(activation="SiLU", final_activation="SiLU")
+    fm["v_t_pred"]["activation"] = "SiLU"
+    return fm
+
+
+def single_loss_and_grads(fm, params, host):
+    """One rank, no process group: the fp32 flow-matching loss on ``host``
+    with its ``t`` and ``x0``, and its gradients by parameter name."""
+    from superresolutionhep_tpu_torch.flow.cfm import sample_location_and_conditional_flow
+    from superresolutionhep_tpu_torch.models.flow_model import FlowModel
+
+    model = FlowModel(fm).cuda().float().eval()
+    model.load_state_dict(params)
+    b = _dev_batch(host)
+    _, xt, ut = sample_location_and_conditional_flow(b["target"], float(fm["sigma_min"]), t=b["t"], x0=b["x0"])
+    vt = model(b, xt, b["t"])
+    m = b["q_mask"][..., None].float()
+    loss = ((vt - ut) ** 2 * m).sum() / m.sum().clamp_min(1.0)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), dict(zip([n for n, _ in model.named_parameters()], grads))
+
+
+def synthetic_pf_batch(B, N, P, seed):
+    """A ``collate_pf``-shaped numpy batch with ragged cells and particles."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(N // 4, N + 1, size=B)
+    cards = rng.integers(1, P + 1, size=B)
+    cell_mask = np.arange(N)[None, :] < lens[:, None]
+    part_mask = np.arange(P)[None, :] < cards[:, None]
+    e_raw = rng.uniform(1.0, 50.0, size=(B, N)) * cell_mask
+    eta_raw = rng.uniform(-2.5, 2.5, size=(B, N)) * cell_mask
+    phi = rng.uniform(-np.pi, np.pi, size=(B, N)) * cell_mask
+    inc = rng.uniform(size=(B, N, P)) * cell_mask[..., None] * part_mask[:, None, :]
+    inc = inc / np.maximum(inc.sum(-1, keepdims=True), 1e-6)
+    out = {"cell_e": np.sqrt(e_raw) / 4 - 0.5, "cell_eta": eta_raw / 2.988, "cell_phi": phi,
+           "cell_cosphi": np.cos(phi) * cell_mask, "cell_sinphi": np.sin(phi) * cell_mask, "cell_e_raw": e_raw,
+           "cell_eta_raw": eta_raw, "incidence_matrix": inc}
+    out = {k: v.astype(np.float32) for k, v in out.items()}
+    out.update(cell_layer=rng.integers(0, 3, size=(B, N)).astype(np.int32), cell_mask=cell_mask,
+               part_mask=part_mask, cardinality=cards.astype(np.int32))
+    for k in ("part_pt", "part_eta", "part_phi", "part_dep_e"):
+        out[k] = (rng.normal(size=(B, P)) * part_mask).astype(np.float32)
+    return out
+
+
+def _fit_losses(run_dir):
+    """``SRTrainer.fit`` of the multipart model, one epoch of a few steps on
+    eight synthetic events, bf16 compute with remat, grad_accum_steps 2,
+    grad_clip_norm 1.0, through the data-parallel code wherever a process
+    group is up: each step's loss and gradient norm (fp32 values) and the
+    launches of the fit."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, MULTIPART_CONFIG_T
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    cfg_mv = copy.deepcopy(MULTIPART_CONFIG_MV)
+    cfg_t = dict(copy.deepcopy(MULTIPART_CONFIG_T), n_event_displays=0, num_epochs=1, remat=True,
+                 fused_prologue=False, num_workers=0, grad_accum_steps=2, grad_clip_norm=1.0, use_sampler=False,
+                 batch_size_train=2, val_path=None)
+    ds = multipart_dataset(cfg_mv, 8, 11, max_particles=4, window_lr_cells=2)
+    tr = SRTrainer(cfg_mv, cfg_t, run_dir=run_dir, seed=0, dtype=torch.bfloat16, device="cuda")
+    steps = []
+    step = tr.train_step
+
+    def keep(*args, **kw):
+        stats = step(*args, **kw)
+        steps.append(torch.stack([stats["loss"].float(), stats["grad_norm"].float()]))
+        return stats
+
+    tr.train_step = keep
+    kernels.reset_launches()
+    tr.fit(ds)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    return {"steps": torch.stack(steps).cpu().numpy(), "launches": counts, "group": tr.dp.group is not None}
+
+
+def _pf_step(host_batch):
+    """One fp32 ``PFTrainer`` step of the published stage-2 model (seeded
+    init) on ``host_batch`` (this rank's rows under data parallelism): loss
+    and gradient norm, and the launches."""
+    import copy
+    import tempfile
+
+    from superresolutionhep_tpu_torch.configs import PF_CONFIG_MV, PF_CONFIG_T
+    from superresolutionhep_tpu_torch.inference.pf import pf_batch_to_device
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.train.pf_trainer import PFTrainer
+
+    tr = PFTrainer(copy.deepcopy(PF_CONFIG_MV), dict(copy.deepcopy(PF_CONFIG_T), epoch_end_plots=False),
+                   run_dir=tempfile.mkdtemp(prefix="srhep_pf_dp_"), seed=0, device="cuda")
+    batch = pf_batch_to_device(tr.dp.shard(host_batch), tr.device)
+    kernels.reset_launches()
+    logs = tr.train_step(batch, lr=PARALLEL_LR)
+    torch.cuda.synchronize()
+    return {"loss": torch.stack([logs["loss"].float(), logs["grad_norm"].float()]).cpu().numpy(),
+            "launches": dict(kernels.LAUNCHES)}
+
+
+def _dev_batch(host, keys=None):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in host.items()
+            if keys is None or k in keys}
+
+
+def _counted(fn):
+    """(fn's result, the launches it made)."""
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES)
+
+
+def parallel_rank_nccl(rank, world_size, pf_host):
+    """Phase (a), world size 1 over NCCL: the data-parallel ``fit`` and PF
+    step, and the sequence- (gather, ring) and tensor-parallel forwards at
+    n = 1 on the (8, 2048) batch."""
+    import tempfile
+
+    from superresolutionhep_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from superresolutionhep_tpu_torch.parallel.sp import make_sp_forward
+    from superresolutionhep_tpu_torch.parallel.tp import make_tp_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"fit": _fit_losses(tempfile.mkdtemp(prefix="srhep_fit_dp_")), "pf": _pf_step(pf_host)}
+    cfg_mv, params, host = parallel_sr_setup()
+    fm = cfg_mv["flow_model"]
+    params = {k: v.cuda() for k, v in params.items()}
+    for name, shape, make, kw in (("sp_gather", {"data": 1, "seq": 1}, make_sp_forward, {"sp_mode": "gather"}),
+                                  ("sp_ring", {"data": 1, "seq": 1}, make_sp_forward, {"sp_mode": "ring"}),
+                                  ("tp", {"data": 1, "model": 1}, make_tp_forward, {})):
+        mesh = Mesh(shape)
+        _, fwd = make(fm, mesh, device="cuda", **kw)
+        b = _dev_batch(shard_batch(host, mesh, cells=True))
+        with torch.no_grad():
+            out[name], out[f"{name}_launches"] = _counted(lambda: fwd(params, b, b["x0"], b["t"]))
+    return out
+
+
+def parallel_rank_gloo(rank, world_size):
+    """Phase (b) and (c), two ranks on the one card over gloo: the probe of
+    gloo's all_gather on CUDA tensors; a data-parallel ``SRTrainer`` step in
+    fp32; the tensor-parallel forward and train step at tp = 2 and, where
+    the probe passed, the sequence-parallel ones at seq = 2 (gather); each
+    window's launches, ``LaunchChecker`` on the sharded K1 launches and its
+    planted-fault control, and on every K1/K5/K6 launch of the train steps."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_T
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS
+    from superresolutionhep_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from superresolutionhep_tpu_torch.parallel.sp import make_sp_forward, make_sp_train_step
+    from superresolutionhep_tpu_torch.parallel.tp import make_tp_forward, make_tp_train_step
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.full((2,), float(rank), device="cuda")
+    parts = [torch.empty_like(x) for _ in range(world_size)]
+    try:
+        dist.all_gather(parts, x)
+        gather_ok = all(bool((p == r).all()) for r, p in enumerate(parts))
+        gather_note = "ok" if gather_ok else "wrong values"
+    except RuntimeError as e:  # the probe: its outcome decides whether SP runs, and is reported
+        gather_ok, gather_note = False, str(e)[:300]
+    out = {"gather_probe": {"ok": gather_ok, "note": gather_note}}
+
+    cfg_mv, params, host = parallel_sr_setup()
+    fm = cfg_mv["flow_model"]
+    sigma = float(fm["sigma_min"])
+    params = {k: v.cuda() for k, v in params.items()}
+    meshes = {"dp": Mesh({"data": 2}), "tp": Mesh({"data": 1, "model": 2}), "sp": Mesh({"data": 1, "seq": 2})}
+
+    # data parallelism: one SRTrainer step, each rank its four rows
+    cfg_t = dict(copy.deepcopy(MULTIPART_CONFIG_T), n_event_displays=0, remat=False, fused_prologue=False)
+    tr = SRTrainer(cfg_mv, cfg_t, run_dir=tempfile.mkdtemp(prefix="srhep_dp_"), seed=0, device="cuda",
+                   params={f"net.{k}": v for k, v in params.items()}, mesh=meshes["dp"])
+    seen = []
+    step = tr.opt.step
+    tr.opt.step = lambda grads, lr: (seen.append([g.detach().clone() for g in grads]), step(grads, lr))[1]
+    b = _dev_batch(shard_batch(host, meshes["dp"]), MODEL_BATCH_KEYS)
+    stats, out["dp_launches"] = _counted(lambda: tr.train_step(b, lr=PARALLEL_LR))
+    names = [n for n, _ in tr.model.named_parameters()]
+    out["dp"] = {"loss": float(stats["loss"]), "digest": [float(g.double().sum()) for g in seen[0]]}
+    if rank == 0:
+        out["dp"].update(grads=dict(zip(names, seen[0])), params=tr.model.state_dict())
+    del tr, seen
+
+    # tensor (and sequence) parallelism: forward under the checker, train step
+    paths = [("tp", make_tp_forward, make_tp_train_step, {})]
+    if gather_ok:
+        paths.append(("sp", make_sp_forward, make_sp_train_step, {"sp_mode": "gather"}))
+    for name, make_fwd, make_step, kw in paths:
+        mesh = meshes[name]
+        _, fwd = make_fwd(fm, mesh, device="cuda", **kw)
+        _, step = make_step(fm, mesh, sigma, device="cuda", **kw)
+        b = _dev_batch(shard_batch(host, mesh, cells=True))
+        with LaunchChecker() as checker, torch.no_grad():
+            y, out[f"{name}_fwd_launches"] = _counted(lambda: fwd(params, b, b["x0"], b["t"]))
+        with LaunchChecker(fault=True) as control, torch.no_grad():
+            fwd(params, b, b["x0"], b["t"])
+        out[name] = {"fwd": y, "checker": checker.summary(), "checker_ok": checker.ok(),
+                     "control_caught": control.caught()}
+        del fwd
+        for variant, cfg in (("", fm), ("_smooth", smooth_config(fm))):
+            _, step = make_step(cfg, mesh, sigma, device="cuda", **kw)
+            with LaunchChecker(backward=True) as checker:  # K1, K5, K6 at this path's shapes
+                (loss, grads), out[f"{name}{variant}_step_launches"] = _counted(
+                    lambda: step(params, b, b["t"], b["x0"]))
+            out[name][f"step_checker{variant}"], out[name][f"step_checker_ok{variant}"] = (checker.summary(),
+                                                                                          checker.ok())
+            out[name][f"loss{variant}"] = float(loss)
+            out[name][f"digest{variant}"] = [float(g.double().sum()) for g in grads.values()]
+            if rank == 0:
+                out[name][f"grads{variant}"] = grads
+            del step
+    return out
+
+
+def _grad_errs(got, want):
+    """Per leaf, max |got - want| over max(the leaf's max, 1e-3 of the
+    largest leaf); ``got`` numpy arrays, ``want`` tensors."""
+    want = {k: v.detach().float().cpu().numpy() for k, v in want.items()}
+    top = max(float(np.abs(v).max()) for v in want.values())
+    return {k: float(np.abs(np.asarray(got[k], np.float32) - v).max()) / max(float(np.abs(v).max()), 1e-3 * top, 1e-30)
+            for k, v in want.items()}
+
+
+def _grads_ok(errs, tol):
+    """Every leaf within ``tol``; and the worst leaf's error and name, and
+    the median leaf's error."""
+    worst = max(errs, key=errs.get)
+    return errs[worst] <= tol, errs[worst], worst, float(np.median(list(errs.values())))
+
+
+def _rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def parallel_phase():
+    """Data, sequence and tensor parallelism of the port on the one card, at
+    the multipart model's full width (h 256, 6 DiT layers, 4 heads of 64).
+
+    (a) World size 1 over NCCL: ``SRTrainer.fit`` (bf16, remat,
+    grad_accum_steps 2, grad_clip_norm 1.0) through the data-parallel code,
+    whose per-step losses must equal the same ``fit`` with no process group
+    bit for bit (NCCL's all-reduce at one rank is a copy); a fp32 PF step the
+    same way; ``make_sp_forward`` (gather, ring) and ``make_tp_forward`` at
+    n = 1 against the single-rank forward.
+    (b) Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): a data-parallel ``SRTrainer`` step in fp32 at (8, 2048) with
+    shards of unequal cell counts — loss, every gradient, the parameters after
+    AdamW against the single-rank step; ``make_tp_forward`` and
+    ``make_tp_train_step`` at tp = 2 (K1/K5/K6 with 2 heads of 64 a rank) and,
+    where gloo's all_gather takes CUDA tensors, ``make_sp_forward`` and the
+    SP train step at seq = 2 (K1 with 1024 local queries against 2048 keys),
+    against the single-rank forward and gradients (``PARALLEL_TOL``; the
+    gradients as ``PARALLEL_GRAD_TOL`` says: every train step also runs on
+    the same weights with SiLU in place of the kinked LeakyReLUs,
+    ``smooth_config``, held to ``PARALLEL_TOL``).
+    (c) Each rank's launches per window are exact, and ``LaunchChecker``
+    holds every sharded K1 launch against its plain version, with its
+    planted-fault control, and every K1/K5/K6 launch of the TP and SP train
+    steps (fp32: 2 heads of 64 under TP, 1024 queries against 2048 keys
+    under SP) against its plain version.  The ring at two ranks is not run here: gloo's
+    send/recv take no CUDA tensors.  Times from these runs say nothing of
+    NCCL across cards and are not recorded as such."""
+    import tempfile
+
+    from superresolutionhep_tpu_torch.configs import PF_CONFIG_MV
+    from superresolutionhep_tpu_torch.data.sr_dataset import MODEL_BATCH_KEYS
+    from superresolutionhep_tpu_torch.models.flow_model import FlowModel
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.parallel.launch import run_ranks
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    t0 = time.time()
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    checks, line = {}, {"phase": "parallel"}
+    cfg_mv, params, host = parallel_sr_setup()
+    fm = cfg_mv["flow_model"]
+    L = int(fm["transformer"]["num_transformer_layers"])
+    n_enc = int(PF_CONFIG_MV["pf_model"]["encoder"]["transformer"]["num_transformer_layers"])
+    pf_host = synthetic_pf_batch(16, 384, int(PF_CONFIG_MV["pf_model"]["max_particles"]), seed=23)
+
+    # ---- single-rank references, no process group
+    ref_fit = _fit_losses(tempfile.mkdtemp(prefix="srhep_fit_"))
+    ref_pf = _pf_step(pf_host)
+    dev_params = {k: v.cuda() for k, v in params.items()}
+    model = FlowModel(fm).cuda().float().eval()
+    model.load_state_dict(dev_params)
+    b = _dev_batch(host)
+    with torch.no_grad():
+        ref_fwd = model(b, b["x0"], b["t"]).float().cpu().numpy()
+    del model, b
+    ref_steps = {"": single_loss_and_grads(fm, dev_params, host),
+                 "_smooth": single_loss_and_grads(smooth_config(fm), dev_params, host)}
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_T
+
+    cfg_t = dict(copy.deepcopy(MULTIPART_CONFIG_T), n_event_displays=0, remat=False, fused_prologue=False)
+    tr = SRTrainer(cfg_mv, cfg_t, run_dir=tempfile.mkdtemp(prefix="srhep_dp_ref_"), seed=0, device="cuda",
+                   params={f"net.{k}": v for k, v in dev_params.items()})
+    seen = []
+    step = tr.opt.step
+    tr.opt.step = lambda grads, lr: (seen.append([g.detach().clone() for g in grads]), step(grads, lr))[1]
+    stats = tr.train_step(_dev_batch(host, MODEL_BATCH_KEYS), lr=PARALLEL_LR)
+    names = [n for n, _ in tr.model.named_parameters()]
+    ref_dp = {"loss": float(stats["loss"]), "grads": dict(zip(names, seen[0])), "params": tr.model.state_dict()}
+    del tr, seen
+    t_ref = time.time() - t0
+
+    # ---- (a) world size 1 over NCCL
+    t1 = time.time()
+    (a,) = run_ranks(parallel_rank_nccl, 1, (pf_host,), backend="nccl", device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
+    t_a = time.time() - t1
+    n_steps = len(ref_fit["steps"])
+    fit_expect = dict(zero, flash_fwd=2 * L * n_steps, flash_bwd_dq=L * n_steps, flash_bwd_dkv=L * n_steps)
+    pf_expect = dict(zero, flash_fwd=n_enc, flash_bwd_dq=n_enc, flash_bwd_dkv=n_enc)
+    checks["a_fit_through_group"] = a["fit"]["group"] and not ref_fit["group"]
+    checks["a_fit_losses_bit_equal"] = bool(np.array_equal(a["fit"]["steps"].view(np.uint32),
+                                                           ref_fit["steps"].view(np.uint32)))
+    checks["a_fit_launches"] = a["fit"]["launches"] == fit_expect == ref_fit["launches"]
+    checks["a_pf_loss_bit_equal"] = bool(np.array_equal(a["pf"]["loss"].view(np.uint32),
+                                                        ref_pf["loss"].view(np.uint32)))
+    checks["a_pf_launches"] = a["pf"]["launches"] == pf_expect
+    a_errs = {k: _rel_err(a[k], ref_fwd) for k in ("sp_gather", "sp_ring", "tp")}
+    checks["a_forwards_n1"] = all(e <= PARALLEL_TOL for e in a_errs.values())
+    checks["a_forward_launches"] = (a["sp_gather_launches"] == a["tp_launches"] == dict(zero, flash_fwd=L)
+                                    and a["sp_ring_launches"] == zero)
+    line["a"] = {"fit_steps": a["fit"]["steps"].tolist(), "fit_launches": a["fit"]["launches"],
+                 "pf_loss_grad_norm": a["pf"]["loss"].tolist(), "forward_rel_err": a_errs, "seconds": round(t_a, 1)}
+
+    # ---- (b), (c) two ranks on the one card over gloo
+    t1 = time.time()
+    ranks = run_ranks(parallel_rank_gloo, 2, (), backend="gloo", device="cuda:0", timeout_s=PARALLEL_TIMEOUT_S)
+    t_b = time.time() - t1
+    r0 = ranks[0]
+    gather_ok = all(r["gather_probe"]["ok"] for r in ranks)
+    line["gloo_cuda_all_gather"] = [r["gather_probe"] for r in ranks]
+    step_expect = dict(zero, flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    fwd_expect = dict(zero, flash_fwd=L)
+    # data parallelism
+    dp_grads_ok, dp_err, dp_leaf, dp_med = _grads_ok(_grad_errs(r0["dp"]["grads"], ref_dp["grads"]), PARALLEL_TOL)
+    p_err = 0.0
+    for k, v in ref_dp["params"].items():
+        live = ref_dp["grads"][k].abs().cpu().numpy() > 1e-6 if k in ref_dp["grads"] else np.ones(v.shape, bool)
+        want = v.cpu().numpy()
+        p_err = max(p_err, float(np.abs(r0["dp"]["params"][k] - want)[live].max(initial=0.0))
+                    / max(float(np.abs(want).max()), 1e-30))
+    checks["b_dp_loss"] = all(abs(r["dp"]["loss"] - ref_dp["loss"]) <= PARALLEL_TOL * abs(ref_dp["loss"])
+                              for r in ranks)
+    checks["b_dp_grads"] = dp_grads_ok and ranks[1]["dp"]["digest"] == r0["dp"]["digest"]
+    checks["b_dp_params_after_adamw"] = p_err <= PARALLEL_TOL
+    checks["c_dp_launches"] = all(r["dp_launches"] == step_expect for r in ranks)
+    line["b_dp"] = {"loss": [r["dp"]["loss"] for r in ranks], "ref_loss": ref_dp["loss"],
+                    "worst_grad_rel_err": dp_err, "leaf": dp_leaf, "median_grad_rel_err": dp_med,
+                    "params_rel_err": p_err,
+                    "shard_cells": [int(host["q_mask"][:4].sum()), int(host["q_mask"][4:].sum())]}
+    for name in ("tp", "sp") if gather_ok else ("tp",):
+        shards = [r[name]["fwd"] for r in ranks]
+        y = np.concatenate(shards, axis=1) if name == "sp" else shards[0]
+        f_errs = [_rel_err(y, ref_fwd)] + ([_rel_err(shards[1], ref_fwd)] if name == "tp" else [])
+        checks[f"b_{name}_forward"] = max(f_errs) <= PARALLEL_TOL
+        line[f"b_{name}"] = {"forward_rel_err": f_errs, "checker": [r[name]["checker"] for r in ranks]}
+        for variant, tol in (("", PARALLEL_GRAD_TOL), ("_smooth", PARALLEL_TOL)):
+            ref_loss, ref_grads = ref_steps[variant]
+            g_ok, g_err, g_leaf, g_med = _grads_ok(_grad_errs(r0[name][f"grads{variant}"], ref_grads), tol)
+            checks[f"b_{name}{variant}_loss"] = all(abs(r[name][f"loss{variant}"] - ref_loss)
+                                                    <= PARALLEL_TOL * abs(ref_loss) for r in ranks)
+            same = ranks[1][name][f"digest{variant}"] == r0[name][f"digest{variant}"]
+            checks[f"b_{name}{variant}_grads"] = g_ok and same
+            line[f"b_{name}"][f"step{variant}"] = {
+                "loss": [r[name][f"loss{variant}"] for r in ranks], "ref_loss": ref_loss, "grad_tol": tol,
+                "worst_grad_rel_err": g_err, "leaf": g_leaf, "median_grad_rel_err": g_med}
+        checks[f"c_{name}_launches"] = all(r[f"{name}_fwd_launches"] == fwd_expect
+                                           and r[f"{name}_step_launches"] == r[f"{name}_smooth_step_launches"]
+                                           == step_expect for r in ranks)
+        checks[f"c_{name}_checker"] = all(r[name]["checker_ok"] and r[name]["checker"]["flash_fwd"]["launches"] == L
+                                          and r[name]["control_caught"] for r in ranks)
+        checks[f"c_{name}_step_checker"] = all(
+            r[name][f"step_checker_ok{v}"] and all(r[name][f"step_checker{v}"][k]["launches"] == L for k in
+                                                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dk", "flash_bwd_dv"))
+            for r in ranks for v in ("", "_smooth"))
+        line[f"b_{name}"]["step_checker"] = [{v or "kinked": r[name][f"step_checker{v}"] for v in ("", "_smooth")}
+                                             for r in ranks]
+    line["sp_two_ranks"] = "ran" if gather_ok else "not run: gloo's all_gather refused CUDA tensors"
+    counts = dict(zero)
+    for part in [a["fit"]["launches"], a["pf"]["launches"], a["sp_gather_launches"], a["sp_ring_launches"],
+                 a["tp_launches"]] + [r[k] for r in ranks for k in r if k.endswith("_launches")]:
+        for k, v in part.items():
+            counts[k] += v
+    line.update({"launches": counts, "seconds": {"references": round(t_ref, 1), "a": round(t_a, 1),
+                                                 "b": round(t_b, 1), "total": round(time.time() - t0, 1)},
+                 "note": "two ranks over gloo on one card: not NCCL scaling across cards"})
+    line["checks"], line["ok"] = checks, all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("parallel checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true")
@@ -2987,6 +3516,7 @@ def main():
         by_phase["pf_train"] = pf_train_phase(trees, args.reps) if not args.skip_train else zero
         by_phase["trained"] = trained_phase(trees, args.reps) if not args.skip_serve else zero
     by_phase["normformer"] = normformer_phase() if not args.skip_serve else zero
+    by_phase["parallel"] = parallel_phase()
 
     # one entry per kernel: the main paths' shape class (bf16; L=2048 with
     # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9, the

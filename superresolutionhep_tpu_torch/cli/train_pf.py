@@ -2,7 +2,10 @@
 
     python -m superresolutionhep_tpu_torch.cli.train_pf -cmv model_and_var.yml -ct train.yml [--device cuda]
 
-The YAML files are read here; the trainer takes mappings.  The train YAML's
+The YAML files are read here; the trainer takes mappings.  Under
+``torchrun --nproc_per_node N -m superresolutionhep_tpu_torch.cli.train_pf ...``
+each rank joins the process group (NCCL on ``cuda:LOCAL_RANK``) and the
+trainer runs data parallel over the world.  The train YAML's
 ``train_glob_arg`` / ``val_glob_arg`` name the stage-1 inference outputs.
 """
 
@@ -24,7 +27,12 @@ def main(argv=None):
         config_t = dict(config_t, profile=True)
     run_dir = args.run_dir or default_run_dir(config_t, "pf")
 
+    from ..parallel.distributed import initialize
     from ..train.pf_trainer import PFTrainer
+
+    # under torchrun (one process per rank) the trainer runs data parallel
+    # over the world; without its environment this starts nothing
+    initialize(device=args.device)
 
     trainer = PFTrainer(config_mv, config_t, run_dir=run_dir, seed=args.seed, dtype=compute_dtype(args.precision),
                         device=args.device)

@@ -164,9 +164,12 @@ PART_F32 = ["part_pt", "part_e", "part_eta", "part_phi", "part_dep_e", "part_pt_
             "part_dep_e_raw"]
 
 
-def collate_pf(events: Sequence[Optional[dict]], pad_n: int, max_part: int) -> Dict[str, np.ndarray]:
+def collate_pf(events: Sequence[Optional[dict]], pad_n: int, max_part: int,
+               with_incidence: Optional[bool] = None) -> Dict[str, np.ndarray]:
     """Pad ``events`` (None = a filler slot) to ``pad_n`` cells and
-    ``max_part`` particles: the batch dict of numpy arrays (``idx`` -1)."""
+    ``max_part`` particles: the batch dict of numpy arrays (``idx`` -1).
+    ``incidence_matrix`` is made where ``with_incidence`` says, by default
+    where any event has one."""
     B = len(events)
     out: Dict[str, np.ndarray] = {}
     for k in CELL_F32:
@@ -180,7 +183,9 @@ def collate_pf(events: Sequence[Optional[dict]], pad_n: int, max_part: int) -> D
     out["cardinality"] = np.zeros((B,), np.int32)
     out["idx"] = np.full((B,), -1, np.int64)
 
-    has_inc = any(ev is not None and "incidence_matrix" in ev for ev in events)
+    has_inc = with_incidence
+    if has_inc is None:
+        has_inc = any(ev is not None and "incidence_matrix" in ev for ev in events)
     if has_inc:
         out["incidence_matrix"] = np.zeros((B, pad_n, max_part), np.float32)
 

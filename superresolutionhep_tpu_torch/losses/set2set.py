@@ -66,20 +66,23 @@ def _gather_matched(cost_terms, assign):
                       assign]
 
 
-def _event_weighted_mean(per_event, event_mask):
-    """Mean of a (B,) per-event vector over real events (plain mean without a mask)."""
+def _event_weighted_mean(per_event, event_mask, n_events=None):
+    """Mean of a (B,) per-event vector over real events (plain mean without a
+    mask).  ``n_events``: the count of real events to divide by in place of
+    this batch's (a data-parallel rank's share of the global mean)."""
     if event_mask is None:
         return per_event.mean()
     w = event_mask.to(per_event.dtype)
-    return (per_event * w).sum() / w.sum().clamp_min(1.0)
+    return (per_event * w).sum() / (w.sum() if n_events is None else n_events).clamp_min(1.0)
 
 
-def _event_weighted_mean2(per_slot, event_mask):
+def _event_weighted_mean2(per_slot, event_mask, n_events=None):
     """Mean of a (B, P) per-slot tensor over the real events' slots."""
     if event_mask is None:
         return per_slot.mean()
     w = event_mask.to(per_slot.dtype)[:, None]
-    return (per_slot * w).sum() / (w.sum() * per_slot.shape[1]).clamp_min(1.0)
+    n = w.sum() if n_events is None else n_events
+    return (per_slot * w).sum() / (n * per_slot.shape[1]).clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -104,13 +107,15 @@ def kinematics_pairwise_cost(kin_pred, batch, weights):
     return sum(terms.values()), terms
 
 
-def set_to_set_kinematics_loss(kin_pred, batch, config, event_mask=None):
-    """Returns (loss, components, assign (B, P): truth row -> matched prediction)."""
+def set_to_set_kinematics_loss(kin_pred, batch, config, event_mask=None, n_events=None):
+    """Returns (loss, components, assign (B, P): truth row -> matched
+    prediction); ``n_events`` as for ``_event_weighted_mean``."""
     weights = {k: float(config.get(k, 1.0)) for k in ("pt_loss_wt", "eta_loss_wt", "phi_loss_wt", "e_loss_wt")}
     total, terms = kinematics_pairwise_cost(kin_pred, batch, weights)
     assign = hungarian(total.detach())
-    loss = _event_weighted_mean(_gather_matched(total, assign).mean(dim=1), event_mask)
-    components = {k: _event_weighted_mean2(_gather_matched(v, assign), event_mask) for k, v in terms.items()}
+    loss = _event_weighted_mean(_gather_matched(total, assign).mean(dim=1), event_mask, n_events)
+    components = {k: _event_weighted_mean2(_gather_matched(v, assign), event_mask, n_events)
+                  for k, v in terms.items()}
     return loss, components, assign
 
 
@@ -131,20 +136,24 @@ def incidence_pairwise_cost(inc_weights, batch):
     return kld * not_q4 + q2_q3_inf
 
 
-def set_to_set_incidence_loss(inc_weights, batch, kin_pred, event_mask=None):
+def set_to_set_incidence_loss(inc_weights, batch, kin_pred, event_mask=None, n_events=None):
     """Returns (loss, components, assign).  The kinematics components are
-    computed after the assignment, for logging only."""
+    computed after the assignment, for logging only; ``n_events`` as for
+    ``_event_weighted_mean``."""
     pdist = incidence_pairwise_cost(inc_weights, batch)
     assign = hungarian(pdist.detach())
-    loss = _event_weighted_mean(_gather_matched(pdist, assign).mean(dim=1), event_mask)
+    loss = _event_weighted_mean(_gather_matched(pdist, assign).mean(dim=1), event_mask, n_events)
     B = assign.shape[0]
     kin = kin_pred[torch.arange(B, device=assign.device)[:, None], assign, :]  # (B, P, 4)
-    wm = _event_weighted_mean2
+
+    def wm(x):
+        return _event_weighted_mean2(x, event_mask, n_events)
+
     comps = {
-        "pt_loss": wm((kin[:, :, 0] - batch["part_pt"]) ** 2, event_mask),
-        "eta_loss": wm((kin[:, :, 1] - batch["part_eta"]) ** 2, event_mask),
-        "phi_loss": wm(1.0 - torch.cos(kin[:, :, 2] - batch["part_phi"]), event_mask),
-        "e_loss": wm((kin[:, :, 3] - batch["part_dep_e"]) ** 2, event_mask),
+        "pt_loss": wm((kin[:, :, 0] - batch["part_pt"]) ** 2),
+        "eta_loss": wm((kin[:, :, 1] - batch["part_eta"]) ** 2),
+        "phi_loss": wm(1.0 - torch.cos(kin[:, :, 2] - batch["part_phi"])),
+        "e_loss": wm((kin[:, :, 3] - batch["part_dep_e"]) ** 2),
     }
     comps["kin_loss"] = comps["pt_loss"] + comps["eta_loss"] + comps["phi_loss"] + comps["e_loss"]
     return loss, comps, assign

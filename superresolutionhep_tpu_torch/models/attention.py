@@ -6,8 +6,24 @@ and the general path: per-edge features (an additive bias ``E`` from
 ``linear_e`` and a sigmoid gate ``G`` from ``linear_g``, optional edge
 updates ``linear_e_out`` from the raw scores), an additive ``attn_bias``, an
 adjacency mask ``attn_valid`` merged into the padding masks, and dropout on
-the raw scores before the softmax (the reference's quirk).  Sequence and
-tensor parallelism are not ported.
+the raw scores before the softmax (the reference's quirk).
+
+Sequence and tensor parallelism, as in the JAX package:
+
+  * ``sp_group``: the token axis arrives sharded over this process group;
+    the projected keys, values and key mask are gathered
+    (``sp_mode='gather'``; the flash kernel then runs with local queries
+    against all keys, Lq != Lk) or rotated round the group with an online
+    softmax (``sp_mode='ring'``, ops/ring_attention.py; padding masks only)
+    while the queries stay local.  Segment packing is refused under it;
+  * ``tp_group``: this module holds a head slice — ``embed_dim`` and
+    ``num_heads`` are the LOCAL counts, ``q_dim`` the model width.  Q/K/V
+    are column-parallel behind Megatron's ``f``, the output projection
+    row-parallel with its partial products summed by ``g`` (ops/tp.py); the
+    caller shards the weights and divides the output bias by the group size
+    (parallel/tp.py).  It needs the output projection and refuses edge
+    features and score dropout;
+  * the fused prologue is refused under either.
 
   * the JAX package's rule ``_can_use_flash`` decides where a flash kernel
     may be taken: only without edges, bias, adjacency mask, edge updates and
@@ -56,9 +72,13 @@ from ..ops.flash_attention import (
 from ..ops.flash_packed import packed_flash_attention, packed_flash_attention_T, packed_shapes_ok
 from ..ops.fused_qkv import _ln_noaffine, cell_rows, fused_ln_mod_proj, fused_qkv_capacity_ok, fused_qkv_ok
 from ..ops.masked import masked_softmax, merge_masks
+from ..ops.ring_attention import ring_masked_attention
+from ..ops.tp import tp_allreduce, tp_block_input
+from ..parallel.comm import all_gather
 from .dense import Linear, xavier_uniform_
 
 IMPLS = ("flash", "flash_nomax", "einsum", "auto")
+SP_MODES = ("gather", "ring")
 
 
 def _can_use_flash(edges, attn_bias, attn_valid, update_edges, dropout) -> bool:
@@ -87,6 +107,9 @@ class MultiheadAttention(nn.Module):
         dtype=None,
         edge_embed_dim: int = 0,
         update_edges: bool = False,
+        sp_group=None,
+        sp_mode: str = "gather",
+        tp_group=None,
     ):
         super().__init__()
         if embed_dim % num_heads:
@@ -95,6 +118,16 @@ class MultiheadAttention(nn.Module):
             raise ValueError("edge_embed_dim must be divisible by num_heads")
         if impl not in IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+        if sp_mode not in SP_MODES:
+            raise ValueError(f"unknown sp_mode {sp_mode!r}; one of {SP_MODES}")
+        if tp_group is not None:
+            if not out_proj:
+                raise ValueError("tp_group requires out_proj (row-parallel reduce point)")
+            if edge_embed_dim > 0:
+                raise ValueError("tp_group does not support edge features")
+            if dropout > 0.0:
+                raise ValueError("tp_group: score dropout would desync shards")
+        self.sp_group, self.sp_mode, self.tp_group = sp_group, sp_mode, tp_group
         self.embed_dim, self.num_heads, self.impl = embed_dim, num_heads, impl
         self.dropout, self.update_edges = float(dropout), bool(update_edges)
         in_dim = q_dim or embed_dim
@@ -141,10 +174,19 @@ class MultiheadAttention(nn.Module):
         general = not _can_use_flash(edges, attn_bias, attn_valid, self.update_edges, self.dropout)
         if fused_ln is not None:
             if k is not None or v is not None or edges is not None or attn_bias is not None \
-                    or attn_valid is not None or (self.dropout and self.training):
+                    or attn_valid is not None or (self.dropout and self.training) \
+                    or self.sp_group is not None or self.tp_group is not None:
                 raise ValueError("fused_ln supports padding-masked self-attention only "
-                                 "(no k/v, edges, attn_bias/valid or active dropout)")
+                                 "(no k/v, edges, attn_bias/valid, sp_group, tp_group or active dropout)")
             return self._fused_self_attention(q, q_valid, fused_ln, segment_ids)
+        if segment_ids is not None and self.sp_group is not None:
+            raise NotImplementedError("segment packing and sequence parallelism are exclusive")
+        if self.tp_group is not None:
+            # Megatron f at the column-parallel Q/K/V entry, before the k = q
+            # aliasing, so that one boundary covers all three projections
+            q = tp_block_input(q, self.tp_group)
+            k = tp_block_input(k, self.tp_group) if k is not None else None
+            v = tp_block_input(v, self.tp_group) if v is not None else None
         if k is None:
             k = q
             if kv_valid is None:
@@ -161,6 +203,16 @@ class MultiheadAttention(nn.Module):
         q_p = self.linear_q(q).reshape(B, Lq, H, HD)
         k_p = self.linear_k(k).reshape(B, Lk, H, HD)
         v_p = self.linear_v(v).reshape(B, Lk, H, HD)
+        if self.sp_group is not None and self.sp_mode == "ring":
+            if edges is not None or attn_bias is not None or attn_valid is not None:
+                raise NotImplementedError("ring attention supports padding masks only")
+            out = ring_masked_attention(q_p, k_p, v_p, q_valid, kv_valid, 1.0 / math.sqrt(HD), self.sp_group)
+            return self._project_out(out.reshape(B, Lq, self.embed_dim))
+        if self.sp_group is not None:
+            # gather the sharded token axis of keys, values and their mask;
+            # the queries (and the output's token axis) stay local
+            k_p, v_p = all_gather(k_p, self.sp_group), all_gather(v_p, self.sp_group)
+            kv_valid = all_gather(kv_valid, self.sp_group)
         if general:
             if segment_ids is not None:
                 raise ValueError("segment packing supports padding masks only")
@@ -218,7 +270,11 @@ class MultiheadAttention(nn.Module):
         return torch.einsum("bhqk,bkhd->bqhd", weights, v_p).reshape(B, Lq, self.embed_dim)
 
     def _project_out(self, out):
-        return self.linear_out(out) if self.linear_out is not None else out
+        """Output projection; under tensor parallelism its partial products
+        are summed over the group by Megatron's g (the output bias arrives
+        divided by the group size, so the sum adds it once)."""
+        out = self.linear_out(out) if self.linear_out is not None else out
+        return tp_allreduce(out, self.tp_group)
 
     # ------------------------------------------------------------------
     def _folded_qkv(self):

@@ -15,6 +15,13 @@ their own dtype (fp32 in training) and receive their gradients there.  With
 serving path casts the weights once (``models/precision.py``, bf16
 everywhere but the geometry embedder).  Inputs are cast to the compute
 dtype on entry; LayerNorm statistics are always fp32.
+
+Tensor parallelism (``tp_group``, Megatron's MLP split, as in the JAX
+package): the single hidden layer is column-parallel (the module is built
+with the LOCAL hidden width), the output layer row-parallel, its partial
+products summed over the group by ``g`` before any final activation, and
+the input passes Megatron's ``f`` (ops/tp.py).  It needs exactly one hidden
+layer, no ``norm_final_layer`` and no active dropout.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.masked import attach_context
+from ..ops.tp import tp_allreduce, tp_block_input
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default
 
@@ -121,10 +129,17 @@ class Dense(nn.Module):
         dropout: float = 0.0,
         context_size: int = 0,
         dtype=None,
+        tp_group=None,
     ):
         super().__init__()
         if norm_layer not in (None, "LayerNorm"):
             raise ValueError(f"unsupported norm layer {norm_layer!r}")
+        if tp_group is not None:
+            if len(hidden_layers) != 1:
+                raise ValueError("tp_group requires exactly one hidden layer")
+            if norm_final_layer:
+                raise ValueError("tp_group: norm_final_layer would normalize the sharded hidden")
+        self.tp_group = tp_group
         self.context_size = int(context_size)
         sizes = [*hidden_layers, output_size]
         mods = []
@@ -144,7 +159,7 @@ class Dense(nn.Module):
         self.net = nn.Sequential(*mods)
 
     @classmethod
-    def from_config(cls, cfg: dict, input_size: int, dtype=None) -> "Dense":
+    def from_config(cls, cfg: dict, input_size: int, dtype=None, tp_group=None) -> "Dense":
         """Build from a reference-style dense config dict.  The config's own
         ``input_size`` is ignored (the caller knows the real width; the
         configs carry placeholders such as -1)."""
@@ -159,6 +174,7 @@ class Dense(nn.Module):
             dropout=float(cfg.get("dropout", 0.0) or 0.0),
             context_size=int(cfg.get("context_size", 0) or 0),
             dtype=dtype,
+            tp_group=tp_group,
         )
 
     @property
@@ -169,6 +185,13 @@ class Dense(nn.Module):
         if self.context_size:
             x = attach_context(x, context)
         dtype = self.linears[0].dtype
+        last = self.linears[-1]
+        if self.tp_group is not None:
+            if self.training and any(isinstance(m, nn.Dropout) and m.p > 0 for m in self.net):
+                raise ValueError("tp_group: active dropout would desync shards")
+            x = tp_block_input(x, self.tp_group)
         for m in self.net:
             x = m(x, out_dtype=dtype) if isinstance(m, _NormNoAffine) else m(x)
+            if m is last:  # row-parallel output: sum the partial products first
+                x = tp_allreduce(x, self.tp_group)
         return x

@@ -4,9 +4,18 @@ Counterpart of the JAX package's ``models/dit.py``: per-layer context ->
 SiLU -> Linear -> 6-way (shift/scale/gate for MSA and MLP) modulation; gated
 residual attention and FFN.  Self-attention with padding masks or
 segment-packed rows, and cross-attention, whose modulation is applied to the
-keys (no tensor parallelism).  ``remat``
+keys.  ``remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``, the
 counterpart of ``nn.remat(DiTLayer)``).
+
+Parallelism, as in the JAX package: ``sp_group``/``sp_mode`` go to the
+attention (cells sharded over the group); ``tp_group`` shards the attention
+heads and the MLP's hidden width over the group (Megatron), the layer then
+building LOCAL widths — ``num_heads``/n heads, ``embed_dim``/n attention
+projections, hidden/n MLP — so that the sharded parameters of parallel/tp.py
+load into it; the group size must divide the heads, the width and the MLP's
+one hidden layer.  LayerNorms and the adaLN modulation stay replicated.  The
+fused kernels are off under either.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -61,19 +71,34 @@ class DiTLayer(nn.Module):
         attn_impl: str = "auto",
         fused_prologue: bool = False,
         dtype=None,
+        sp_group=None,
+        sp_mode: str = "gather",
+        tp_group=None,
     ):
         super().__init__()
         self.embed_dim = embed_dim
+        tp = dist.get_world_size(tp_group) if tp_group is not None else 1
+        if tp > 1 and (num_heads % tp or embed_dim % tp):
+            raise ValueError(f"tp_size {tp} must divide num_heads {num_heads} and embed_dim {embed_dim}")
+        tp_group = tp_group if tp > 1 else None
         # fuse norm1 + adaLN modulate + QKV projection (ops/fused_qkv.py) and
-        # the whole MLP half-layer (ops/fused_mlp.py) into one kernel each
-        self.fused_prologue = fused_prologue
+        # the whole MLP half-layer (ops/fused_mlp.py) into one kernel each;
+        # not under sequence or tensor parallelism
+        self.fused_prologue = fused_prologue and tp == 1 and sp_group is None
         self.adaLN_modulation = adaln_modulation(context_size, 6 * embed_dim, dtype=dtype)
         self.norm1 = LayerNorm(embed_dim, dtype=dtype)
-        self.mha = MultiheadAttention(embed_dim, num_heads, impl=attn_impl, dtype=dtype)
+        self.mha = MultiheadAttention(embed_dim // tp, num_heads // tp, q_dim=embed_dim if tp > 1 else None,
+                                      impl=attn_impl, dtype=dtype, sp_group=sp_group, sp_mode=sp_mode,
+                                      tp_group=tp_group)
         self.mlp_cfg = dict(dense_config, output_size=embed_dim) if dense_config is not None else None
         if self.mlp_cfg is not None:
+            if tp > 1:
+                hl = list(self.mlp_cfg.get("hidden_layers") or ())
+                if len(hl) != 1 or hl[0] % tp:
+                    raise ValueError(f"tp_size {tp} needs one tp-divisible MLP hidden layer, got {hl}")
+                self.mlp_cfg["hidden_layers"] = (hl[0] // tp,)
             self.norm2 = LayerNorm(embed_dim, dtype=dtype)
-            self.dense = Dense.from_config(self.mlp_cfg, input_size=embed_dim, dtype=dtype)
+            self.dense = Dense.from_config(self.mlp_cfg, input_size=embed_dim, dtype=dtype, tp_group=tp_group)
 
     def forward(self, q, q_valid=None, k=None, kv_valid=None, context=None, context_seg=None, seg_onehot=None,
                 attn_valid=None, attn_bias=None, segment_ids=None):
@@ -153,10 +178,14 @@ class DiTEncoder(nn.Module):
         fused_prologue: bool = False,
         dtype=None,
         remat: bool = False,
+        sp_group=None,
+        sp_mode: str = "gather",
+        tp_group=None,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            DiTLayer(embed_dim, num_heads, context_size, dense_config, attn_impl, fused_prologue, dtype)
+            DiTLayer(embed_dim, num_heads, context_size, dense_config, attn_impl, fused_prologue, dtype,
+                     sp_group=sp_group, sp_mode=sp_mode, tp_group=tp_group)
             for _ in range(num_layers)
         )
         self.final_norm = LayerNorm(embed_dim, dtype=dtype)

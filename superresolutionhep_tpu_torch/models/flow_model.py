@@ -18,6 +18,13 @@ for the Dense concat paths), and attention stays within a segment.
 geometry embedder casts its weights to it at use, so fp32 parameters train
 under bf16 compute.  ``remat`` recomputes each DiT layer in the backward.
 
+Parallelism (DiT only, as in the JAX package; the parallel entry points are
+in parallel/sp.py and parallel/tp.py): with ``sp_group`` the cell axis
+arrives sharded over that process group — the pooled context sums over it
+and attention gathers (``sp_mode='gather'``) or rotates (``'ring'``) the
+keys; with ``tp_group`` the DiT layers hold head and MLP shards.  Packed
+batches are refused under ``sp_group``.
+
 Config layout is identical to the ``flow_model`` YAML block; parameter names
 are the reference checkpoint's (see tools/convert.py).
 """
@@ -41,7 +48,7 @@ N_CALO_LAYERS = 3  # ECAL layers kept after the layer<3 cut
 
 class FlowModel(nn.Module):
     def __init__(self, config: dict, attn_impl: str = "auto", fused_prologue: bool = False, dtype=None,
-                 remat: bool = False):
+                 remat: bool = False, sp_group=None, sp_mode: str = "gather", tp_group=None):
         """config: the ``flow_model`` config block."""
         super().__init__()
         self.compute_dtype = dtype
@@ -50,6 +57,9 @@ class FlowModel(nn.Module):
         tcfg = cfg["transformer"]
         if tcfg["type"] not in ("DiT", "GPT-2+Normformer"):
             raise ValueError(f"unknown transformer type {tcfg['type']!r}")
+        if tcfg["type"] != "DiT" and (sp_group is not None or tp_group is not None):
+            raise NotImplementedError("sequence and tensor parallelism require the DiT transformer")
+        self.sp_group = sp_group
         C = int(cfg["time_embedding_size"])
         h_dim = int(cfg["h_dim"])
 
@@ -106,6 +116,9 @@ class FlowModel(nn.Module):
                 fused_prologue=fused_prologue,
                 dtype=dtype,
                 remat=remat,
+                sp_group=sp_group,
+                sp_mode=sp_mode,
+                tp_group=tp_group,
             )
         feat_dim = h_dim + cond_dim
         self.final_modulation = bool(cfg.get("final_modulation", False))
@@ -163,7 +176,7 @@ class FlowModel(nn.Module):
             seg_onehot = segment_onehot(seg, n_seg, cond_feat.dtype)  # (B, S, E)
             cond_seg = segment_mean(cond_feat, seg_onehot)  # (B, E, C)
         else:
-            cond_feat_global = masked_mean(cond_feat, q_mask, axis=1)
+            cond_feat_global = masked_mean(cond_feat, q_mask, axis=1, group=self.sp_group)
 
         noisy_input_emb = self.noisy_input_emb_net(noisy_input, context=time_emb)
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.comm import all_reduce_sum, psum
+
 NEG_INF = -1e30  # large-but-finite: keeps softmax well-defined for all-pad rows
 
 
@@ -53,14 +55,20 @@ def merge_masks(q_valid, kv_valid, attn_valid, q_len: int, k_len: int):
     return merged
 
 
-def masked_mean(x, valid_mask, axis: int = 1):
+def masked_mean(x, valid_mask, axis: int = 1, group=None):
     """Mean over ``axis`` counting only valid entries; guarded denominator
-    (fully padded filler events in a bucket batch divide by 1, not 0)."""
+    (fully padded filler events in a bucket batch divide by 1, not 0).
+
+    ``group``: the sequence-parallel process group when ``axis`` is sharded
+    over it: numerator and denominator are summed over the group (the
+    numerator with the all-reduce backward, ``parallel/comm.py::psum``)."""
     m = valid_mask.to(x.dtype)
     while m.ndim < x.ndim:
         m = m[..., None]
     num = (x * m).sum(dim=axis)
     den = m.sum(dim=axis)
+    if group is not None:
+        num, den = psum(num, group), all_reduce_sum(den, group)
     return num / den.clamp_min(1.0)
 
 

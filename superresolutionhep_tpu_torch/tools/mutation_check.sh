@@ -13,7 +13,8 @@
 # before that, at the ptxas gate or at a check).  With CASES set to names of
 # chip_smoke.py's case functions (e.g. CASES="fp32_tile_cases kernel_cases"),
 # only those run, past the build's ptxas gate: whether a check of the kernels'
-# results sees a mutation whose build the gate already refuses.
+# results sees a mutation whose build the gate already refuses
+# (CASES=parallel_phase runs the parallel phase alone).
 ROOT=$(pwd)
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT
@@ -27,13 +28,11 @@ run() {  # name, sed expression, file
   after=$(md5sum "$3" | cut -d' ' -f1)
   if [ "$before" = "$after" ]; then echo "MUTATION $1 did not change $3"; exit 9; fi
   if [ -n "$CASES" ]; then
-    SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 - $CASES > out.txt 2> err.txt <<'EOF'
-import inspect, sys
-import chip_smoke as cs
-for name in sys.argv[1:]:
-    fn = getattr(cs, name)
-    fn(2) if inspect.signature(fn).parameters else fn()
-EOF
+    # a file, not stdin: the parallel phase's spawned ranks re-import the main module
+    printf '%s\n' 'import inspect, sys' 'import chip_smoke as cs' 'if __name__ == "__main__":' \
+      '    for name in sys.argv[1:]:' '        fn = getattr(cs, name)' \
+      '        fn(2) if inspect.signature(fn).parameters else fn()' > cases.py
+    SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 cases.py $CASES > out.txt 2> err.txt
   else
     SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --skip-train --reps 2 > out.txt 2> err.txt
   fi
@@ -81,4 +80,10 @@ run fp32_dq_one_chain "${DQ}s/mma_split<kDqTerms>(t, dh, dlo, bh0, bh1, bl0, bl1
 run fp32_dq_k_natural_order "${DQ}s/const int o = (8 \* (j0 + j) + 2 \* tq) \* T::kLd + gq;/const int o = (8 * (j0 + j) + tq) * T::kLd + gq;/;${DQ}s/split_tf32(Ks\[o + T::kLd + 8 \* nt\], bh1, bl1);/split_tf32(Ks[o + 4 * T::kLd + 8 * nt], bh1, bl1);/" $BWD
 run fp32_dq_ignores_segments "${DQ}s/(id\.\([xy]\) == qid\([01]\) ? sc\[j\]\[\([0-3]\)\] : kNegInf)/sc[j][\3]/g" $BWD
 run fp32_dq_band_drops_last_tile "${DQ}s/      if (nxt < nkt) issue((i + NS - 1) % NS, nxt);/      if (nxt < nkt) issue((i + NS - 1) % NS, nxt); else break;/" $BWD
+# the parallel layer (chip_smoke.py's parallel phase): Megatron's f without
+# its backward all-reduce, and the gradient all-reduce turned into a mean
+# (DistributedDataParallel's), which differs wherever shards hold different
+# cell counts
+run tp_f_identity 's/        return all_reduce_sum(g, ctx.group), None/        return g, None/' superresolutionhep_tpu_torch/ops/tp.py
+run dp_grad_mean 's/    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)/&\n    flat \/= dist.get_world_size(group)/' superresolutionhep_tpu_torch/parallel/comm.py
 exit $status

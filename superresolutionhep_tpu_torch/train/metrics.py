@@ -97,3 +97,23 @@ class MetricsLogger:
         out = os.path.join(self.run_dir, "profile")
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+class NullMetrics:
+    """``MetricsLogger``'s interface writing nothing: the sink of a
+    data-parallel rank other than 0 (rank 0 writes the run's metrics)."""
+
+    def snapshot_source(self, configs: Optional[dict] = None):
+        return None
+
+    def log_scalars(self, scalars: dict, step: int):
+        pass
+
+    def log_figure(self, fig, name: str):
+        return None
+
+    def start_profile(self):
+        pass
+
+    def stop_profile(self):
+        pass

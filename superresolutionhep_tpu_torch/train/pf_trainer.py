@@ -17,7 +17,13 @@ Differences a caller sees:
     parameters, gradients and optimizer state stay fp32.
   * ``params``: a reference-layout state dict (tools/convert.py) to start
     from; default a seeded random init with the config's init policies.
-  * one device (the JAX trainer's mesh is not ported).
+  * data parallelism over a process group (``mesh``), as ``SRTrainer``'s
+    (train/sr_trainer.py): every rank reads and collates only its rows of
+    each global batch,
+    the random particle slots' noise is drawn for the global batch and cut
+    to the rank's rows, every per-event mean divides by the GLOBAL count of
+    real events, and gradients are summed over the group; rank 0 alone
+    writes metrics and checkpoints, and validation runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -38,22 +44,25 @@ from ..inference.sr import resolve_device
 from ..losses.set2set import set_to_set_incidence_loss, set_to_set_kinematics_loss
 from ..models.init_policies import apply_init_policies
 from ..models.pf.model_pf import SAPF
+from ..parallel.comm import all_reduce_sum
+from ..parallel.mesh import Mesh
 from ..tools.convert import init_pf_params_jax_layout, pf_params_from_jax
 from ..transforms import build_var_transforms
 from .checkpoint import CheckpointManager
-from .metrics import MetricsLogger
+from .metrics import MetricsLogger, NullMetrics
 from .schedule import schedule_from_config
-from .sr_trainer import AdamW, global_norm
+from .sr_trainer import AdamW, DataParallel, global_norm
 
 
-def cross_entropy_int_labels(logits, labels, event_mask=None):
-    """Per-event cross-entropy averaged over real events only."""
+def cross_entropy_int_labels(logits, labels, event_mask=None, n_events=None):
+    """Per-event cross-entropy averaged over real events only (divided by
+    ``n_events`` in place of this batch's count where given)."""
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
     if event_mask is None:
         return ce.mean()
     w = event_mask.to(ce.dtype)
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    return (ce * w).sum() / (w.sum() if n_events is None else n_events).clamp_min(1.0)
 
 
 class PFTrainer:
@@ -67,10 +76,12 @@ class PFTrainer:
         device="cuda",
         params: Optional[Dict[str, torch.Tensor]] = None,
         attn_impl: str = "auto",
+        mesh: Optional[Mesh] = None,
     ):
         ct = config_t
         self.config_mv, self.config_t, self.run_dir = config_mv, config_t, run_dir
         self.device = resolve_device(device)
+        self.dp = DataParallel(mesh)
         # cell_init_0 and every plain fp32 product run in full fp32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -97,41 +108,68 @@ class PFTrainer:
         self.epoch = 0
         self.global_step = 0
         self.lr_fn = schedule_from_config(ct)
-        self.metrics = MetricsLogger(run_dir)
+        self.metrics = MetricsLogger(run_dir) if self.dp.writer else NullMetrics()
         self.metrics.snapshot_source({"model_and_var": config_mv, "train": config_t})
         self.ckpt: Optional[CheckpointManager] = None
 
     # ------------------------------------------------------------------
-    def compute_loss(self, pred, batch):
-        """(loss, logs, assign); batch means over real events (cell_mask.any)."""
+    def compute_loss(self, pred, batch, group=None):
+        """(loss, logs, assign); batch means over real events (cell_mask.any).
+        With a data-parallel ``group`` the means divide by the real events of
+        the whole group's batch: the result is this rank's share."""
         card_logits, kin_pred, inc_weights = pred
         event_mask = batch["cell_mask"].any(dim=-1)
+        n_events = None
+        if group is not None:
+            n_events = all_reduce_sum(event_mask.to(torch.float32).sum(), group)
         loss = 0.0
         logs: Dict[str, torch.Tensor] = {}
         if card_logits is not None:
-            card_loss = self.card_weight * cross_entropy_int_labels(card_logits, batch["cardinality"], event_mask)
+            card_loss = self.card_weight * cross_entropy_int_labels(card_logits, batch["cardinality"], event_mask,
+                                                                    n_events)
             loss = loss + card_loss
             logs["card_loss"] = card_loss
         assign = None
         if kin_pred is not None:
             if self.loss_on_inc:
-                set_loss, comps, assign = set_to_set_incidence_loss(inc_weights, batch, kin_pred, event_mask)
+                set_loss, comps, assign = set_to_set_incidence_loss(inc_weights, batch, kin_pred, event_mask,
+                                                                    n_events)
                 logs["inc_loss"] = set_loss
             else:
-                set_loss, comps, assign = set_to_set_kinematics_loss(kin_pred, batch, self.config_t, event_mask)
+                set_loss, comps, assign = set_to_set_kinematics_loss(kin_pred, batch, self.config_t, event_mask,
+                                                                     n_events)
                 logs["kin_loss"] = set_loss
             loss = loss + set_loss
             logs.update(comps)
         logs["loss"] = loss
         return loss, logs, assign
 
+    def _global_noise(self, batch):
+        """The random slots' noise the single-device step draws for the global
+        batch, cut to this rank's rows (None where the slots are not
+        random)."""
+        kp = self.model.kinematics_predictor
+        if kp is None or kp.init_type != "random":
+            return None
+        B = batch["cell_mask"].shape[0] * self.dp.size
+        return self.dp.rows(torch.randn((B, kp.max_part, kp.h_dim), generator=self.generator, device=self.device))
+
     def loss_and_grads(self, batch: dict, noise=None):
         """Loss, its logs and the gradients w.r.t. every parameter (in
-        ``named_parameters`` order).  ``noise``: the random slots' draws."""
+        ``named_parameters`` order).  ``noise``: the random slots' draws.
+        Under data parallelism ``batch`` and ``noise`` are this rank's rows,
+        and the loss, the logs and the summed gradients are the global
+        batch's."""
+        if self.dp.group is not None and noise is None:
+            noise = self._global_noise(batch)
         pred = self.model(batch, noise=noise, generator=self.generator)
-        loss, logs, _ = self.compute_loss(pred, batch)
-        grads = torch.autograd.grad(loss, self._params)
-        return loss, logs, grads
+        loss, logs, _ = self.compute_loss(pred, batch, group=self.dp.group)
+        grads = self.dp.sum_grads(torch.autograd.grad(loss, self._params))
+        if self.dp.group is not None:
+            keys = list(logs)
+            logs = dict(zip(keys, all_reduce_sum(torch.stack([logs[k].detach().float() for k in keys]),
+                                                 self.dp.group)))
+        return logs["loss"], logs, grads
 
     def train_step(self, batch: dict, lr: Optional[float] = None, noise=None) -> dict:
         """One optimizer step on a device batch; returns the step's logs as
@@ -165,7 +203,7 @@ class PFTrainer:
         budget = resolve_threshold(ct.get(f"n_sq_sum_threshold_{split}")) if ct.get("use_sampler", False) else None
         return BucketBatcher(ds.cell_count, quantum=int(ct.get("bucket_quantum", 128)), cost_budget=budget,
                              max_batch_size=int(ct.get(f"batch_size_{split}", 32)), shuffle=(split == "train"),
-                             seed=seed)
+                             seed=seed, batch_multiple_of=self.dp.size if split == "train" else 1)
 
     def fit(self, train_ds: Optional[PflowEvents] = None, val_ds: Optional[PflowEvents] = None,
             num_epochs: Optional[int] = None, resume: bool = False):
@@ -174,7 +212,8 @@ class PFTrainer:
         if val_ds is None and ct.get("val_glob_arg"):
             val_ds = self._dataset("val")
         self.ckpt = CheckpointManager(os.path.join(self.run_dir, "checkpoints"), monitor="val_loss_to_optimize_on",
-                                      configs={"config_mv": self.config_mv, "config_t": self.config_t})
+                                      configs={"config_mv": self.config_mv, "config_t": self.config_t}
+                                      if self.dp.writer else None)
         if resume:
             try:
                 self.load_state(self.ckpt.restore(which="last", map_location=self.device))
@@ -189,11 +228,15 @@ class PFTrainer:
 
         def prepare(item):
             idxs, bucket = item
+            idxs = self.dp.take(idxs)  # this rank's events only
             if cache_events:
                 events = [(cache.setdefault(i, train_ds.get_event(i)) if i >= 0 else None) for i in idxs]
             else:
                 events = [train_ds.get_event(i) if i >= 0 else None for i in idxs]
-            return collate_pf(events, bucket.pad_n, self.max_part)
+            # the incidence key from the dataset, not the shard: a shard of
+            # fillers alone must carry it where the others do
+            return collate_pf(events, bucket.pad_n, self.max_part,
+                              with_incidence=getattr(train_ds, "load_incidence", None))
 
         profile_epoch = self.epoch if ct.get("profile") else None
         for epoch in range(self.epoch, num_epochs):
@@ -219,7 +262,8 @@ class PFTrainer:
             if val_ds is not None and (epoch % eval_every == 0 or epoch == num_epochs - 1):
                 ep.update(self.evaluate(val_ds, make_plots=bool(ct.get("epoch_end_plots", True))))
             self.metrics.log_scalars(ep, step=epoch)
-            self.ckpt.save(epoch, self.state(), ep)
+            if self.dp.writer:
+                self.ckpt.save(epoch, self.state(), ep)
             self.epoch = epoch + 1
         return self
 

@@ -24,6 +24,21 @@ Differences a caller sees:
     raises, training has no bucketed mop-up), permutes the batch order per
     epoch, and trains through the packed attention kernels; validation stays
     bucketed.
+  * data parallelism (the JAX trainer's ``data`` mesh) over a process group:
+    ``mesh`` (parallel/mesh.py, one ``data`` axis; by default the whole world
+    when a process group is up, none otherwise).  Every rank runs the same
+    batcher on the same seed, batch sizes (and ``pack_rows``) are multiples of
+    the group size, each rank takes its block of each global batch's events
+    (or packed rows) and reads and collates only those, and the noise and
+    times are drawn for the global batch from the one seeded generator and cut
+    to the rank's rows.  The loss is this rank's squared error over the GLOBAL
+    cell count and gradients are SUMMED over the group, so a step at n ranks
+    computes the single-device step (``DistributedDataParallel``'s mean of
+    per-rank means would not wherever shards hold different cell counts);
+    clipping and accumulation act on the summed gradients.  Rank 0 alone
+    writes metrics and checkpoints; a resume loads on every rank; validation
+    runs whole on every rank (it draws from the same generator, which must
+    stay in step on every rank).
 
 The optimizer mirrors the JAX package's optax chain exactly
 (``clip_by_global_norm`` -> ``scale_by_adam`` -> ``add_decayed_weights`` ->
@@ -41,10 +56,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import resolve_threshold
 from ..data.bucketing import BucketBatcher
-from ..data.packing import aligned_len, collate_packed, pack_events
+from ..data.packing import PackedBatch, aligned_len, collate_packed, pack_events
 from ..data.prefetch import BatchPrefetcher
 from ..data.sr_dataset import MODEL_BATCH_KEYS, SupResEvents, collate
 from ..flow.cfm import flow_matching_loss, sample_location_and_conditional_flow
@@ -53,10 +69,12 @@ from ..inference.sr import batch_to_device, resolve_device
 from ..models.flow_model import FlowModel
 from ..models.init_policies import apply_init_policies
 from ..ops.flash_packed import SEG_ALIGN
+from ..parallel.comm import all_reduce_grads
+from ..parallel.mesh import DATA, Mesh, make_mesh, shard_batch, shard_rows
 from ..tools.convert import init_params_jax_layout, params_from_jax
 from ..transforms import TargetTransform
 from .checkpoint import CheckpointManager
-from .metrics import MetricsLogger
+from .metrics import MetricsLogger, NullMetrics
 from .schedule import schedule_from_config
 
 VAL_BATCH_KEYS = MODEL_BATCH_KEYS + ("e_proxy_raw", "e_truth_raw")
@@ -146,6 +164,45 @@ def global_norm(ts: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in ts))
 
 
+class DataParallel:
+    """A trainer's data-parallel side: the ``data`` group of a mesh (or none,
+    one process), its size and this rank's place, and whether this rank
+    writes metrics and checkpoints (rank 0)."""
+
+    def __init__(self, mesh: Optional[Mesh]):
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh()
+        if mesh is not None and mesh.names != (DATA,):
+            raise ValueError(f"the trainers take a mesh with one data axis, not {mesh.names}")
+        self.mesh = mesh
+        self.group = mesh.group(DATA) if mesh is not None else None
+        self.size = mesh.size(DATA) if mesh is not None else 1
+        self.index = mesh.index(DATA) if mesh is not None else 0
+        self.writer = mesh is None or self.index == 0
+
+    def shard(self, host_batch: dict) -> dict:
+        """This rank's rows of a global host batch."""
+        return host_batch if self.mesh is None else shard_batch(host_batch, self.mesh)
+
+    def rows(self, x):
+        """This rank's rows of a global tensor."""
+        return x if self.mesh is None else shard_rows(x, self.size, self.index)
+
+    def take(self, items):
+        """This rank's block of a global batch's items (its event indices or
+        packed rows), taken before they are collated: a rank reads and
+        collates only its own rows, which come out as the global batch's."""
+        if self.mesh is None:
+            return items
+        if len(items) % self.size:
+            raise ValueError(f"{len(items)} batch rows do not split into {self.size} equal shards")
+        w = len(items) // self.size
+        return items[self.index * w:(self.index + 1) * w]
+
+    def sum_grads(self, grads):
+        return grads if self.group is None else all_reduce_grads(list(grads), self.group)
+
+
 class SRTrainer:
     def __init__(
         self,
@@ -157,12 +214,14 @@ class SRTrainer:
         device="cuda",
         params: Optional[Dict[str, torch.Tensor]] = None,
         attn_impl: str = "auto",
+        mesh: Optional[Mesh] = None,
     ):
         """``params``: a reference-layout state dict (``tools/convert.py``) to
         start from; default a seeded random init with the config's init
         policies.  ``attn_impl``: the attention path ('auto' = the flash
         kernels on CUDA, the dense formulation on the CPU; 'flash';
-        'einsum')."""
+        'einsum').  ``mesh``: the data-parallel mesh (see the module
+        docstring)."""
         ct = config_t
         if int(ct.get("n_event_displays", 0) or 0) > 0:
             try:
@@ -174,6 +233,7 @@ class SRTrainer:
                 ) from e
         self.config_mv, self.config_t, self.run_dir = config_mv, config_t, run_dir
         self.device = resolve_device(device)
+        self.dp = DataParallel(mesh)
         # the geometry embedder and every plain fp32 product run in full fp32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -210,7 +270,7 @@ class SRTrainer:
         self.global_step = 0
 
         self.lr_fn = schedule_from_config(ct)
-        self.metrics = MetricsLogger(run_dir)
+        self.metrics = MetricsLogger(run_dir) if self.dp.writer else NullMetrics()
         self.metrics.snapshot_source({"model_and_var": config_mv, "train": config_t})
         self.ckpt: Optional[CheckpointManager] = None
 
@@ -234,20 +294,37 @@ class SRTrainer:
             max_batch_size=int(ct.get(f"batch_size_{split}", 32)),
             shuffle=(split == "train"),
             seed=seed,
+            batch_multiple_of=self.dp.size if split == "train" else 1,
         )
 
     # ------------------------------------------------------------------
+    def _global_draws(self, target, t=None, x0=None):
+        """The noise and times the single-device step draws for the global
+        batch (x0 first, then t, as ``sample_location_and_conditional_flow``
+        draws them), cut to this rank's rows."""
+        B = target.shape[0] * self.dp.size
+        if x0 is None:
+            x0 = self.dp.rows(torch.randn((B,) + tuple(target.shape[1:]), generator=self.generator,
+                                          device=target.device, dtype=torch.float32))
+        if t is None:
+            t = self.dp.rows(torch.rand((B,), generator=self.generator, device=target.device, dtype=torch.float32))
+        return t, x0
+
     def loss_and_grads(self, batch: dict, t=None, x0=None):
         """Forward (deterministic), loss and its gradients w.r.t. every
         parameter, in ``named_parameters`` order.  Returns (loss, stats,
-        grads); nothing is read back to the host."""
+        grads); nothing is read back to the host.  Under data parallelism
+        ``batch``, ``t`` and ``x0`` are this rank's rows, and the loss, the
+        statistics and the summed gradients are the global batch's."""
+        if self.dp.group is not None:
+            t, x0 = self._global_draws(batch["target"], t, x0)
         t, xt, ut = sample_location_and_conditional_flow(
             batch["target"], self.sigma_min, t=t, x0=x0, generator=self.generator
         )
         vt = self.model(batch, xt, t)
-        loss, stats = flow_matching_loss(vt, ut, batch["q_mask"])
-        grads = torch.autograd.grad(loss, self._params)
-        return loss, stats, grads
+        loss, stats = flow_matching_loss(vt, ut, batch["q_mask"], group=self.dp.group)
+        grads = self.dp.sum_grads(torch.autograd.grad(loss, self._params))
+        return stats["loss_mean"], stats, grads
 
     def train_step(self, batch: dict, t=None, x0=None, lr: Optional[float] = None) -> dict:
         """One optimizer step on a device batch (``MODEL_BATCH_KEYS``).
@@ -297,7 +374,7 @@ class SRTrainer:
 
         self.ckpt = CheckpointManager(
             os.path.join(self.run_dir, "checkpoints"), monitor="val/loss_raw",
-            configs={"config_mv": self.config_mv, "config_t": self.config_t},
+            configs={"config_mv": self.config_mv, "config_t": self.config_t} if self.dp.writer else None,
         )
         if resume:
             try:
@@ -325,15 +402,16 @@ class SRTrainer:
         def prepare(item):
             """Host-side batch prep, in the prefetch thread pool."""
             idxs, bucket = item
-            return collate([event(i) if i >= 0 else None for i in idxs], bucket.pad_n)
+            return collate([event(i) if i >= 0 else None for i in self.dp.take(idxs)], bucket.pad_n)
 
         # packed training (`packed: true`): the layout is packed once (first-fit
         # decreasing is deterministic) and the batch order permuted per epoch
         packed = bool(ct.get("packed", False))
         if packed:
             pack_s, pack_rows = int(ct.get("pack_s", 5120)), int(ct.get("pack_rows", 8))
-            if pack_rows < 1:  # a multiple of the device count, which is 1 here
-                raise ValueError(f"pack_rows={pack_rows} must be a positive multiple of the device count (1)")
+            if pack_rows < 1 or pack_rows % self.dp.size:
+                raise ValueError(f"pack_rows={pack_rows} must be a positive multiple of the data-parallel "
+                                 f"size ({self.dp.size})")
             counts = np.asarray(train_ds.cell_count_high)
             n_over = int(sum(aligned_len(int(c)) > pack_s for c in counts))
             if n_over:
@@ -342,6 +420,7 @@ class SRTrainer:
             pack_layouts = pack_events(counts, S=pack_s, rows_per_batch=pack_rows)
 
             def prepare_packed(lay):
+                lay = PackedBatch(self.dp.take(lay.rows))
                 return collate_packed({i: event(i) for row in lay.rows for i, _, _ in row}, lay, S=pack_s)
 
         profile_epoch = self.epoch if ct.get("profile") else None
@@ -385,7 +464,8 @@ class SRTrainer:
                 ep.update(self.evaluate(val_ds, make_plots=make_plots, epoch=epoch))
 
             self.metrics.log_scalars(ep, step=epoch)
-            self.ckpt.save(epoch, self.state(), ep)
+            if self.dp.writer:
+                self.ckpt.save(epoch, self.state(), ep)
             self.epoch = epoch + 1
         return self
 
@@ -405,8 +485,9 @@ class SRTrainer:
         except Exception as e:  # the report must never mask the abort that follows
             report["activation_capture_error"] = f"{type(e).__name__}: {str(e)[:500]}"
         path = os.path.join(self.run_dir, "nonfinite_diagnostics.json")
-        with open(path, "w") as fp:
-            json.dump(report, fp, indent=2, default=str)
+        if self.dp.writer:
+            with open(path, "w") as fp:
+                json.dump(report, fp, indent=2, default=str)
         return path
 
     # ------------------------------------------------------------------
