@@ -61,6 +61,12 @@ flags), ranks spawned from the phase at the multipart width:
     over gloo, a data-parallel ``SRTrainer`` step, the TP = 2 and SP = 2
     forwards and train steps against one rank in fp32, each rank's launches
     exact and its sharded K1 launches under the checker with its control;
+  * parallel_pf: the same for the published PF model's sequence and tensor
+    parallelism (fp32, an (8, 2048) batch; SP = 2 gather, TP = 2) and for both
+    trainers' validation split over the data-parallel ranks (the multipart
+    SR model at full width with a fixed-step sampler, the PF model), every
+    K1/K5/K6 launch of the sharded paths and every K1 launch of the split
+    validations under the checker;
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
 (seeded) but for the trained phase; events are synthetic (seeded).
@@ -75,7 +81,7 @@ kernels at head dims 16/32/64 and on a guard at base-2 logits of std ~8,
 where single-TF32 products would miss the fp32 bounds; launched twice,
 equal bit for bit), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
-``pf_inference``, ``pf_train``, ``trained``, ``normformer``, ``parallel``), then the card's name and power
+``pf_inference``, ``pf_train``, ``trained``, ``normformer``, ``parallel``, ``parallel_pf``), then the card's name and power
 limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths; the
@@ -86,7 +92,7 @@ prints no ``ok`` line.  Without a CUDA device it exits 2.
 Options (for development; the default run does everything):
     --skip-serve      no serve, packed and pf inference, trained and normformer phases (exits 1 by design)
     --skip-train      no train, dopri5 ensemble, packed and pf train phases (exits 1 by design)
-                      (the parallel phase runs under both)
+                      (the parallel and parallel_pf phases run under both)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
 """
@@ -3462,6 +3468,386 @@ def parallel_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase: parallel_pf (stage-2 sequence and tensor parallelism; validation
+# split over data-parallel ranks)
+# ---------------------------------------------------------------------------
+
+# the PF batch of the sharded paths: eight events padded to 2048 cells; under
+# seq = 2 the events of 1024 and 900 cells hold every cell on the first shard
+PF_PAR_LENGTHS = (2048, 2001, 1990, 1937, 1024, 900, 2047, 1500)
+PF_PAR_N = 2048
+# the split validations: the fixed-step sampler on three grid points (two
+# midpoint steps, four evaluations of the model a batch)
+VAL_METHOD, VAL_STEPS, VAL_EVALS = "midpoint", 3, 4
+
+
+def synthetic_pf_trees(n, seed, max_part=4):
+    """Stage-1 output trees in memory, the branches ``SRInference.predict``
+    writes with ``store_energy_incidence`` (cells in MeV, some under the
+    1 MeV cut; per-particle deposits ``e_part_i``; 1-4 particles an event)."""
+    rng = np.random.default_rng(seed)
+    trees = {"Low_Tree": {}, "High_Tree": {}, "Particle_Tree": {}}
+    for name, e_key, lo, hi in (("Low_Tree", "e_meas_raw", 20, 60), ("High_Tree", "e_pred_raw", 60, 150)):
+        trees[name] = {k: [] for k in ["eta_raw", "phi", "layer", e_key] + [f"e_part_{i}" for i in range(max_part)]}
+    part = trees["Particle_Tree"] = {k: [] for k in ["particle_pt", "particle_eta", "particle_phi", "particle_e",
+                                                     "particle_pdgid", "particle_dep_e"]}
+    for _ in range(n):
+        n_part = int(rng.integers(1, max_part + 1))
+        for name, e_key, lo, hi in (("Low_Tree", "e_meas_raw", 20, 60), ("High_Tree", "e_pred_raw", 60, 150)):
+            tree, n_cells = trees[name], int(rng.integers(lo, hi))
+            tree["eta_raw"].append(rng.uniform(-2.5, 2.5, n_cells).astype(np.float32))
+            tree["phi"].append(rng.uniform(-np.pi, np.pi, n_cells).astype(np.float32))
+            tree["layer"].append(rng.integers(0, 3, n_cells).astype(np.float32))
+            deposits = rng.exponential(8.0, (n_cells, max_part)).astype(np.float32)
+            deposits[:, n_part:] = 0.0
+            tree[e_key].append(deposits.sum(1) * rng.uniform(0.05, 1.2, n_cells).astype(np.float32))
+            for i in range(max_part):
+                tree[f"e_part_{i}"].append(deposits[:, i])
+        e = rng.uniform(2.0, 100.0, n_part).astype(np.float32)
+        eta = rng.uniform(-2.0, 2.0, n_part).astype(np.float32)
+        part["particle_pt"].append(e / np.cosh(eta))
+        part["particle_eta"].append(eta)
+        part["particle_phi"].append(rng.uniform(-np.pi, np.pi, n_part).astype(np.float32))
+        part["particle_e"].append(e)
+        part["particle_pdgid"].append(rng.choice([22.0, 11.0, -11.0], n_part).astype(np.float32))
+        part["particle_dep_e"].append(e * rng.uniform(0.5, 1.0, n_part).astype(np.float32))
+    return trees
+
+
+def pf_smooth_config(cfg_pf):
+    """``cfg_pf`` with SiLU in place of the LeakyReLUs whose inputs another
+    summation order moves (both DiT stacks' MLPs, after the attention sums;
+    the cardinality MLP, after the pooled mean): the same parameters, no
+    kink there (see ``PARALLEL_GRAD_TOL``).  The cell MLP's LeakyReLU acts on
+    each cell's own features, before any sum over ranks."""
+    import copy
+
+    cfg_pf = copy.deepcopy(cfg_pf)
+    for part in (cfg_pf["encoder"], cfg_pf["kinematics_predictor"]):
+        part["transformer"]["dense_config"]["activation"] = "SiLU"
+    cfg_pf["cardinality_predictor"]["activation"] = "SiLU"
+    return cfg_pf
+
+
+def parallel_pf_setup():
+    """The published stage-2 configuration and training settings (validation
+    batches of 4), its parameters (seed 3, Xavier adaLN: attention not gated
+    off) in ``state_dict`` names, a (8, 2048) host batch of events of
+    ``PF_PAR_LENGTHS`` cells (``budget_sized_pf_events`` from synthetic
+    stage-1 trees), and the split validations' inputs: the multipart SR
+    model's configs (fp32, fixed-step sampler, validation batches of 4) with
+    six synthetic events, and ten low-resolution PF events."""
+    import copy
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV, MULTIPART_CONFIG_T, PF_CONFIG_MV, PF_CONFIG_T
+    from superresolutionhep_tpu_torch.data.pf_dataset import PflowEvents, collate_pf
+    from superresolutionhep_tpu_torch.tools.convert import init_pf_params_jax_layout, pf_params_from_jax
+
+    cfg_mv = copy.deepcopy(PF_CONFIG_MV)
+    cfg_pf = cfg_mv["pf_model"]
+    cfg_t = dict(copy.deepcopy(PF_CONFIG_T), epoch_end_plots=False, batch_size_val=4, num_workers=0)
+    params = {k[4:]: v for k, v in pf_params_from_jax(init_pf_params_jax_layout(cfg_pf, seed=3), cfg_pf).items()}
+    pf_trees = synthetic_pf_trees(10, seed=41)
+    ds = PflowEvents.from_trees(pf_trees, cfg_mv, energy_threshold=1.0, load_incidence=True)
+    events = budget_sized_pf_events(ds, list(PF_PAR_LENGTHS), np.random.default_rng(29))
+    host = collate_pf(events, PF_PAR_N, int(cfg_pf["max_particles"]))
+    host = {k: v for k, v in host.items() if k != "idx"}
+    sr_cfgs = (copy.deepcopy(MULTIPART_CONFIG_MV),
+               dict(copy.deepcopy(MULTIPART_CONFIG_T), n_event_displays=0, val_ode_method=VAL_METHOD,
+                    batch_size_val=4, use_sampler=False, num_workers=0, remat=False, fused_prologue=False))
+    return {"cfg_mv": cfg_mv, "cfg_t": cfg_t, "params": params, "host": host, "pf_trees": pf_trees,
+            "sr_cfgs": sr_cfgs}
+
+
+def _pf_ref_step(setup, cfg_pf):
+    """One process: the stage-2 forward and the loss and gradients of
+    ``parallel/tp.py::make_pf_train_step`` with no mesh."""
+    from superresolutionhep_tpu_torch.parallel.tp import make_pf_forward, make_pf_train_step
+    from superresolutionhep_tpu_torch.transforms import build_var_transforms
+
+    tr = build_var_transforms(setup["cfg_mv"]["var_transform"])
+    params = {k: v.cuda() for k, v in setup["params"].items()}
+    b = _dev_batch(setup["host"])
+    _, fwd = make_pf_forward(cfg_pf, tr, None, device="cuda")
+    with torch.no_grad():
+        out = [x.float().cpu().numpy() for x in fwd(params, b)]
+    _, step = make_pf_train_step(cfg_pf, tr, None, setup["cfg_t"], device="cuda")
+    loss, grads = step(params, b)
+    return out, float(loss), grads
+
+
+def split_evaluations(setup, mesh=None, check=False):
+    """``SRTrainer.evaluate`` (the multipart model, fp32, ``VAL_METHOD``) on
+    six synthetic events and ``PFTrainer.evaluate`` (the published model,
+    fp32) on ten, each rank its rows of every validation batch under
+    ``mesh`` (none: one process): the metrics, each trainer's next draw from
+    its generator, the batches, the launches of each window and, with
+    ``check``, ``LaunchChecker``'s summary of every K1 launch."""
+    import tempfile
+
+    from superresolutionhep_tpu_torch.data.pf_dataset import PflowEvents
+    from superresolutionhep_tpu_torch.train.pf_trainer import PFTrainer
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    sr_mv, sr_t = setup["sr_cfgs"]
+    sr_ds = multipart_dataset(sr_mv, 6, 43, max_particles=4, window_lr_cells=2)
+    pf_ds = PflowEvents.from_trees(setup["pf_trees"], setup["cfg_mv"], energy_threshold=1.0, load_incidence=True)
+    out = {}
+    for name, make, ds, kw in (
+            ("sr", lambda: SRTrainer(sr_mv, sr_t, run_dir=tempfile.mkdtemp(prefix="srhep_val_"), seed=0,
+                                     device="cuda", mesh=mesh), sr_ds, {"n_steps": VAL_STEPS}),
+            ("pf", lambda: PFTrainer(setup["cfg_mv"], setup["cfg_t"], run_dir=tempfile.mkdtemp(prefix="srhep_val_"),
+                                     seed=0, device="cuda", mesh=mesh), pf_ds, {})):
+        tr = make()
+        checker = LaunchChecker() if check else None
+        if checker is not None:
+            checker.__enter__()
+        try:
+            res, launches = _counted(lambda: tr.evaluate(ds, **kw))
+        finally:
+            if checker is not None:
+                checker.__exit__(None, None, None)
+        out[name] = {"metrics": res, "launches": launches, "batches": sum(1 for _ in tr._batcher(ds, "val", 0)),
+                     "next_draw": torch.randn(4, generator=tr.generator, device="cuda")}
+        if checker is not None:
+            out[name].update(checker=checker.summary(), checker_ok=checker.ok())
+        del tr
+    return out
+
+
+def parallel_pf_rank_nccl(rank, world_size, setup):
+    """Phase (a), world size 1 over NCCL: the PF SP (gather, ring) and TP
+    forwards and train steps at n = 1, and the split validations."""
+    from superresolutionhep_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from superresolutionhep_tpu_torch.parallel.sp import make_pf_sp_forward, make_pf_sp_train_step
+    from superresolutionhep_tpu_torch.parallel.tp import make_pf_tp_forward, make_pf_tp_train_step
+    from superresolutionhep_tpu_torch.transforms import build_var_transforms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_pf, cfg_t = setup["cfg_mv"]["pf_model"], setup["cfg_t"]
+    tr = build_var_transforms(setup["cfg_mv"]["var_transform"])
+    params = {k: v.cuda() for k, v in setup["params"].items()}
+    out = {}
+    sp, tp = Mesh({"data": 1, "seq": 1}), Mesh({"data": 1, "model": 1})
+    for name, mesh, make, kw in (("sp_gather", sp, make_pf_sp_forward, {"sp_mode": "gather"}),
+                                 ("sp_ring", sp, make_pf_sp_forward, {"sp_mode": "ring"}),
+                                 ("tp", tp, make_pf_tp_forward, {})):
+        _, fwd = make(cfg_pf, tr, mesh, device="cuda", **kw)
+        b = _dev_batch(shard_batch(setup["host"], mesh, cells=True, pf=True))
+        with torch.no_grad():
+            y, out[f"{name}_launches"] = _counted(lambda: fwd(params, b))
+        out[name] = [x.float() for x in y]
+    for name, mesh, make in (("sp_step", sp, make_pf_sp_train_step), ("tp_step", tp, make_pf_tp_train_step)):
+        _, step = make(cfg_pf, tr, mesh, cfg_t, device="cuda")
+        b = _dev_batch(shard_batch(setup["host"], mesh, cells=True, pf=True))
+        (loss, grads), out[f"{name}_launches"] = _counted(lambda: step(params, b))
+        out[name] = {"loss": float(loss), "grads": grads}
+    out["val"] = split_evaluations(setup, Mesh({"data": 1}))
+    return out
+
+
+def parallel_pf_rank_gloo(rank, world_size, setup):
+    """Phase (b) and (c), two ranks on the one card over gloo: the PF
+    forward and train step at seq = 2 (gather) and at tp = 2, on the
+    published weights and on the smooth ones, each window's launches,
+    ``LaunchChecker`` on every K1 launch of the forwards with its
+    planted-fault control and on every K1/K5/K6 launch of the steps; the
+    split validations with every K1 launch under the checker."""
+    from superresolutionhep_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from superresolutionhep_tpu_torch.parallel.sp import make_pf_sp_forward, make_pf_sp_train_step
+    from superresolutionhep_tpu_torch.parallel.tp import make_pf_tp_forward, make_pf_tp_train_step
+    from superresolutionhep_tpu_torch.transforms import build_var_transforms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_pf, cfg_t = setup["cfg_mv"]["pf_model"], setup["cfg_t"]
+    tr = build_var_transforms(setup["cfg_mv"]["var_transform"])
+    params = {k: v.cuda() for k, v in setup["params"].items()}
+    out = {}
+    for name, mesh, make_fwd, make_step in (
+            ("sp", Mesh({"data": 1, "seq": 2}), make_pf_sp_forward, make_pf_sp_train_step),
+            ("tp", Mesh({"data": 1, "model": 2}), make_pf_tp_forward, make_pf_tp_train_step)):
+        b = _dev_batch(shard_batch(setup["host"], mesh, cells=True, pf=True))
+        _, fwd = make_fwd(cfg_pf, tr, mesh, device="cuda")
+        with LaunchChecker() as checker, torch.no_grad():
+            y, out[f"{name}_fwd_launches"] = _counted(lambda: fwd(params, b))
+        with LaunchChecker(fault=True) as control, torch.no_grad():
+            fwd(params, b)
+        out[name] = {"fwd": [x.float() for x in y], "coords": dict(zip(mesh.names, mesh.coords)),
+                     "checker": checker.summary(), "checker_ok": checker.ok(), "control_caught": control.caught()}
+        del fwd
+        for variant, cfg in (("", cfg_pf), ("_smooth", pf_smooth_config(cfg_pf))):
+            _, step = make_step(cfg, tr, mesh, cfg_t, device="cuda")
+            with LaunchChecker(backward=True) as checker:
+                (loss, grads), out[f"{name}{variant}_step_launches"] = _counted(lambda: step(params, b))
+            out[name][f"step_checker{variant}"], out[name][f"step_checker_ok{variant}"] = (checker.summary(),
+                                                                                          checker.ok())
+            out[name][f"loss{variant}"] = float(loss)
+            out[name][f"digest{variant}"] = [float(g.double().sum()) for g in grads.values()]
+            if rank == 0:
+                out[name][f"grads{variant}"] = grads
+            del step
+    out["val"] = split_evaluations(setup, Mesh({"data": 2}), check=True)
+    return out
+
+
+def _val_close(got, want):
+    """The largest relative difference over the metrics (inf where the keys
+    differ)."""
+    if set(got) != set(want):
+        return float("inf")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+
+
+def parallel_pf_phase():
+    """Stage-2 sequence and tensor parallelism and the validation split over
+    data-parallel ranks, on the one card, at the published stage-2 width
+    (h 64, 3 encoder DiT layers and 4 kinematics cross-attention layers of 4
+    heads of 16; fp32) on a (8, 2048) batch, and the multipart SR model's
+    validation at full width (h 256, 6 DiT layers; fp32, the fixed-step
+    ``VAL_METHOD``).
+
+    (a) World size 1 over NCCL: ``make_pf_sp_forward`` (gather, ring),
+    ``make_pf_tp_forward``, ``make_pf_sp_train_step`` and
+    ``make_pf_tp_train_step`` at n = 1 against the same functions with no
+    process group (``mesh=None``), equal bit for bit but the ring (its
+    online softmax is another formulation: within ``PARALLEL_TOL``); a split
+    ``SRTrainer.evaluate`` and ``PFTrainer.evaluate`` (a ``data`` mesh of one)
+    equal to the trainers' with no group bit for bit, their generators still
+    in step.
+    (b) Two ranks on the one card over gloo: seq = 2 (gather; K1 with 1024
+    local queries against 2048 keys, 4 heads of 16; the events of 1024 and
+    900 cells lie on the first shard alone) and tp = 2 (2 heads of 16 a
+    rank) forwards and train steps against one rank (``PARALLEL_TOL``; the
+    gradients ``PARALLEL_GRAD_TOL``, and on the weights of
+    ``pf_smooth_config`` ``PARALLEL_TOL``), and the split validations (each
+    rank two rows of every batch) against one rank (``PARALLEL_TOL`` on
+    every metric; the generators in step).
+    (c) Each rank's launches per window are exact: 3 K1 a PF forward, 3 K1 +
+    3 K5 + 3 K6 a step (the kinematics cross-attention's 4 particle queries
+    take the dense path), ``VAL_EVALS`` x 6 K1 an SR validation batch, 3 K1
+    a PF one; ``LaunchChecker`` holds every K1 launch of the forwards, with
+    its planted-fault control, every K1/K5/K6 launch of the steps and every
+    K1 launch of the split validations against their plain versions.  The
+    ring at two ranks is not run here: gloo's send/recv take no CUDA
+    tensors."""
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.time()
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    checks, line = {}, {"phase": "parallel_pf"}
+    setup = parallel_pf_setup()
+    cfg_pf = setup["cfg_mv"]["pf_model"]
+    n_enc = int(cfg_pf["encoder"]["transformer"]["num_transformer_layers"])
+    L_sr = int(setup["sr_cfgs"][0]["flow_model"]["transformer"]["num_transformer_layers"])
+
+    # ---- one process, no group
+    ref_fwd, ref_loss, ref_grads = _pf_ref_step(setup, cfg_pf)
+    ref_smooth = _pf_ref_step(setup, pf_smooth_config(cfg_pf))[1:]
+    ref_val = split_evaluations(setup)
+    t_ref = time.time() - t0
+
+    # ---- (a) world size 1 over NCCL
+    t1 = time.time()
+    (a,) = run_ranks(parallel_pf_rank_nccl, 1, (setup,), backend="nccl", device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
+    t_a = time.time() - t1
+    fwd_expect = dict(zero, flash_fwd=n_enc)
+    step_expect = dict(zero, flash_fwd=n_enc, flash_bwd_dq=n_enc, flash_bwd_dkv=n_enc)
+
+    def bit_equal(x, y):
+        return all(np.array_equal(np.asarray(u, np.float32).view(np.uint32), np.asarray(v, np.float32).view(np.uint32))
+                   for u, v in zip(x, y))
+
+    checks["a_forwards_bit_equal"] = bit_equal(a["sp_gather"], ref_fwd) and bit_equal(a["tp"], ref_fwd)
+    ring_err = max(_rel_err(u, v) for u, v in zip(a["sp_ring"], ref_fwd))
+    checks["a_ring_forward"] = ring_err <= PARALLEL_TOL
+    ref_g = [v.float().cpu().numpy() for v in ref_grads.values()]
+    checks["a_steps_bit_equal"] = all(
+        a[n]["loss"] == ref_loss and list(a[n]["grads"]) == list(ref_grads) and bit_equal(a[n]["grads"].values(), ref_g)
+        for n in ("sp_step", "tp_step"))
+    checks["a_launches"] = (a["sp_gather_launches"] == a["tp_launches"] == fwd_expect and a["sp_ring_launches"] == zero
+                            and a["sp_step_launches"] == a["tp_step_launches"] == step_expect)
+
+    def val_expect(v):
+        per_batch = {"sr": VAL_EVALS * L_sr, "pf": n_enc}
+        return {k: dict(zero, flash_fwd=per_batch[k] * v[k]["batches"]) for k in ("sr", "pf")}
+
+    vexp = val_expect(ref_val)
+    checks["a_val_bit_equal"] = all(a["val"][k]["metrics"] == ref_val[k]["metrics"]
+                                    and np.array_equal(a["val"][k]["next_draw"],
+                                                       ref_val[k]["next_draw"].cpu().numpy()) for k in ("sr", "pf"))
+    checks["a_val_launches"] = all(a["val"][k]["launches"] == ref_val[k]["launches"] == vexp[k] for k in ("sr", "pf"))
+    line["a"] = {"ring_forward_rel_err": ring_err, "loss": ref_loss, "seconds": round(t_a, 1),
+                 "val": {k: a["val"][k]["metrics"] for k in ("sr", "pf")}}
+
+    # ---- (b), (c) two ranks on the one card over gloo
+    t1 = time.time()
+    ranks = run_ranks(parallel_pf_rank_gloo, 2, (setup,), backend="gloo", device="cuda:0",
+                      timeout_s=PARALLEL_TIMEOUT_S)
+    t_b = time.time() - t1
+    r0 = ranks[0]
+    for name in ("sp", "tp"):
+        if name == "sp":  # the incidence weights by cell shard, the rest whole on each rank
+            y = [ranks[0][name]["fwd"][0], ranks[0][name]["fwd"][1],
+                 np.concatenate([r[name]["fwd"][2] for r in ranks], axis=2)]
+        else:
+            y = ranks[0][name]["fwd"]
+        f_errs = [_rel_err(u, v) for u, v in zip(y, ref_fwd)] + [
+            _rel_err(u, v) for u, v in zip(ranks[1][name]["fwd"][:2], ref_fwd[:2])]
+        checks[f"b_{name}_forward"] = max(f_errs) <= PARALLEL_TOL
+        line[f"b_{name}"] = {"forward_rel_err": f_errs, "checker": [r[name]["checker"] for r in ranks]}
+        for variant, (r_loss, r_grads), tol in (("", (ref_loss, ref_grads), PARALLEL_GRAD_TOL),
+                                                 ("_smooth", ref_smooth, PARALLEL_TOL)):
+            g_ok, g_err, g_leaf, g_med = _grads_ok(_grad_errs(r0[name][f"grads{variant}"], r_grads), tol)
+            checks[f"b_{name}{variant}_loss"] = all(abs(r[name][f"loss{variant}"] - r_loss) <= PARALLEL_TOL * abs(r_loss)
+                                                    for r in ranks)
+            same = ranks[1][name][f"digest{variant}"] == r0[name][f"digest{variant}"]
+            checks[f"b_{name}{variant}_grads"] = g_ok and same
+            line[f"b_{name}"][f"step{variant}"] = {
+                "loss": [r[name][f"loss{variant}"] for r in ranks], "ref_loss": r_loss, "grad_tol": tol,
+                "worst_grad_rel_err": g_err, "leaf": g_leaf, "median_grad_rel_err": g_med}
+        checks[f"c_{name}_launches"] = all(r[f"{name}_fwd_launches"] == fwd_expect
+                                           and r[f"{name}_step_launches"] == r[f"{name}_smooth_step_launches"]
+                                           == step_expect for r in ranks)
+        checks[f"c_{name}_checker"] = all(r[name]["checker_ok"] and r[name]["checker"]["flash_fwd"]["launches"] == n_enc
+                                          and r[name]["control_caught"] for r in ranks)
+        checks[f"c_{name}_step_checker"] = all(
+            r[name][f"step_checker_ok{v}"] and all(r[name][f"step_checker{v}"][k]["launches"] == n_enc for k in
+                                                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dk", "flash_bwd_dv"))
+            for r in ranks for v in ("", "_smooth"))
+        line[f"b_{name}"]["step_checker"] = [{v or "kinked": r[name][f"step_checker{v}"] for v in ("", "_smooth")}
+                                             for r in ranks]
+    val_errs = {k: [_val_close(r["val"][k]["metrics"], ref_val[k]["metrics"]) for r in ranks]
+                for k in ("sr", "pf")}
+    checks["b_val"] = all(e <= PARALLEL_TOL for v in val_errs.values() for e in v) and all(
+        np.array_equal(r["val"][k]["next_draw"], ref_val[k]["next_draw"].cpu().numpy()) for r in ranks
+        for k in ("sr", "pf"))
+    checks["c_val_launches"] = all(r["val"][k]["launches"] == dict(zero, flash_fwd=vexp[k]["flash_fwd"])
+                                   for r in ranks for k in ("sr", "pf"))
+    checks["c_val_checker"] = all(r["val"][k]["checker_ok"] and r["val"][k]["checker"]["flash_fwd"]["launches"]
+                                  == vexp[k]["flash_fwd"] for r in ranks for k in ("sr", "pf"))
+    line["b_val"] = {"rel_err": val_errs, "metrics": {k: [r["val"][k]["metrics"] for r in ranks] for k in ("sr", "pf")},
+                     "ref_metrics": {k: ref_val[k]["metrics"] for k in ("sr", "pf")},
+                     "batches": {k: ref_val[k]["batches"] for k in ("sr", "pf")},
+                     "checker": [{k: r["val"][k]["checker"] for k in ("sr", "pf")} for r in ranks]}
+    counts = dict(zero)
+    parts = [a[k] for k in a if k.endswith("_launches")] + [a["val"][k]["launches"] for k in ("sr", "pf")]
+    parts += [r[k] for r in ranks for k in r if k.endswith("_launches")]
+    parts += [r["val"][k]["launches"] for r in ranks for k in ("sr", "pf")]
+    for part in parts:
+        for k, v in part.items():
+            counts[k] += v
+    line.update({"launches": counts, "seconds": {"references": round(t_ref, 1), "a": round(t_a, 1),
+                                                 "b": round(t_b, 1), "total": round(time.time() - t0, 1)},
+                 "note": "two ranks over gloo on one card: not NCCL scaling across cards"})
+    line["checks"], line["ok"] = checks, all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("parallel_pf checks failed: " + ", ".join(k for k, v in checks.items() if not v))
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true")
@@ -3517,6 +3903,7 @@ def main():
         by_phase["trained"] = trained_phase(trees, args.reps) if not args.skip_serve else zero
     by_phase["normformer"] = normformer_phase() if not args.skip_serve else zero
     by_phase["parallel"] = parallel_phase()
+    by_phase["parallel_pf"] = parallel_pf_phase()
 
     # one entry per kernel: the main paths' shape class (bf16; L=2048 with
     # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9, the

@@ -1,1 +1,2 @@
-"""Analysis: the live validation plots and the offline SR plotters (numpy, matplotlib)."""
+"""Analysis: the live validation plots, the offline SR plotters (numpy, matplotlib) and the
+jet substructure observables (numpy)."""

@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 
+from ..parallel.comm import all_reduce_sum
+
 
 def _euler_step(f, t0, t1, y):
     return y + (t1 - t0) * f(t0, y)
@@ -203,10 +205,18 @@ def _rms_norm(x):
     return torch.sqrt(torch.mean(x * x))
 
 
-def _group_rms_norm(x, groups: int):
+def _group_rms_norm(x, groups: int, pg=None):
     """(groups,) root mean squares, each over one group's rows of x (the
     groups are consecutive blocks of rows: an ensemble folded member-major
-    into the batch axis).  One group: the plain ``_rms_norm``."""
+    into the batch axis).  One group: the plain ``_rms_norm``.  ``pg``: a
+    data-parallel process group whose ranks hold the other rows of one
+    problem: the root mean square over all of them (one group only)."""
+    if pg is not None:
+        if groups != 1:
+            raise ValueError("dopri5 over a process group takes one group of rows")
+        tot = all_reduce_sum(torch.stack([(x * x).sum(),
+                                          torch.tensor(float(x.numel()), device=x.device)]), pg)
+        return torch.sqrt(tot[0] / tot[1]).reshape(1)
     if groups == 1:
         return _rms_norm(x).reshape(1)
     return torch.stack([_rms_norm(xg) for xg in x.reshape(groups, -1)])
@@ -218,17 +228,17 @@ def _tensordot0(w, K):
     return torch.tensordot(w, K, dims=1)
 
 
-def _initial_step(f, t0, y0, f0, t1, atol, rtol, rows):
+def _initial_step(f, t0, y0, f0, t1, atol, rtol, rows, pg=None):
     """scipy ``_select_initial_step`` heuristic, as the JAX package, for each
     group of rows (``rows(v)`` spreads a (groups,) value over its rows)."""
     G = t0.shape[0]
     scale = atol + torch.abs(y0) * rtol
-    d0 = _group_rms_norm(y0 / scale, G)
-    d1 = _group_rms_norm(f0 / scale, G)
+    d0 = _group_rms_norm(y0 / scale, G, pg)
+    d1 = _group_rms_norm(f0 / scale, G, pg)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
     y1 = y0 + rows(h0) * f0
     f1 = f(t0 + h0, y1)
-    d2 = _group_rms_norm((f1 - f0) / scale, G) / h0
+    d2 = _group_rms_norm((f1 - f0) / scale, G, pg) / h0
     h1 = torch.where(
         (d1 <= 1e-15) & (d2 <= 1e-15),
         torch.clamp_min(h0 * 1e-3, 1e-6),
@@ -238,7 +248,7 @@ def _initial_step(f, t0, y0, f0, t1, atol, rtol, rows):
 
 
 def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 10_000,
-                  groups: int = 1):
+                  groups: int = 1, pg=None):
     """Adaptive DOPRI5 with dense output at the grid points ``ts``: the JAX
     package's step-size control and quartic interpolation, step for step.
     The solver's own arithmetic (times, step sizes, error norms, stage
@@ -250,7 +260,13 @@ def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, m
     keeps its own t, h, accept and error norm over its own rows, as the JAX
     package's vmap over the members gives; ``f`` is then called with a
     (groups,) tensor of times.  A group that has reached the end keeps its
-    state while the others go on."""
+    state while the others go on.
+
+    ``pg``: a data-parallel process group whose ranks hold the other rows of
+    the one problem (a validation batch split over the ranks, one group):
+    the error norms are taken over every rank's rows, so each step's size
+    and acceptance are the single-process solver's on the whole batch, the
+    same on every rank."""
     dev = y0.device
     G = int(groups)
     if G < 1 or y0.shape[0] % G:
@@ -268,7 +284,7 @@ def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, m
 
     t0, t1 = ts[0].expand(G).clone(), ts[-1]
     f0 = f(t0, y0)
-    h = _initial_step(f, t0, y0, f0, t1, atol, rtol, rows)
+    h = _initial_step(f, t0, y0, f0, t1, atol, rtol, rows, pg)
 
     n_out = ts.shape[0]
     ys = torch.zeros((n_out, *y0.shape), dtype=y0.dtype, device=dev)
@@ -289,7 +305,7 @@ def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, m
         K = torch.stack(ks)  # (7, *y.shape)
         err = hr * _tensordot0(Ew, K)
         scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
-        err_norm = _group_rms_norm(err / scale, G)
+        err_norm = _group_rms_norm(err / scale, G, pg)
         accept = err_norm <= 1.0
         factor = torch.where(err_norm == 0.0, torch.full_like(err_norm, _MAX_FACTOR),
                              torch.clamp(_SAFETY * err_norm**_ORDER_EXP, _MIN_FACTOR, _MAX_FACTOR))
@@ -316,12 +332,13 @@ def odeint_dopri5(f: Callable, y0, ts, rtol: float = 1e-4, atol: float = 1e-4, m
     return ys
 
 
-def odeint(f, y0, ts, method: str = "ab2e", rtol: float = 1e-4, atol: float = 1e-4, groups: int = 1):
+def odeint(f, y0, ts, method: str = "ab2e", rtol: float = 1e-4, atol: float = 1e-4, groups: int = 1, pg=None):
     """``groups``: independent problems in consecutive blocks of y0's rows;
-    only the adaptive dopri5 reads it (fixed-step solvers treat every row
+    ``pg``: a process group over which one problem's rows are split.  Only
+    the adaptive dopri5 reads them (fixed-step solvers treat every row
     alike)."""
     if method == "dopri5":
-        return odeint_dopri5(f, y0, ts, rtol=rtol, atol=atol, groups=groups)
+        return odeint_dopri5(f, y0, ts, rtol=rtol, atol=atol, groups=groups, pg=pg)
     if method in FIXED_STEP_METHODS:
         return odeint_fixed(f, y0, ts, method)
     if method == "ab2":

@@ -38,9 +38,13 @@ def generate_samples(
     generator: Optional[torch.Generator] = None,
     x0: Optional[torch.Tensor] = None,
     groups: int = 1,
+    pg=None,
 ):
     """apply_fn(batch, noisy, t) -> v_t.  ``groups``: independent problems in
     consecutive blocks of the batch rows (a folded ensemble), for dopri5.
+    ``pg``: a data-parallel process group over which the batch's rows are
+    split (this rank's rows are ``batch``; dopri5's error norms then span
+    every rank's rows).
 
     Returns the final sample (B,N,1); with ``ret_seq`` the full trajectory
     (n_steps,B,N,1); with ``store_indices`` only the selected grid states
@@ -67,7 +71,7 @@ def generate_samples(
             return odeint_ab3(vector_field, x0, ts, store_idx=store_indices)
         if store_indices is not None and method in FIXED_STEP_METHODS:
             return odeint_fixed_store(vector_field, x0, ts, store_indices, method)
-        traj = odeint(vector_field, x0, ts, method=method, groups=groups)
+        traj = odeint(vector_field, x0, ts, method=method, groups=groups, pg=pg)
     if store_indices is not None:
         return traj[sorted(set(int(i) for i in store_indices))]
     return traj if ret_seq else traj[-1]

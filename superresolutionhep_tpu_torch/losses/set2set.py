@@ -21,6 +21,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..parallel.comm import all_reduce_sum, psum
+
 BIG = 1.0e6
 EPS = 1e-8
 MAX_EXHAUSTIVE_P = 8  # 8! = 40320 permutations
@@ -124,14 +126,22 @@ def set_to_set_kinematics_loss(kin_pred, batch, config, event_mask=None, n_event
 # ---------------------------------------------------------------------------
 
 
-def incidence_pairwise_cost(inc_weights, batch):
+def incidence_pairwise_cost(inc_weights, batch, group=None):
     """Masked-KL pairwise cost (B, P, P): truth incidence row i against
-    predicted incidence row j, over the valid cells."""
+    predicted incidence row j, over the valid cells.
+
+    ``group``: the sequence-parallel group when the cell axis is sharded over
+    it: each shard's partial KL sums (with the all-reduce backward) and its
+    cell counts are summed over the group into the exact global cost, the
+    same on every shard (the KL is a plain sum over cells)."""
     cell_mask = batch["cell_mask"].float()  # (B, N)
     target = batch["incidence_matrix"].transpose(1, 2) * cell_mask[:, None, :]  # (B, P, N)
     inp = inc_weights * cell_mask[:, None, :]
     kld = -torch.einsum("bin,bjn->bij", target, torch.log(inp + EPS))
-    kld = kld / cell_mask.sum(-1).clamp_min(1.0)[:, None, None]
+    n_cells = cell_mask.sum(-1)
+    if group is not None:
+        kld, n_cells = psum(kld, group), all_reduce_sum(n_cells, group)
+    kld = kld / n_cells.clamp_min(1.0)[:, None, None]
     not_q4, q2_q3_inf = pad_cost_masks(batch["part_mask"])
     return kld * not_q4 + q2_q3_inf
 

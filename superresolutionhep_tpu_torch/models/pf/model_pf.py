@@ -12,6 +12,11 @@ at the published width (h_dim 64, not a multiple of 128) take their unfused
 equivalent, as in the JAX package.  Parameter names are the reference
 checkpoint's: ``load_reference_state_dict`` takes the ``net.*`` layout of
 ``tools/convert.py::pf_params_from_jax``.
+
+``sp_group``/``sp_mode`` (cells sharded over a sequence-parallel group) and
+``tp_group`` (both DiT stacks' heads and MLPs sharded over a tensor-parallel
+group) go to the parts, as in the JAX package (parallel/sp.py,
+parallel/tp.py build them).
 """
 
 from __future__ import annotations
@@ -28,16 +33,18 @@ from .kinematics import KinematicsPredictor
 
 class SAPF(nn.Module):
     def __init__(self, config_pf: dict, transforms: Optional[Mapping] = None, inference: bool = False,
-                 attn_impl: str = "auto", fused_prologue: bool = False, dtype=None):
+                 attn_impl: str = "auto", fused_prologue: bool = False, dtype=None, sp_group=None,
+                 sp_mode: str = "gather", tp_group=None):
         super().__init__()
         self.config_pf = config_pf
         self.inference = inference
         self.max_part = int(config_pf["max_particles"])
-        self.encoder = PFEncoder(config_pf, attn_impl=attn_impl, fused_prologue=fused_prologue, dtype=dtype)
-        self.cardinality_predictor = (CardinalityPredictor(config_pf, dtype=dtype)
+        groups = dict(sp_group=sp_group, sp_mode=sp_mode, tp_group=tp_group)
+        self.encoder = PFEncoder(config_pf, attn_impl=attn_impl, fused_prologue=fused_prologue, dtype=dtype, **groups)
+        self.cardinality_predictor = (CardinalityPredictor(config_pf, dtype=dtype, sp_group=sp_group)
                                       if config_pf.get("cardinality_predictor") is not None else None)
         self.kinematics_predictor = (
-            KinematicsPredictor(config_pf, transforms=transforms, attn_impl=attn_impl, dtype=dtype)
+            KinematicsPredictor(config_pf, transforms=transforms, attn_impl=attn_impl, dtype=dtype, **groups)
             if config_pf.get("kinematics_predictor") is not None else None)
 
     def load_reference_state_dict(self, state_dict, strict: bool = True):

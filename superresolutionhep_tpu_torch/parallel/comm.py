@@ -17,7 +17,8 @@ transpose JAX gives it:
 
 With ``group=None`` each is the identity.  Boolean masks are carried as
 uint8 and come back boolean.  Megatron's ``f``/``g`` pair is in
-``ops/tp.py``.
+``ops/tp.py``.  Host objects (metrics, lists of numpy arrays) go through
+``gather_object`` and ``broadcast_object``.
 """
 
 from __future__ import annotations
@@ -119,3 +120,17 @@ def all_reduce_grads(grads, group):
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return [t.view_as(g) for t, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def gather_object(obj, group) -> list:
+    """Every rank's picklable ``obj`` of the group, in rank order."""
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def broadcast_object(obj, group):
+    """The group's first rank's picklable ``obj``, on every rank of the group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]

@@ -99,12 +99,14 @@ def shard_rows(x, n: int, i: int, dim: int = 0):
     return x[tuple(index)]
 
 
-def shard_batch(batch: dict, mesh: Mesh, cells: bool = False) -> dict:
+def shard_batch(batch: dict, mesh: Mesh, cells: bool = False, pf: bool = False) -> dict:
     """This rank's part of a global host batch: its block of rows over
     ``data`` (the JAX package's ``P('data')``), and with ``cells`` its block
-    of the cell axis (axis 1 of every entry with two or more axes) over
-    ``seq`` (``P('data', 'seq')``).  Entries that are not arrays (jagged
-    lists) are left whole."""
+    of the cell axis (axis 1) over ``seq`` (``P('data', 'seq')``): of every
+    entry with two or more axes, or with ``pf`` (a stage-2 batch) of the
+    ``cell_*`` entries and the incidence matrix alone, the particle entries
+    keeping their whole axis 1 (the JAX package's ``_pf_batch_specs``).  Entries that are not arrays (jagged lists)
+    are left whole."""
     out = {}
     for k, v in batch.items():
         if not isinstance(v, (np.ndarray, torch.Tensor)) or v.ndim == 0:
@@ -112,7 +114,7 @@ def shard_batch(batch: dict, mesh: Mesh, cells: bool = False) -> dict:
             continue
         if mesh.has(DATA):
             v = shard_rows(v, mesh.size(DATA), mesh.index(DATA), 0)
-        if cells and mesh.has(SEQ) and v.ndim >= 2:
+        if cells and mesh.has(SEQ) and v.ndim >= 2 and (not pf or k.startswith("cell_") or k == "incidence_matrix"):
             v = shard_rows(v, mesh.size(SEQ), mesh.index(SEQ), 1)
         out[k] = v
     return out

@@ -14,7 +14,8 @@
 # chip_smoke.py's case functions (e.g. CASES="fp32_tile_cases kernel_cases"),
 # only those run, past the build's ptxas gate: whether a check of the kernels'
 # results sees a mutation whose build the gate already refuses
-# (CASES=parallel_phase runs the parallel phase alone).
+# (CASES=parallel_phase runs the parallel phase alone, CASES=parallel_pf_phase
+# the stage-2 parallel and split-validation phase).
 ROOT=$(pwd)
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT
@@ -86,4 +87,12 @@ run fp32_dq_band_drops_last_tile "${DQ}s/      if (nxt < nkt) issue((i + NS - 1)
 # cell counts
 run tp_f_identity 's/        return all_reduce_sum(g, ctx.group), None/        return g, None/' superresolutionhep_tpu_torch/ops/tp.py
 run dp_grad_mean 's/    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)/&\n    flat \/= dist.get_world_size(group)/' superresolutionhep_tpu_torch/parallel/comm.py
+# the stage-2 parallel layer and the split validation (chip_smoke.py's
+# parallel_pf phase; also seen by tests/test_torch_port_parallel_{pf,val}.py):
+# a seq shard's loss share not divided by the seq size (every gradient times
+# the seq size), the kinematic head's cell sums left local to a seq shard, the
+# validation noise drawn per rank instead of for the global batch
+run pf_sp_loss_not_divided_by_seq 's/        loss = loss_sum \/ (n_real.clamp_min(1.0) \* n_seq)/        loss = loss_sum \/ n_real.clamp_min(1.0)/' superresolutionhep_tpu_torch/parallel/tp.py
+run pf_cell_sum_no_allreduce 's/        return psum(x.sum(-1, keepdim=keepdim), self.sp_group)/        return x.sum(-1, keepdim=keepdim)/' superresolutionhep_tpu_torch/models/pf/kinematics.py
+run val_noise_per_rank 's/            x0 = self._val_x0(batch\["e_proxy"\]) if group is not None else None/            x0 = None/' superresolutionhep_tpu_torch/train/sr_trainer.py
 exit $status

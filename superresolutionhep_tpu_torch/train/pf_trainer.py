@@ -23,7 +23,11 @@ Differences a caller sees:
     the random particle slots' noise is drawn for the global batch and cut
     to the rank's rows, every per-event mean divides by the GLOBAL count of
     real events, and gradients are summed over the group; rank 0 alone
-    writes metrics and checkpoints, and validation runs whole on every rank.
+    writes metrics and checkpoints.  Validation is split the same way: each
+    rank runs its rows of every batch (its slots' noise cut from the global
+    draw), the losses are summed over the group, the cardinality and
+    residual lists gathered in the global batch's row order, and rank 0
+    alone draws the plots.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from ..inference.sr import resolve_device
 from ..losses.set2set import set_to_set_incidence_loss, set_to_set_kinematics_loss
 from ..models.init_policies import apply_init_policies
 from ..models.pf.model_pf import SAPF
-from ..parallel.comm import all_reduce_sum
+from ..parallel.comm import all_reduce_sum, gather_object
 from ..parallel.mesh import Mesh
 from ..tools.convert import init_pf_params_jax_layout, pf_params_from_jax
 from ..transforms import build_var_transforms
@@ -63,6 +67,12 @@ def cross_entropy_int_labels(logits, labels, event_mask=None, n_events=None):
         return ce.mean()
     w = event_mask.to(ce.dtype)
     return (ce * w).sum() / (w.sum() if n_events is None else n_events).clamp_min(1.0)
+
+
+def _interleave(per_rank: list) -> list:
+    """Per-rank lists of per-batch items -> one list, batch by batch and
+    within a batch rank by rank: the global batches' row order."""
+    return [item for batch in zip(*per_rank) for item in batch]
 
 
 class PFTrainer:
@@ -203,7 +213,7 @@ class PFTrainer:
         budget = resolve_threshold(ct.get(f"n_sq_sum_threshold_{split}")) if ct.get("use_sampler", False) else None
         return BucketBatcher(ds.cell_count, quantum=int(ct.get("bucket_quantum", 128)), cost_budget=budget,
                              max_batch_size=int(ct.get(f"batch_size_{split}", 32)), shuffle=(split == "train"),
-                             seed=seed, batch_multiple_of=self.dp.size if split == "train" else 1)
+                             seed=seed, batch_multiple_of=self.dp.size)
 
     def fit(self, train_ds: Optional[PflowEvents] = None, val_ds: Optional[PflowEvents] = None,
             num_epochs: Optional[int] = None, resume: bool = False):
@@ -270,45 +280,62 @@ class PFTrainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, val_ds: PflowEvents, make_plots: bool = False) -> Dict[str, float]:
+        """Validation losses (batch means), the cardinality accuracy, and with
+        ``make_plots`` the confusion matrix and the matched residual
+        histograms.  Under data parallelism each rank runs its rows of every
+        batch (module docstring); the result is the global batch's on every
+        rank."""
+        group = self.dp.group
         sums: Dict[str, float] = {}
         n_b = 0
-        card_t, card_p = [], []
-        kin_res: Dict[str, list] = {k: [] for k in ["pt", "eta", "phi", "e"]}
-        tr = self.transforms
+        # per batch: this rank's (cardinality truth, prediction) and residuals
+        card: list = []
+        kin_res: list = []
         for idxs, bucket in self._batcher(val_ds, "val", seed=0):
+            idxs = self.dp.take(idxs)
             events = [val_ds.get_event(i) if i >= 0 else None for i in idxs]
-            hb = collate_pf(events, bucket.pad_n, self.max_part)
+            # the incidence key from the dataset: a rank's rows may be fillers alone
+            hb = collate_pf(events, bucket.pad_n, self.max_part, with_incidence=getattr(val_ds, "load_incidence", None))
             batch = pf_batch_to_device(hb, self.device)
-            card_logits, kin_pred, inc = pred = self.model(batch, generator=self.generator)
-            loss, logs, assign = self.compute_loss(pred, batch)
+            noise = self._global_noise(batch) if group is not None else None
+            card_logits, kin_pred, inc = pred = self.model(batch, noise=noise, generator=self.generator)
+            _, logs, assign = self.compute_loss(pred, batch, group=group)
+            if group is not None:  # this rank's shares -> the global batch's
+                keys = list(logs)
+                logs = dict(zip(keys, all_reduce_sum(torch.stack([logs[k].float() for k in keys]), group)))
             real = idxs >= 0
             n_b += 1
             for k, v in logs.items():
                 sums[f"val/{k}"] = sums.get(f"val/{k}", 0.0) + float(v)
-            sums["val_loss_to_optimize_on"] = sums.get("val_loss_to_optimize_on", 0.0) + float(loss)
+            sums["val_loss_to_optimize_on"] = sums.get("val_loss_to_optimize_on", 0.0) + float(logs["loss"])
             if card_logits is not None:
-                card_t.append(hb["cardinality"][real])
-                card_p.append(torch.argmax(card_logits, dim=-1).cpu().numpy()[real])
+                card.append((hb["cardinality"][real], torch.argmax(card_logits, dim=-1).cpu().numpy()[real]))
             if make_plots and kin_pred is not None and assign is not None:
-                # matched raw-space residuals; the energy against the full
-                # particle energy, as the reference plots it
-                rows = torch.arange(kin_pred.shape[0], device=kin_pred.device)[:, None]
-                km = kin_pred[rows, assign].float().cpu().numpy()
-                pm = hb["part_mask"] & real[:, None]
-                kin_res["pt"].append(hb["part_pt_raw"][pm] - np.asarray(tr["pt"].inverse(km[..., 0]))[pm])
-                kin_res["eta"].append(hb["part_eta_raw"][pm] - np.asarray(tr["eta"].inverse(km[..., 1]))[pm])
-                dphi = hb["part_phi"][pm] - km[..., 2][pm]
-                kin_res["phi"].append((dphi + np.pi) % (2 * np.pi) - np.pi)
-                kin_res["e"].append(hb["part_e_raw"][pm] - np.asarray(tr["e"].inverse(km[..., 3]))[pm])
+                kin_res.append(self._residuals(hb, kin_pred, assign, real))
+        if group is not None:  # every rank's lists, in the global batches' row order
+            card, kin_res = (_interleave(gather_object(x, group)) for x in (card, kin_res))
         res = {k: v / max(n_b, 1) for k, v in sums.items()}
-        if card_t:
-            t, p = np.concatenate(card_t), np.concatenate(card_p)
+        if card:
+            t, p = (np.concatenate(x) for x in zip(*card))
             res["val/card_accuracy"] = float((t == p).mean())
-            if make_plots:
+            if make_plots and self.dp.writer:
                 self._plot_cardinality_confusion(t, p)
-        if make_plots and any(len(v) for v in kin_res.values()):
-            self._plot_kinematics_residuals({k: np.hstack(v) for k, v in kin_res.items() if v})
+        if make_plots and self.dp.writer and kin_res:
+            self._plot_kinematics_residuals({k: np.hstack([r[k] for r in kin_res]) for k in kin_res[0]})
         return res
+
+    def _residuals(self, hb, kin_pred, assign, real) -> Dict[str, np.ndarray]:
+        """Matched raw-space residuals of a batch's real particles; the
+        energy against the full particle energy, as the reference plots it."""
+        tr = self.transforms
+        rows = torch.arange(kin_pred.shape[0], device=kin_pred.device)[:, None]
+        km = kin_pred[rows, assign].float().cpu().numpy()
+        pm = hb["part_mask"] & real[:, None]
+        dphi = hb["part_phi"][pm] - km[..., 2][pm]
+        return {"pt": hb["part_pt_raw"][pm] - np.asarray(tr["pt"].inverse(km[..., 0]))[pm],
+                "eta": hb["part_eta_raw"][pm] - np.asarray(tr["eta"].inverse(km[..., 1]))[pm],
+                "phi": (dphi + np.pi) % (2 * np.pi) - np.pi,
+                "e": hb["part_e_raw"][pm] - np.asarray(tr["e"].inverse(km[..., 3]))[pm]}
 
     def _plot_cardinality_confusion(self, truth, pred):
         """Confusion-matrix heatmap of the cardinality."""

@@ -36,9 +36,13 @@ Differences a caller sees:
     computes the single-device step (``DistributedDataParallel``'s mean of
     per-rank means would not wherever shards hold different cell counts);
     clipping and accumulation act on the summed gradients.  Rank 0 alone
-    writes metrics and checkpoints; a resume loads on every rank; validation
-    runs whole on every rank (it draws from the same generator, which must
-    stay in step on every rank).
+    writes metrics and checkpoints; a resume loads on every rank.
+    Validation is split too: its batches are multiples of the group size,
+    each rank samples its block of rows from the global batch's noise (drawn
+    from the one generator, which so stays in step on every rank), dopri5's
+    error norms span every rank's rows, the errors and counts are summed
+    over the group, and with the live plots rank 0 alone draws them from the
+    global batch's predictions gathered to it.
 
 The optimizer mirrors the JAX package's optax chain exactly
 (``clip_by_global_norm`` -> ``scale_by_adam`` -> ``add_decayed_weights`` ->
@@ -69,7 +73,7 @@ from ..inference.sr import batch_to_device, resolve_device
 from ..models.flow_model import FlowModel
 from ..models.init_policies import apply_init_policies
 from ..ops.flash_packed import SEG_ALIGN
-from ..parallel.comm import all_reduce_grads
+from ..parallel.comm import all_gather, all_reduce_grads, all_reduce_sum, broadcast_object
 from ..parallel.mesh import DATA, Mesh, make_mesh, shard_batch, shard_rows
 from ..tools.convert import init_params_jax_layout, params_from_jax
 from ..transforms import TargetTransform
@@ -294,7 +298,7 @@ class SRTrainer:
             max_batch_size=int(ct.get(f"batch_size_{split}", 32)),
             shuffle=(split == "train"),
             seed=seed,
-            batch_multiple_of=self.dp.size if split == "train" else 1,
+            batch_multiple_of=self.dp.size,
         )
 
     # ------------------------------------------------------------------
@@ -499,12 +503,18 @@ class SRTrainer:
         ``make_plots``, the live plots of the JAX trainer: event displays of
         the first batch's first ``n_event_displays`` events, the event and
         cell residual plots (figures under ``<run_dir>/figures``), and the
-        event residuals' summary scalars (``res_event/*``) in the result."""
+        event residuals' summary scalars (``res_event/*``) in the result.
+        Under data parallelism each rank samples its rows of every batch
+        (module docstring); the result is the global batch's on every rank,
+        and the plots are rank 0's."""
         method = self.config_t.get("val_ode_method", "dopri5")
         n_steps = n_steps or self.n_steps
         n_displays = int(self.config_t.get("n_event_displays", 0) or 0) if make_plots else 0
+        group = self.dp.group
+        # dopri5's norms span the ranks' rows; one rank needs no collective
+        pg = group if self.dp.size > 1 else None
         perf_live = None
-        if make_plots:
+        if make_plots and self.dp.writer:
             import matplotlib
 
             matplotlib.use("Agg")  # files only, as the PF trainer's plots
@@ -514,26 +524,36 @@ class SRTrainer:
         tot_nn = tot_raw = tot_n = 0.0
         first_batch = True
         for idxs, bucket in self._batcher(val_ds, "val", seed=0):
-            events = [val_ds.get_event(i) if i >= 0 else None for i in idxs]
+            events = [val_ds.get_event(i) if i >= 0 else None for i in self.dp.take(idxs)]
             hb = collate(events, bucket.pad_n, with_low=make_plots)
             batch = self._device_batch(hb, VAL_BATCH_KEYS)
+            x0 = self._val_x0(batch["e_proxy"]) if group is not None else None
             pred = generate_samples(
                 lambda b, x, t: self.model(b, x, t), batch, n_steps=n_steps, method=method,
-                generator=self.generator,
+                generator=self.generator, x0=x0, pg=pg,
             )
             with torch.no_grad():
                 m = batch["q_mask"][..., None].float()
                 se_nn = ((pred - batch["target"]) ** 2 * m).sum()
                 e_pred_raw = self.target_transform.inverse(pred, batch["e_proxy_raw"])
                 se_raw = ((e_pred_raw - batch["e_truth_raw"]) ** 2 * m).sum()
-            tot_nn += float(se_nn)
-            tot_raw += float(se_raw)
-            tot_n += float(m.sum().clamp_min(1.0))
-            if perf_live is not None:
-                e_pred_np = e_pred_raw.float().cpu().numpy()
-                perf_live.update(hb, e_pred_np)
-                if first_batch and n_displays > 0:
-                    self._event_displays(hb, events[:n_displays], pred.float().cpu().numpy(), e_pred_np)
+                sums = torch.stack([se_nn, se_raw, m.sum()])
+                if group is not None:
+                    sums = all_reduce_sum(sums, group)
+            tot_nn += float(sums[0])
+            tot_raw += float(sums[1])
+            tot_n += float(sums[2].clamp_min(1.0))
+            if make_plots:
+                if group is not None:  # the global batch's, in row order, for rank 0
+                    pred, e_pred_raw = all_gather(pred, group, 0), all_gather(e_pred_raw, group, 0)
+                    if perf_live is not None:
+                        events = [val_ds.get_event(i) if i >= 0 else None for i in idxs]
+                        hb = collate(events, bucket.pad_n, with_low=True)
+                if perf_live is not None:
+                    e_pred_np = e_pred_raw.float().cpu().numpy()
+                    perf_live.update(hb, e_pred_np)
+                    if first_batch and n_displays > 0:
+                        self._event_displays(hb, events[:n_displays], pred.float().cpu().numpy(), e_pred_np)
                 first_batch = False
 
         extra = {}
@@ -547,8 +567,17 @@ class SRTrainer:
             fig = perf_live.plot_residual_cell()
             self.metrics.log_figure(fig, "residual_cell_energy")
             plt.close(fig)
+        if group is not None and make_plots:  # the summary scalars on every rank
+            extra = broadcast_object(extra, group)
         n = max(tot_n, 1.0)
         return {"val/loss": tot_nn / n, "val/loss_raw": tot_raw / n, **extra}
+
+    def _val_x0(self, e_proxy):
+        """The sampler's start for the global validation batch, drawn as the
+        single-process sampler draws it, cut to this rank's rows."""
+        shape = (e_proxy.shape[0] * self.dp.size,) + tuple(e_proxy.shape[1:])
+        x0 = torch.randn(shape, generator=self.generator, device=e_proxy.device, dtype=torch.float32)
+        return self.dp.rows(x0.to(e_proxy.dtype))
 
     def _event_displays(self, hb, events, pred, e_pred_raw):
         """One event display figure (``ED_<i>``) per real event of the batch."""

@@ -276,3 +276,102 @@ def dp_rank(rank, world_size, sr_cfgs, sr_batch, pf_cfgs, pf_batch, pf_trees, ru
     out["refuses_seq_mesh"] = _raises(
         lambda: SRTrainer(*sr_cfgs, run_dir=os.path.join(run_dir, "x"), device="cpu", mesh=seq_mesh), ValueError)
     return out
+
+
+# ---------------------------------------------------------------------------
+# stage 2 (SAPF): sequence and tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def pf_sp_rank(rank, world_size, shape, config_pf, var_cfg, params, config_t, batch):
+    """dp x seq on the SAPF: the forward and the train step in gather and in
+    ring mode, on this rank's rows and cell block."""
+    from superresolutionhep_tpu_torch.parallel.sp import make_pf_sp_forward, make_pf_sp_train_step
+    from superresolutionhep_tpu_torch.transforms import build_var_transforms
+
+    torch.set_num_threads(1)
+    mesh = Mesh(shape)
+    transforms = build_var_transforms(var_cfg)
+    local = _tensors(shard_batch(batch, mesh, cells=True, pf=True))
+    params = _tensors(params)
+    out = {"coords": dict(zip(mesh.names, mesh.coords))}
+    for mode in ("gather", "ring"):
+        _, fwd = make_pf_sp_forward(config_pf, transforms, mesh, sp_mode=mode, device="cpu")
+        with torch.no_grad():
+            out[f"fwd_{mode}"] = fwd(params, local)
+        _, step = make_pf_sp_train_step(config_pf, transforms, mesh, config_t, sp_mode=mode, device="cpu")
+        out[f"loss_{mode}"], out[f"grads_{mode}"] = step(params, local)
+    return out
+
+
+PF_TP_MESHES = {"dp2_tp2": {"data": 2, "model": 2}, "dp1_tp4": {"data": 1, "model": 4}}
+
+
+def pf_tp_rank(rank, world_size, config_pf, var_cfg, params, config_t, batch):
+    """dp x tp on the SAPF, on each mesh of ``PF_TP_MESHES``: the forward and
+    the train step on this rank's rows."""
+    from superresolutionhep_tpu_torch.parallel.tp import make_pf_tp_forward, make_pf_tp_train_step
+    from superresolutionhep_tpu_torch.transforms import build_var_transforms
+
+    torch.set_num_threads(1)
+    transforms = build_var_transforms(var_cfg)
+    params = _tensors(params)
+    out = {}
+    for name, shape in PF_TP_MESHES.items():
+        mesh = Mesh(shape)
+        local = _tensors(shard_batch(batch, mesh))
+        res = out[name] = {"coords": dict(zip(mesh.names, mesh.coords))}
+        _, fwd = make_pf_tp_forward(config_pf, transforms, mesh, device="cpu")
+        with torch.no_grad():
+            res["fwd"] = fwd(params, local)
+        _, step = make_pf_tp_train_step(config_pf, transforms, mesh, config_t, device="cpu")
+        res["loss"], res["grads"] = step(params, local)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# validation split over data-parallel ranks
+# ---------------------------------------------------------------------------
+
+
+def evaluations(sr_cfgs, pf_cfgs, pf_trees, run_dir, mesh=None):
+    """The trainers' ``evaluate`` on five SR events of 108 and 216 cells
+    (batches of four: the second holds one event and three fillers, so that
+    at two ranks one rank's rows are fillers alone) with dopri5, then with a
+    fixed-step sampler and the live residual plots, and on ten PF
+    events (random slots) with the plots; each trainer's next draw from its
+    generator afterwards, and the figures this rank wrote."""
+    import os
+
+    from superresolutionhep_tpu_torch.data.pf_dataset import PflowEvents
+    from superresolutionhep_tpu_torch.train.pf_trainer import PFTrainer
+    from superresolutionhep_tpu_torch.train.sr_trainer import SRTrainer
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    sr_ds = sr_dataset(sr_cfgs[0], n=5)
+    sr = SRTrainer(*sr_cfgs, run_dir=os.path.join(run_dir, "sr"), seed=0, device="cpu", mesh=mesh)
+    out = {"sr_dopri5": sr.evaluate(sr_ds, n_steps=3)}
+    sr.config_t = dict(sr.config_t, val_ode_method="midpoint")
+    out["sr_plots"] = sr.evaluate(sr_ds, n_steps=3, make_plots=True)
+    out["sr_next_draw"] = torch.randn(4, generator=sr.generator)
+    pf_ds = PflowEvents.from_trees(pf_trees, pf_cfgs[0], energy_threshold=1.0, load_incidence=True)
+    pf = PFTrainer(*pf_cfgs, run_dir=os.path.join(run_dir, "pf"), seed=0, device="cpu", mesh=mesh)
+    out["pf"] = pf.evaluate(pf_ds, make_plots=True)
+    out["pf_next_draw"] = torch.randn(4, generator=pf.generator)
+    out["figures"] = sorted(f for part in ("sr", "pf") if os.path.isdir(os.path.join(run_dir, part, "figures"))
+                            for f in os.listdir(os.path.join(run_dir, part, "figures")))
+    return out
+
+
+def val_rank(rank, world_size, sr_cfgs, pf_cfgs, pf_trees, run_dir):
+    """``evaluations`` on this rank's rows of every validation batch (each
+    rank its own run directory)."""
+    import os
+
+    from superresolutionhep_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    return evaluations(sr_cfgs, pf_cfgs, pf_trees, os.path.join(run_dir, f"rank{rank}"),
+                       make_mesh(data=world_size))
