@@ -1,12 +1,14 @@
-"""Offline analysis of SR inference outputs.
+"""Offline analysis of SR and PF inference outputs.
 
-The port's own copy of the SR part of the JAX package's
+The port's own copy of the JAX package's
 ``analysis/performance.py`` (numpy, and matplotlib imported inside each plot
 method): re-reads the inference event files through the port's HDF5 reader
 (``data/root_io.py``: LR/HR geometry, truth/pred/proxy energies, NN-space
 branches, per-timestep and per-ensemble-component branches), recomputes
 ensemble averages, and exposes the residual and event-display plots as
-methods.  The PF analysis class (``PFPerformanceCOCOA``) is not ported yet.
+methods; ``PFPerformanceCOCOA`` joins the PF outputs (LR-PF and HR-PF) by the
+``idx`` branch with a truth-consistency check and adds the PF event displays,
+the truth incidence, the cardinality confusion and the kinematic residuals.
 
 Hard-coded per-layer eta granularities: high = [256,256,128,64,64,32],
 low = high / res_factor.
@@ -434,3 +436,405 @@ class PerformanceCOCOA:
         if dir:
             fig.savefig(f"{dir}/ensemble_size.png")
         return fig, widths_all
+
+
+class PFPerformanceCOCOA(PerformanceCOCOA):
+    """Joins the SR inference file with LR-PF and HR-PF outputs by the
+    ``idx`` branch: PF rows may come in any order (the reference writes them
+    in batch order), so every PF branch is put back in event order by
+    ``argsort(idx)`` before the join."""
+
+    PF_COLORS = np.array(
+        [(201, 58, 64), (242, 207, 1), (0, 152, 75), (101, 172, 228), (56, 34, 132), (160, 194, 56)]
+    ) / 255.0
+
+    def __init__(self, inference_path, lr_pf_path, hr_pf_path, res_factor, cmap="viridis"):
+        super().__init__(inference_path, res_factor, cmap)
+
+        def load_pf(path):
+            tree = root_io.read_tree(path, "Particle_Tree")
+            inc_keys = [k for k in tree if "pred_inc_wt_" in k]
+            idx = np.asarray(tree["idx"])
+            remap = np.argsort(idx)  # row order -> event order
+            out = {"max_part": len(inc_keys)}
+            for k in ["truth_pt_raw", "truth_eta_raw", "truth_phi", "truth_e_raw", "truth_dep_e_raw",
+                      "pred_pt_raw", "pred_eta_raw", "pred_phi", "pred_e_raw"]:
+                rows = _jag_list(tree[k])
+                out[k] = [rows[i] for i in remap]
+            for k in inc_keys:
+                rows = _jag_list(tree[k])
+                pi = int(k.split("_")[-1])
+                out.setdefault("inc_wt", {})[pi] = [rows[i] for i in remap]
+            out["pred_card"] = np.asarray(tree["pred_card"])[remap]
+            out["truth_card"] = np.asarray(tree["truth_card"])[remap]
+            return out
+
+        lr, hr = load_pf(lr_pf_path), load_pf(hr_pf_path)
+        self.max_part = lr["max_part"]
+
+        # truth consistency between the LR-PF and HR-PF files
+        for k in ["truth_pt_raw", "truth_eta_raw", "truth_phi", "truth_e_raw", "truth_dep_e_raw"]:
+            if not np.allclose(np.hstack(lr[k]), np.hstack(hr[k])):
+                raise ValueError(f"LR/HR truth mismatch in {k}")
+
+        self.truth_part_pt = lr["truth_pt_raw"]
+        self.truth_part_eta = lr["truth_eta_raw"]
+        self.truth_part_phi = lr["truth_phi"]
+        self.truth_part_e = lr["truth_e_raw"]
+        self.truth_part_dep_e = lr["truth_dep_e_raw"]
+
+        self.low_part_pt, self.low_part_eta = lr["pred_pt_raw"], lr["pred_eta_raw"]
+        self.low_part_phi, self.low_part_e = lr["pred_phi"], lr["pred_e_raw"]
+        self.high_part_pt, self.high_part_eta = hr["pred_pt_raw"], hr["pred_eta_raw"]
+        self.high_part_phi, self.high_part_e = hr["pred_phi"], hr["pred_e_raw"]
+        self.inc_wt_lr_pf = lr.get("inc_wt", {})
+        self.inc_wt_hr_pf = hr.get("inc_wt", {})
+
+        self.pf_colors = self.PF_COLORS[: max(self.max_part, 1)]
+        self.truth_cardinality = np.array([len(x) for x in self.truth_part_pt])
+        self.low_cardinality = lr["pred_card"]
+        self.high_cardinality = hr["pred_card"]
+
+    # ------------------------------------------------------------------
+    PF_E_CUT = 1.0  # MeV — the PF dataset's cell threshold; incidence rows
+    # exist only for cells above it (data/pf_dataset.py), so all coloring
+    # maps through this cut
+
+    def get_rgb(self, res, ev_i, argmax=False, threshold=0.0):
+        """Per-cell RGB as the incidence-weight mixture over particle colors,
+        for the threshold-cut cell subset.
+
+        ``argmax`` hard-assigns each cell to its dominant particle (the v2
+        display); ``threshold`` whitens cells whose total incidence falls
+        below it (the incidence-threshold panels).  ``res`` is 'lr' or 'hr'.
+        Returns (n_cut_cells, 3) or None when the stored incidence rows do
+        not align with the threshold-cut cells (the reference skips such
+        events)."""
+        inc = self.inc_wt_lr_pf if res == "lr" else self.inc_wt_hr_pf
+        if not inc:
+            return None
+        rows = [np.asarray(inc[pi][ev_i]) for pi in sorted(inc)]
+        if len({r.shape[0] for r in rows}) != 1:
+            return None  # ragged incidence rows across particles: skip event
+        w = np.stack(rows, axis=-1)
+        # the PF dataset cut uses e_meas_raw (LR) / e_pred_raw, the file-level
+        # direct average (data/pf_dataset.py), not the recomputed comp average
+        e = self._pf_cut_energy(res, ev_i)
+        if w.shape[0] != int((e > self.PF_E_CUT).sum()):
+            return None
+        if argmax:
+            hard = np.zeros_like(w)
+            hard[np.arange(w.shape[0]), w.argmax(-1)] = 1.0
+            w = hard
+        total = w.sum(-1, keepdims=True)
+        rgb = (w @ self.pf_colors[: w.shape[1]]) / np.maximum(total, 1e-12)
+        rgb = np.clip(rgb, 0, 1)
+        rgb[total[:, 0] < threshold] = 1.0  # below-threshold cells -> white
+        return rgb
+
+    def _pf_cut_energy(self, res, ev_i):
+        return (
+            self.low_e_measured[ev_i]
+            if res == "lr"
+            else np.asarray(self.high_e_pred_direct[ev_i])
+        )
+
+    def _pf_color_image(self, res, ev_i, L, rgb):
+        """White background image at the layer granularity with the
+        threshold-cut cells painted by ``rgb`` (imshow convention: phi rows,
+        eta cols)."""
+        gran = (self.low_gran if res == "lr" else self.high_gran)[L]
+        eta_edges = np.linspace(-3, 3, gran + 1)
+        phi_edges = np.linspace(-np.pi, np.pi, gran + 1)
+        if res == "lr":
+            eta, phi, layer = self.low_eta[ev_i], self.low_phi[ev_i], self.low_layer[ev_i]
+        else:
+            eta, phi, layer = self.high_eta[ev_i], self.high_phi[ev_i], self.high_layer[ev_i]
+        e = self._pf_cut_energy(res, ev_i)
+        img = np.ones((gran, gran, 3))
+        cut = e > self.PF_E_CUT
+        sel = (layer == L)[cut]
+        ie = np.clip(np.digitize(eta[cut][sel], eta_edges) - 1, 0, gran - 1)
+        ip = np.clip(np.digitize(phi[cut][sel], phi_edges) - 1, 0, gran - 1)
+        img[ip, ie] = rgb[sel]
+        return img, (eta_edges[0], eta_edges[-1], phi_edges[0], phi_edges[-1])
+
+    def _pf_energy_panel(self, ax, res, ev_i, L, values, vmin, vmax, cmap):
+        gran = (self.low_gran if res == "lr" else self.high_gran)[L]
+        eta = self.low_eta[ev_i] if res == "lr" else self.high_eta[ev_i]
+        phi = self.low_phi[ev_i] if res == "lr" else self.high_phi[ev_i]
+        layer = self.low_layer[ev_i] if res == "lr" else self.high_layer[ev_i]
+        sel = layer == L
+        return ax.hist2d(
+            eta[sel], phi[sel], weights=np.log1p(np.clip(values[sel], 0, None)),
+            bins=[np.linspace(-3, 3, gran + 1), np.linspace(-np.pi, np.pi, gran + 1)],
+            cmap=cmap, vmin=vmin, vmax=vmax,
+        )[3]
+
+    def _event_window(self, ev_i, pad=0.15):
+        eta = np.concatenate([self.low_eta[ev_i], self.high_eta[ev_i]])
+        phi = np.concatenate([self.low_phi[ev_i], self.high_phi[ev_i]])
+        return (
+            (eta.min() - pad, eta.max() + pad),
+            (phi.min() - pad, phi.max() + pad),
+        )
+
+    def _particle_legend(self, fig_or_ax, n, fontsize=10):
+        from matplotlib.lines import Line2D
+
+        handles = [
+            Line2D([0], [0], marker="o", color="w", markerfacecolor=self.pf_colors[pi],
+                   markersize=12, label=f"Particle {pi + 1}")
+            for pi in range(n)
+        ]
+        fig_or_ax.legend(handles=handles, loc="upper right", frameon=False, fontsize=fontsize)
+
+    def plot_pf_event_display(self, ev_i: int = 0, dir=None, argmax=False, inc_threshold=0.0):
+        """Main PF event display: per ECAL
+        layer, [LR measured energy | LR PFlow coloring] next to [HR predicted
+        energy | HR PFlow coloring], with a log(E+1) colorbar, per-particle
+        legend, truth particle positions, and the shared event eta-phi
+        window.  ``argmax=True`` is the v2 hard-assignment display;
+        ``inc_threshold`` whitens weakly-assigned cells."""
+        import matplotlib.pyplot as plt
+
+        rgb_lr = self.get_rgb("lr", ev_i, argmax=argmax, threshold=inc_threshold)
+        rgb_hr = self.get_rgb("hr", ev_i, argmax=argmax, threshold=inc_threshold)
+        if rgb_lr is None or rgb_hr is None:
+            return None  # incidence rows misaligned with the e-cut cells
+
+        cmap = plt.get_cmap("plasma_r").copy()
+        cmap.set_under("white")
+        all_e = np.concatenate(
+            [self.low_e_measured[ev_i], self.high_e_truth[ev_i], np.asarray(self.high_e_pred[ev_i])]
+        )
+        vmin, vmax = 1e-3, float(np.log1p(np.clip(all_e, 0, None)).max())
+        (xlo, xhi), (ylo, yhi) = self._event_window(ev_i)
+
+        fig, axes = plt.subplots(3, 4, figsize=(17, 11), dpi=120)
+        for L in range(3):
+            im = self._pf_energy_panel(axes[L, 0], "lr", ev_i, L, self.low_e_measured[ev_i], vmin, vmax, cmap)
+            axes[L, 0].set_ylabel(f"ECAL{L + 1}\n$\\phi$", fontsize=11)
+            img, extent = self._pf_color_image("lr", ev_i, L, rgb_lr)
+            axes[L, 1].imshow(img, extent=extent, origin="lower", aspect="auto")
+            self._pf_energy_panel(axes[L, 2], "hr", ev_i, L, np.asarray(self.high_e_pred[ev_i]), vmin, vmax, cmap)
+            img, extent = self._pf_color_image("hr", ev_i, L, rgb_hr)
+            axes[L, 3].imshow(img, extent=extent, origin="lower", aspect="auto")
+            for c, title in enumerate(["LR Energy (meas)", "LR PFlow", "HR Energy (pred)", "HR PFlow"]):
+                ax = axes[L, c]
+                if L == 0:
+                    ax.set_title(title, fontsize=12)
+                ax.set_xlim(xlo, xhi)
+                ax.set_ylim(ylo, yhi)
+                ax.set_xlabel(r"$\eta$", fontsize=10)
+            for c in (1, 3):  # truth positions on the PF panels
+                for pi in range(len(self.truth_part_eta[ev_i])):
+                    axes[L, c].plot(
+                        self.truth_part_eta[ev_i][pi], self.truth_part_phi[ev_i][pi],
+                        "x", color="k", markersize=9, markeredgewidth=2,
+                    )
+        cbar = fig.colorbar(im, ax=axes[:, 0], location="left", shrink=0.8, pad=0.12)
+        cbar.set_label(r"$\ln(E + 1)$", fontsize=12)
+        self._particle_legend(fig, min(self.max_part, len(self.pf_colors)))
+        if dir:
+            tag = "_argmax" if argmax else ""
+            fig.savefig(f"{dir}/ED{tag}_{ev_i}.png")
+        return fig
+
+    def plot_pf_event_display_v2(self, ev_i: int = 0, dir=None):
+        """Hard-assignment (argmax) variant of the main display."""
+        return self.plot_pf_event_display(ev_i, dir=dir, argmax=True)
+
+    def plot_pf_event_display_old(self, ev_i: int = 0, dir=None, verbose=False):
+        """Wide diagnostic display: per
+        ECAL layer [LR meas E | HR truth E | HR pred E | PF LR | PF HR |
+        PF LR argmax | PF HR argmax] with per-panel sum/peak annotations."""
+        import matplotlib.pyplot as plt
+
+        rgb = {
+            (res, am): self.get_rgb(res, ev_i, argmax=am)
+            for res in ("lr", "hr") for am in (False, True)
+        }
+        if any(v is None for v in rgb.values()):
+            return None
+
+        cmap = plt.get_cmap("plasma_r").copy()
+        cmap.set_under("white")
+        all_e = np.concatenate(
+            [self.low_e_measured[ev_i], self.high_e_truth[ev_i], np.asarray(self.high_e_pred[ev_i])]
+        )
+        vmin, vmax = 1e-3, float(np.log1p(np.clip(all_e, 0, None)).max())
+        (xlo, xhi), (ylo, yhi) = self._event_window(ev_i)
+
+        def annot(ax, vals):
+            if vals.size:
+                ax.text(0.03, 0.82, f"sum = {vals.sum():.0f} MeV\npeak = {vals.max():.0f} MeV",
+                        transform=ax.transAxes, fontsize=6)
+
+        fig, axes = plt.subplots(3, 7, figsize=(24, 9), dpi=110)
+        fig.suptitle(f"Event {ev_i}", fontsize=14)
+        for L in range(3):
+            self._pf_energy_panel(axes[L, 0], "lr", ev_i, L, self.low_e_measured[ev_i], vmin, vmax, cmap)
+            annot(axes[L, 0], self.low_e_measured[ev_i][self.low_layer[ev_i] == L])
+            self._pf_energy_panel(axes[L, 1], "hr", ev_i, L, self.high_e_truth[ev_i], vmin, vmax, cmap)
+            annot(axes[L, 1], self.high_e_truth[ev_i][self.high_layer[ev_i] == L])
+            self._pf_energy_panel(axes[L, 2], "hr", ev_i, L, np.asarray(self.high_e_pred[ev_i]), vmin, vmax, cmap)
+            annot(axes[L, 2], np.asarray(self.high_e_pred[ev_i])[self.high_layer[ev_i] == L])
+            for c, (res, am) in enumerate([("lr", False), ("hr", False), ("lr", True), ("hr", True)]):
+                img, extent = self._pf_color_image(res, ev_i, L, rgb[(res, am)])
+                axes[L, 3 + c].imshow(img, extent=extent, origin="lower", aspect="auto")
+            for c, title in enumerate(
+                ["LR (meas E)", "HR (truth E)", "HR (pred E)", "PF (LR)", "PF (HR)", "PF (LR) argmax", "PF (HR) argmax"]
+            ):
+                ax = axes[L, c]
+                if L == 0:
+                    ax.set_title(title, fontsize=9)
+                ax.set_xlim(xlo, xhi)
+                ax.set_ylim(ylo, yhi)
+        if verbose:
+            print(f"event {ev_i}")
+            print("truth_part_dep_e [GeV]:", np.asarray(self.truth_part_dep_e[ev_i]) * 1e-3)
+            print("low_part_e [GeV]:", np.asarray(self.low_part_e[ev_i]) * 1e-3)
+            print("high_part_e [GeV]:", np.asarray(self.high_part_e[ev_i]) * 1e-3)
+            print("truth/low/high part_eta:", self.truth_part_eta[ev_i], self.low_part_eta[ev_i], self.high_part_eta[ev_i])
+            print("truth/low/high part_phi:", self.truth_part_phi[ev_i], self.low_part_phi[ev_i], self.high_part_phi[ev_i])
+        if dir:
+            fig.savefig(f"{dir}/ED_wide_{ev_i}.png")
+        return fig
+
+    def plot_pf_event_display_grid(self, ev_indices, dir=None, res="hr", argmax=False):
+        """Multi-event grid of PF colorings, one row per event, one column
+        per ECAL layer (the reference notebook loops plot_pf_event_display
+        over events; this gives the side-by-side overview)."""
+        import matplotlib.pyplot as plt
+
+        rows = []
+        for ev_i in ev_indices:
+            rgb = self.get_rgb(res, ev_i, argmax=argmax)
+            if rgb is not None:
+                rows.append((ev_i, rgb))
+        if not rows:
+            return None
+        fig, axes = plt.subplots(len(rows), 3, figsize=(10, 3 * len(rows)), dpi=110, squeeze=False)
+        for r, (ev_i, rgb) in enumerate(rows):
+            (xlo, xhi), (ylo, yhi) = self._event_window(ev_i)
+            for L in range(3):
+                img, extent = self._pf_color_image(res, ev_i, L, rgb)
+                ax = axes[r, L]
+                ax.imshow(img, extent=extent, origin="lower", aspect="auto")
+                ax.set_xlim(xlo, xhi)
+                ax.set_ylim(ylo, yhi)
+                ax.set_title(f"ev {ev_i} ECAL{L + 1}", fontsize=8)
+        fig.tight_layout()
+        if dir:
+            fig.savefig(f"{dir}/ED_grid_{res}.png")
+        return fig
+
+    def load_truth_incidence(self, truth_path, ev_i):
+        """Row-normalised truth incidence weights over the SR-file HR cell
+        rows (ECAL, LR-grouped order) for one event, from the original
+        dataset file's particle_to_node_idx/weight — the same construction
+        data/pf_dataset.py uses.  Returns (n_hr_ecal_cells, n_particles)."""
+        hi = root_io.read_tree(
+            truth_path, "High_Tree",
+            ["cell_e", "cell_layer", "particle_to_node_idx", "particle_to_node_weight"],
+            ev_i, ev_i + 1,
+        )
+        lo = root_io.read_tree(truth_path, "Low_Tree", ["high_cell_to_low_cell_edge"], ev_i, ev_i + 1)
+        order = np.asarray(lo["high_cell_to_low_cell_edge"][0], int)
+        layer = np.asarray(hi["cell_layer"][0])[order]
+        ecal_rows = np.nonzero(layer < 3)[0]  # LR-grouped rows kept by the SR cut
+        row_of = np.full(order.size, -1, int)
+        row_of[ecal_rows] = np.arange(ecal_rows.size)
+        pos = np.full(order.size, -1, int)
+        pos[order] = np.arange(order.size)  # original slot -> LR-grouped row
+        n_part = len(hi["particle_to_node_idx"][0])
+        w = np.zeros((ecal_rows.size, n_part))
+        for pi in range(n_part):
+            idxs = np.asarray(hi["particle_to_node_idx"][0][pi], int)
+            wts = np.asarray(hi["particle_to_node_weight"][0][pi], float)
+            rows = row_of[pos[idxs]]
+            ok = rows >= 0
+            np.add.at(w, (rows[ok], pi), wts[ok])
+        row_tot = w.sum(-1, keepdims=True)
+        return w / np.maximum(row_tot, 1e-12)
+
+    def plot_incidence_truth_vs_pred(self, ev_i, truth_path, dir=None):
+        """Truth vs predicted incidence comparison for one event: per ECAL
+        layer, cells colored by the truth incidence mixture next to the
+        predicted mixture, plus a per-particle weight scatter."""
+        import matplotlib.pyplot as plt
+
+        pred = self.get_rgb("hr", ev_i)
+        if pred is None:
+            return None
+        # restrict the truth incidence to the PF-threshold cells, using the
+        # same direct-average energy cut the PF file was built with
+        keep = self._pf_cut_energy("hr", ev_i) > self.PF_E_CUT
+        w_true = self.load_truth_incidence(truth_path, ev_i)[keep]
+        inc = self.inc_wt_hr_pf
+        w_pred = np.stack([np.asarray(inc[pi][ev_i]) for pi in sorted(inc)], axis=-1)
+        if w_true.shape[0] != w_pred.shape[0]:
+            return None
+        n_part = min(w_true.shape[1], w_pred.shape[1])
+        rgb_true = np.clip(w_true[:, :n_part] @ self.pf_colors[:n_part], 0, 1)
+
+        (xlo, xhi), (ylo, yhi) = self._event_window(ev_i)
+        fig, axes = plt.subplots(3, 3, figsize=(13, 10), dpi=110)
+        for L in range(3):
+            img, extent = self._pf_color_image("hr", ev_i, L, rgb_true)
+            axes[L, 0].imshow(img, extent=extent, origin="lower", aspect="auto")
+            img, extent = self._pf_color_image("hr", ev_i, L, pred)
+            axes[L, 1].imshow(img, extent=extent, origin="lower", aspect="auto")
+            for c, title in enumerate(["truth incidence", "pred incidence"]):
+                ax = axes[L, c]
+                if L == 0:
+                    ax.set_title(title, fontsize=11)
+                ax.set_xlim(xlo, xhi)
+                ax.set_ylim(ylo, yhi)
+                ax.set_ylabel(f"ECAL{L + 1}")
+            ax = axes[L, 2]
+            for pi in range(n_part):
+                ax.plot(w_true[:, pi], w_pred[:, pi], ".", ms=2, color=self.pf_colors[pi], alpha=0.5)
+            ax.plot([0, 1], [0, 1], "k--", lw=0.5)
+            ax.set_xlabel("truth weight")
+            ax.set_ylabel("pred weight")
+        self._particle_legend(fig, n_part)
+        fig.tight_layout()
+        if dir:
+            fig.savefig(f"{dir}/incidence_truth_vs_pred_{ev_i}.png")
+        return fig
+
+    def cardinality_confusion(self):
+        """(LR, HR) confusion matrices pred x truth."""
+        n = self.max_part + 1
+        out = []
+        for pred in [self.low_cardinality, self.high_cardinality]:
+            cm = np.zeros((n, n), int)
+            for t, p in zip(self.truth_cardinality, pred):
+                cm[min(p, n - 1), min(t, n - 1)] += 1
+            out.append(cm)
+        return tuple(out)
+
+    def kinematic_residuals(self):
+        """Matched truth-pred residuals for pt/eta/phi/e, LR and HR."""
+        res = {}
+        for tag, (pt, eta, phi, e) in {
+            "lr": (self.low_part_pt, self.low_part_eta, self.low_part_phi, self.low_part_e),
+            "hr": (self.high_part_pt, self.high_part_eta, self.high_part_phi, self.high_part_e),
+        }.items():
+            for name, pred, truth in [
+                ("pt", pt, self.truth_part_pt),
+                ("eta", eta, self.truth_part_eta),
+                ("phi", phi, self.truth_part_phi),
+                ("e", e, self.truth_part_e),
+            ]:
+                diffs = []
+                for i in range(len(truth)):
+                    k = min(len(truth[i]), len(pred[i]))
+                    d = np.asarray(truth[i][:k]) - np.asarray(pred[i][:k])
+                    if name == "phi":
+                        d = (d + np.pi) % (2 * np.pi) - np.pi
+                    diffs.append(d)
+                res[f"{tag}_{name}"] = np.hstack(diffs) if diffs else np.zeros(0)
+        return res

@@ -41,4 +41,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ..utils.hostmem import ensure_tuned
+
+    ensure_tuned()  # glibc malloc tunables, by one re-exec of this command
     main()

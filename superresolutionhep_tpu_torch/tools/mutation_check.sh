@@ -15,24 +15,36 @@
 # only those run, past the build's ptxas gate: whether a check of the kernels'
 # results sees a mutation whose build the gate already refuses
 # (CASES=parallel_phase runs the parallel phase alone, CASES=parallel_pf_phase
-# the stage-2 parallel and split-validation phase).
+# the stage-2 parallel and split-validation phase, CASES=closure_phase the two
+# shipped closures).  With TESTS set to CPU test files, those run instead of
+# the card, in the copy with the JAX package, its scripts and configs beside
+# it (e.g. TESTS=tests/test_torch_port_closure.py; any machine, no card); a
+# mutation given test files of its own (a fourth argument) always runs them:
+# its code is not on the card's path.
 ROOT=$(pwd)
 WORK=$(mktemp -d)
 trap 'rm -rf "$WORK"' EXIT
 status=0
 SELECTED="$*"
-run() {  # name, sed expression, file
+run() {  # name, sed expression, file[, CPU test files that must see it]
   if [ -n "$SELECTED" ] && [[ " $SELECTED " != *" $1 "* ]]; then return; fi
-  rm -rf "$WORK/mut" && mkdir -p "$WORK/mut" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$WORK/mut/" && cd "$WORK/mut" || exit 9
+  tests="${4:-$TESTS}"
+  rm -rf "$WORK/mut" && mkdir -p "$WORK/mut/tests" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$ROOT/saved_checkpoints" "$WORK/mut/" && cp -r "$ROOT/tests/golden_torch" "$WORK/mut/tests/" && cd "$WORK/mut" || exit 9
+  if [ -n "$tests" ]; then
+    cp -r "$ROOT/tests" "$ROOT/superresolutionhep_tpu" "$ROOT/scripts" "$ROOT/configs" "$ROOT/pytest.ini" "$WORK/mut/" || exit 9
+  fi
   before=$(md5sum "$3" | cut -d' ' -f1)
   sed -i "$2" "$3"
   after=$(md5sum "$3" | cut -d' ' -f1)
   if [ "$before" = "$after" ]; then echo "MUTATION $1 did not change $3"; exit 9; fi
-  if [ -n "$CASES" ]; then
+  if [ -n "$tests" ]; then
+    JAX_PLATFORMS=cpu python3 -m pytest $tests -q -x -p no:cacheprovider > out.txt 2> err.txt
+  elif [ -n "$CASES" ]; then
     # a file, not stdin: the parallel phase's spawned ranks re-import the main module
     printf '%s\n' 'import inspect, sys' 'import chip_smoke as cs' 'if __name__ == "__main__":' \
       '    for name in sys.argv[1:]:' '        fn = getattr(cs, name)' \
-      '        fn(2) if inspect.signature(fn).parameters else fn()' > cases.py
+      '        needs = [p for p in inspect.signature(fn).parameters.values() if p.default is p.empty]' \
+      '        fn(2) if needs else fn()' > cases.py
     SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 cases.py $CASES > out.txt 2> err.txt
   else
     SRHEP_TORCH_BUILD_DIR="$WORK/mut/build" python3 chip_smoke.py --skip-serve --skip-train --reps 2 > out.txt 2> err.txt
@@ -95,4 +107,12 @@ run dp_grad_mean 's/    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
 run pf_sp_loss_not_divided_by_seq 's/        loss = loss_sum \/ (n_real.clamp_min(1.0) \* n_seq)/        loss = loss_sum \/ n_real.clamp_min(1.0)/' superresolutionhep_tpu_torch/parallel/tp.py
 run pf_cell_sum_no_allreduce 's/        return psum(x.sum(-1, keepdim=keepdim), self.sp_group)/        return x.sum(-1, keepdim=keepdim)/' superresolutionhep_tpu_torch/models/pf/kinematics.py
 run val_noise_per_rank 's/            x0 = self._val_x0(batch\["e_proxy"\]) if group is not None else None/            x0 = None/' superresolutionhep_tpu_torch/train/sr_trainer.py
+# the slice of the closure pipelines: the naive split divided by rf, not rf^2
+# (chip_smoke.py's closure phase: the SR iqr_ratios leave their 3% bands; and
+# tests/test_torch_port_closure.py), the PF analysis's join by idx skipped
+# (tests/test_torch_port_pf_analysis.py reads PF rows out of event order),
+# the packed flop count's band one key tile too wide (the same file)
+run closure_naive_split_by_rf 's/    rf2 = rf \* rf$/    rf2 = rf/' superresolutionhep_tpu_torch/scripts/closure_suite.py
+run pf_perf_idx_not_remapped 's/            remap = np.argsort(idx)  # row order -> event order/            remap = np.arange(idx.size)/' superresolutionhep_tpu_torch/analysis/performance.py tests/test_torch_port_pf_analysis.py
+run flops_packed_band_off_by_one 's/    kcnt = band\[..., 1\].numpy()/    kcnt = band[..., 1].numpy() + 1/' superresolutionhep_tpu_torch/tools/flops.py tests/test_torch_port_pf_analysis.py
 exit $status
