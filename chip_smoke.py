@@ -81,6 +81,20 @@ run, also under the skip flags), in memory:
     ``PFInference.predict``, against ``closure_pf_metrics.json`` (accuracy
     within 0.02, the residual IQRs and the incidence MAE within 10%); the
     fp32 K1 launches under the checker, an ill-conditioned one against fp64;
+and the JAX package's measuring tools as the port ships them (always run):
+  * measure: ``tools/profile_inference.py`` and the scripts
+    ``probe_dispatch``, ``bench_kernel`` (bf16 and fp32),
+    ``bench_packed_kernel``, ``bench_packed_train``,
+    ``measure_serving_latency`` and ``probe_layout_copies``, each through its
+    own run function at full model width with fewer repetitions and events
+    (``MEASURE_CUTS``), each in its own counted window with its launches
+    worked out from its code; in every window a tool profiles, the
+    hand-written kernels that ``tools/trace_summary.py`` finds in the trace
+    equal the launch counters kernel by kernel (and a control with one
+    kernel's name taken out of that class must not); one call of each tool's
+    kernel paths under the checker (K7-K9 too), which must hold every launch
+    made in that call, and K7 run on a row's tail tile made padding must be
+    caught by it;
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
 (seeded) but for the trained phase; events are synthetic (seeded).
@@ -95,7 +109,8 @@ kernels at head dims 16/32/64 and on a guard at base-2 logits of std ~8,
 where single-TF32 products would miss the fp32 bounds; launched twice,
 equal bit for bit), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
-``pf_inference``, ``pf_train``, ``trained``, ``normformer``, ``parallel``, ``parallel_pf``, ``closure``), then the card's name and power
+``pf_inference``, ``pf_train``, ``trained``, ``normformer``, ``parallel``, ``parallel_pf``, ``closure``, a ``measure``
+line per tool), then the card's name and power
 limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths; the
@@ -106,7 +121,7 @@ prints no ``ok`` line.  Without a CUDA device it exits 2.
 Options (for development; the default run does everything):
     --skip-serve      no serve, packed and pf inference, trained and normformer phases (exits 1 by design)
     --skip-train      no train, dopri5 ensemble, packed and pf train phases (exits 1 by design)
-                      (the parallel, parallel_pf and closure phases run under both)
+                      (the parallel, parallel_pf, closure and measure phases run under both)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
     --closure-variants  after the build, only the SR closure's noise seeds, samplers and
@@ -116,10 +131,10 @@ Options (for development; the default run does everything):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -128,11 +143,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 outside them
-H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
-# the fp32 attention kernels take each product as three TF32 ones (lo*hi + hi*lo + hi*hi)
-TF32_SPLIT_TERMS = 3
+# the H100's peaks and the attention kernels' bounds, shared with the measuring scripts
+from superresolutionhep_tpu_torch.scripts.common import (  # noqa: E402
+    H100_BYTES_PER_S, H100_FLOPS, fp32_attention_bounds, fwd_bounds, sfu_per_s)
 
 # tolerances against the plain version on the card, with their reasons
 TOL = {
@@ -228,40 +241,6 @@ def time_ms(fn, reps, inner=8):
     from superresolutionhep_tpu_torch.scripts.common import graph_ms
 
     return graph_ms(fn, reps, chain=inner)
-
-
-def sfu_per_s():
-    """fp32 exponentials a second on the card: 16 a clock per SM (the
-    special-function units) at the maximum SM clock."""
-    return 16 * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_clock_hz()
-
-
-def fwd_bounds(flops, nbytes, exps, peak):
-    """The forward kernels' bound: the larger of the operations over the
-    tensor-core peak, the bytes over the memory rate, and one fp32 exp2 per
-    needed (query, key) pair over the special-function units' rate."""
-    t = {"operations": flops / peak, "bytes": nbytes / H100_BYTES_PER_S}
-    sfu = exps / sfu_per_s()
-    return {"bound_ms": max(t["operations"], t["bytes"], sfu) * 1e3,
-            "bound_by": "operations" if max(t["operations"], sfu) >= t["bytes"] else "bytes",
-            "operations_ms": t["operations"] * 1e3, "bytes_ms": t["bytes"] * 1e3, "sfu_bound_ms": sfu * 1e3}
-
-
-def fp32_attention_bounds(flops, nbytes, exps):
-    """The fp32 attention kernels' bound (K1/K2/K7 and K5/K6/K8/K9 on fp32
-    operands): the largest of the products as three-term TF32 splits on the
-    tensor cores (3 * flops / 495 TFLOP/s), the bytes over the memory rate,
-    and one fp32 exp2 per needed (query, key) pair on the special-function
-    units (the backward recomputes one a pair).  ``bound_term`` names the
-    term that sets it; ``fma_bound_ms`` is the CUDA-core yardstick of earlier
-    rows (the flops at 67 TFLOP/s, or the bytes)."""
-    t = {"tf32x3": TF32_SPLIT_TERMS * flops / H100_TF32_FLOPS, "bytes": nbytes / H100_BYTES_PER_S,
-         "sfu": exps / sfu_per_s()}
-    term = max(t, key=t.get)
-    return {"bound_ms": t[term] * 1e3, "bound_by": "bytes" if term == "bytes" else "operations",
-            "bound_term": term, "operations_ms": t["tf32x3"] * 1e3, "bytes_ms": t["bytes"] * 1e3,
-            "sfu_bound_ms": t["sfu"] * 1e3,
-            "fma_bound_ms": max(flops / H100_FLOPS[torch.float32], t["bytes"]) * 1e3}
 
 
 def ragged_valid(B, L, device):
@@ -1325,28 +1304,20 @@ def _grads_agree(ga, gb, tol):
 
 
 def profile_steps(step, n):
-    """Device time of ``n`` calls of ``step`` by ``torch.profiler`` (CUPTI):
-    the wall time, the summed kernel time, the busy share and the kernels
-    that take the most time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of ``n`` calls of ``step`` by ``torch.profiler`` (CUPTI,
+    ``tools/trace_summary.py``): the wall time, the summed kernel time, the
+    busy share and the kernels that take the most time."""
+    from superresolutionhep_tpu_torch.tools.trace_summary import ProfiledWindow
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
+    with ProfiledWindow(torch.device("cuda"), host_ops=True) as w:
         for _ in range(n):
             step()
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    by_name, n_kernels = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            n_kernels += 1
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    s, wall_us = w.summary, w.wall_ms * 1e3
+    busy = s["kernel_us"]
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": busy / n / 1e3,
-            "busy_share": busy / wall_us, "kernels_per_step": n_kernels / n,
-            "top": [{"name": k[:90], "ms_per_step": v / n / 1e3, "share_of_device": v / max(busy, 1e-9)}
-                    for k, v in top]}
+            "busy_share": busy / wall_us, "kernels_per_step": s["events"] / n,
+            "top": [{"name": t["name"][:90], "ms_per_step": t["us"] / n / 1e3, "share_of_device": t["us"] / max(busy, 1e-9)}
+                    for t in s["top"][:10]]}
 
 
 def train_phase(reps):
@@ -2023,13 +1994,6 @@ def serve_phase():
 # ---------------------------------------------------------------------------
 
 
-def max_sm_clock_hz():
-    """The card's maximum SM clock, for the special-function unit's bound."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    return float(out) * 1e6
-
-
 def probe_kernel_cases(reps):
     """K10 (four modes) and K11 (bf16 and fp32 exp; all-ones and ragged key
     masks) against their plain versions on the same CUDA tensors.
@@ -2068,7 +2032,7 @@ def probe_kernel_cases(reps):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2024)
-    sfu_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_clock_hz()
+    sfu_rate = sfu_per_s()
     peak = H100_FLOPS[torch.bfloat16]
 
     def randn(B, H, L, scale):
@@ -2121,7 +2085,7 @@ def probe_kernel_cases(reps):
                          "library_ms": time_ms(library, reps),
                          "bound_ms": max(flops / peak, nbytes / H100_BYTES_PER_S) * 1e3,
                          "bound_by": "operations" if flops / peak >= nbytes / H100_BYTES_PER_S else "bytes",
-                         "sfu_bound_ms": sfu_ops / sfu_per_s * 1e3})
+                         "sfu_bound_ms": sfu_ops / sfu_rate * 1e3})
         emit({"phase": "kernel_case", **case})
         cases.append(case)
 
@@ -2390,7 +2354,13 @@ class LaunchChecker:
     bound stays.  Launches that meet ``TOL`` are not evaluated in fp64.
     ``records`` keeps every held launch's numbers and verdict.  With
     ``first`` only the window's first ``first`` forward launches are held
-    (the rest run unchecked)."""
+    (the rest run unchecked).  Every launch of K7 (and of its band table,
+    exactly) is held too, against ``_ref_packed_fwd`` by the forward's
+    bounds, and with ``backward`` every launch of K8 and K9 by the
+    backward's; their plain versions run one batch row at a time (a row's
+    (H, S, S) scores in fp32, not the batch's).  With ``fault`` K7 runs with
+    each row's last ``FAULT_TILE`` valid cells made padding while the plain
+    version keeps the true segments."""
 
     def __init__(self, fault=False, backward=False, first=None):
         self.fault, self.backward, self.first = fault, backward, first
@@ -2426,9 +2396,11 @@ class LaunchChecker:
         self.failed[name] = self.failed.get(name, 0) + int(not rec["passed"])
 
     def _tols(self, name):
-        if name.startswith("flash_bwd"):
+        if name == "packed_band":
+            return 0.0, None
+        if name.startswith(("flash_bwd", "packed_bwd")):
             return TOL[("flash_bwd", self.dtypes[name])], None
-        kind = "flash" if name.startswith("flash") else "fused"
+        kind = "flash" if name.startswith(("flash", "packed")) else "fused"
         return TOL[(kind, self.dtypes[name])], MEAN_TOL[self.dtypes[name]]
 
     def ok(self):
@@ -2529,7 +2501,59 @@ class LaunchChecker:
                 return dk, dv
 
             fa._flash_bwd_dq_cuda, fa._flash_bwd_dkv_cuda = dq_checked, dkv_checked
+        self._hold_packed()
         return self
+
+    def _hold_packed(self):
+        from superresolutionhep_tpu_torch.ops import flash_attention as fa
+        from superresolutionhep_tpu_torch.ops import flash_packed as fp
+
+        names = ["packed_band", "_packed_fwd_cuda"] + (["_packed_bwd_dq_cuda", "_packed_bwd_dkv_cuda"]
+                                                       if self.backward else [])
+        orig = {n: getattr(fp, n) for n in names}
+        self._saved += [(fp, n, fn) for n, fn in orig.items()]
+
+        def rows(ref, *ts):  # the plain version one batch row at a time
+            outs = [ref(*(t[b:b + 1] for t in ts)) for b in range(ts[0].shape[0])]
+            return [torch.cat(parts) for parts in zip(*outs)] if isinstance(outs[0], tuple) else torch.cat(outs)
+
+        def band_checked(seg, block_q, block_k=fa.FWD_BLOCK_K):
+            out = orig["packed_band"](seg, block_q, block_k)
+            self._note("packed_band", out, fp._ref_packed_band(seg, block_q, block_k))
+            return out
+
+        def fwd_checked(q_pre, k, v, seg, nomax, with_lse, block_q=None):
+            seg_run = seg
+            if self.fault:  # the cells from the last valid cell's FAULT_TILE-aligned tile on become padding
+                pos = torch.arange(seg.shape[1], device=seg.device)
+                last = torch.where(seg != fp.PAD_SEG, pos, -1).amax(1, keepdim=True)
+                tail = torch.div(last, FAULT_TILE, rounding_mode="floor") * FAULT_TILE
+                seg_run = torch.where(pos[None] >= tail, fp.PAD_SEG, seg).to(seg.dtype).contiguous()
+            out, lse = orig["_packed_fwd_cuda"](q_pre, k, v, seg_run, nomax, with_lse, block_q)
+            soft = "nomax_clip" if nomax else "max"
+            ref = rows(lambda q, k, v, s: fp._ref_packed_fwd(*fa._heads_first(q, k, v), s, soft), q_pre, k, v, seg)
+            self._note("packed_fwd_nomax" if nomax else "packed_fwd", out, ref.permute(0, 2, 1, 3))
+            return out, lse
+
+        def dq_checked(q_pre, k, v, g, lse, dl, seg, block_rows=None):
+            dq = orig["_packed_bwd_dq_cuda"](q_pre, k, v, g, lse, dl, seg, block_rows=block_rows)
+            ref = rows(lambda q, k, v, g, l, d, s: fp._ref_packed_bwd_dq(*fa._heads_first(q, k, v, g), l, d, s),
+                       q_pre, k, v, g, lse, dl, seg)
+            self._note("packed_bwd_dq", dq, ref.permute(0, 2, 1, 3))
+            return dq
+
+        def dkv_checked(q_pre, k, v, g, lse, dl, seg, block_rows=None):
+            dk, dv = orig["_packed_bwd_dkv_cuda"](q_pre, k, v, g, lse, dl, seg, block_rows=block_rows)
+            ref_dk, ref_dv = rows(lambda q, k, v, g, l, d, s: fp._ref_packed_bwd_dkv(*fa._heads_first(q, k, v, g),
+                                                                                     l, d, s),
+                                  q_pre, k, v, g, lse, dl, seg)
+            self._note("packed_bwd_dk", dk, ref_dk.permute(0, 2, 1, 3))
+            self._note("packed_bwd_dv", dv, ref_dv.permute(0, 2, 1, 3))
+            return dk, dv
+
+        fp.packed_band, fp._packed_fwd_cuda = band_checked, fwd_checked
+        if self.backward:
+            fp._packed_bwd_dq_cuda, fp._packed_bwd_dkv_cuda = dq_checked, dkv_checked
 
     def __exit__(self, *exc):
         for mod, name, fn in self._saved:
@@ -4254,6 +4278,261 @@ def closure_variants():
         del inf
 
 
+# ---------------------------------------------------------------------------
+# phase: measure (the JAX package's measuring tools, ported)
+# ---------------------------------------------------------------------------
+
+# each tool's cuts from its defaults in this phase (the model stays at full width)
+MEASURE_CUTS = {
+    "profile_inference": {"reps": [4, 1]},
+    "probe_dispatch": {"reps": [20, 5]},
+    "bench_kernel": {"reps": [20, 3]},
+    "bench_packed_kernel": {"reps": [10, 2]},
+    "bench_packed_train": {"n_events": [256, 32]},
+    "measure_serving_latency": {"reps": [12, 3], "concurrency": [4, 2]},
+    "probe_layout_copies": {"reps": [5, 1], "n_ensemble": [10, 2]},
+}
+
+
+# the checker's names of a counter's launches (one K6/K9 launch gives dk and dv)
+HELD_AS = {"flash_bwd_dkv": ("flash_bwd_dk", "flash_bwd_dv"), "packed_bwd_dkv": ("packed_bwd_dk", "packed_bwd_dv")}
+
+
+def _numbers(obj):
+    """Every number of a nested result (bools and None left out)."""
+    if isinstance(obj, bool) or obj is None:
+        return []
+    if isinstance(obj, (int, float)):
+        return [float(obj)]
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in _numbers(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _numbers(v)]
+    return []
+
+
+def _window_checks(w):
+    """A profiled window (``trace_summary.ProfiledWindow``): complete (a pad
+    recorded on both sides of its events: none lost); its hand-kernel
+    events equal the launch counters' delta kernel by kernel, and the control
+    (the first such event's entry point taken out of the hand-kernel class)
+    fails that; device (busy) time at most the wall time; the class shares
+    sum to 1; where the window wrote its Chrome trace, the trace read back
+    gives the same hand-kernel events and summed time."""
+    from superresolutionhep_tpu_torch.tools import trace_summary as ts
+
+    s = w.summary
+    rec = {**w.record(), "agrees": w.agrees(), "device_le_wall": s["busy_us"] / 1e3 <= w.wall_ms,
+           "shares_sum": sum(v["share"] for v in s["classes"].values())}
+    rec["shares_sum_to_1"] = abs(rec["shares_sum"] - 1.0) <= 1e-6
+    removed = next((ts.entry_name(e.name) for e in w.events if ts.entry_name(e.name)), None)
+    table = {k: v for k, v in ts.HAND_KERNELS.items() if k != removed}
+    rec["control"] = {"removed": removed, "caught": removed is not None and not w.agrees(table)}
+    checks = [rec["complete"], rec["agrees"], rec["device_le_wall"], rec["shares_sum_to_1"],
+              rec["control"]["caught"]]
+    if w.trace_path:
+        back = ts.load_trace(w.trace_path)
+        back_us = sum(e.dur for e in back)
+        rec["chrome_trace"] = {"path": w.trace_path, "hand_kernels": ts.hand_kernel_counts(back), "kernel_us": back_us,
+                               "agrees": ts.hand_kernel_counts(back) == w.launches
+                               and abs(back_us - s["kernel_us"]) <= 1e-3 * s["kernel_us"] + 1.0}
+        checks.append(rec["chrome_trace"]["agrees"])
+    rec["ok"] = all(checks)
+    return rec
+
+
+def measure_phase():
+    """The JAX package's measuring tools as the port ships them
+    (``superresolutionhep_tpu_torch/{tools,scripts}``), each tool's own run
+    function at full model width with the cuts of ``MEASURE_CUTS``, each in
+    its own counted window: the launches per kernel exact against the count
+    worked out from the tool's code and its parameters; every profiled window
+    checked by ``_window_checks``; one call of each tool's kernel paths held
+    by ``LaunchChecker`` (backward where the tool reaches it), which must
+    hold every launch made inside it, and the packed hold's fault control
+    caught; every figure finite; the chained time at most the per-dispatch
+    time, p50 at most p95, both training legs finite with every event
+    trained once, the layout probe's two variants equal."""
+    import shutil
+    import tempfile
+
+    from superresolutionhep_tpu_torch.configs import MULTIPART_CONFIG_MV
+    from superresolutionhep_tpu_torch.data.packing import pack_events
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.ops.flash_packed import packed_flash_attention
+    from superresolutionhep_tpu_torch.scripts import (bench_kernel, bench_packed_kernel, bench_packed_train,
+                                                      measure_serving_latency, probe_dispatch, probe_layout_copies)
+    from superresolutionhep_tpu_torch.tools import profile_inference
+
+    dev = torch.device("cuda")
+    L = int(MULTIPART_CONFIG_MV["flow_model"]["transformer"]["num_transformer_layers"])
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    totals = dict(zero)
+    t_phase = time.time()
+    trace_dir = tempfile.mkdtemp(prefix="srhep_measure_trace_")
+
+    def tool(name, run, expect, checker, checks):
+        """``run(checked, windows)`` in a counted window; ``expect(result)``
+        the launches worked out from the code; ``checks(result)`` the tool's
+        own sanity checks.  ``checked()`` enters ``checker`` and counts the
+        launches made inside it: the checker must have held every one."""
+        windows = []
+        in_checked = dict(zero)
+
+        @contextlib.contextmanager
+        def checked():
+            before = dict(kernels.LAUNCHES)
+            with checker:
+                yield checker
+            for k, v in kernels.LAUNCHES.items():
+                in_checked[k] += v - before[k]
+
+        kernels.reset_launches()
+        t0 = time.time()
+        result = run(checked, windows)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        seconds = time.time() - t0
+        want = dict(zero, **expect(result))
+        wins = [_window_checks(w) for w in windows]
+        own = dict(checks(result))
+        own.update(launch_counts=counts == want, checker_ok=checker.ok(), windows_ok=all(w["ok"] for w in wins),
+                   checker_held_every_launch=any(in_checked.values()) and all(
+                       checker.calls.get(n, 0) == v for k, v in in_checked.items() for n in HELD_AS.get(k, (k,))),
+                   figures_finite=all(np.isfinite(_numbers(result))))
+        line = {"phase": "measure", "tool": name, "seconds": round(seconds, 2), "cuts": MEASURE_CUTS[name],
+                "launches": {k: v for k, v in counts.items() if v},
+                "launches_expected": {k: v for k, v in want.items() if v},
+                "launches_in_checked": {k: v for k, v in in_checked.items() if v},
+                "checker": checker.summary(), "windows": wins, "result": result, "checks": own,
+                "ok": all(own.values())}
+        emit(line)
+        if not line["ok"]:
+            fail(f"measure/{name} checks failed: " + ", ".join(k for k, v in own.items() if not v))
+        for k, v in counts.items():
+            totals[k] += v
+        return result
+
+    # ---- tools/profile_inference.py: N chained evaluations, robust (K1) and no-max (K2)
+    R, N = MEASURE_CUTS["profile_inference"]["reps"][1], profile_inference.N_EVAL_CHAIN
+    per_variant = L * (1 + N * (R + 3)) + 3 * N * L  # checked eval, chains (2 warm, R, profiled); graph 2 warm + 1
+    n_shapes = len(profile_inference.SHAPES)
+    tool("profile_inference",
+         lambda checked, windows: profile_inference.profile(dev, reps=R, checked=checked, windows=windows),
+         lambda r: {"flash_fwd": n_shapes * per_variant, "flash_fwd_nomax": n_shapes * per_variant},
+         LaunchChecker(),
+         lambda r: {"outputs_finite": all(v["finite"] for sh in r["shapes"].values() for v in sh.values())})
+
+    # ---- scripts/probe_dispatch.py: synchronised calls, then a 50-call graph (K1)
+    reps = MEASURE_CUTS["probe_dispatch"]["reps"][1]
+    tool("probe_dispatch",
+         # the small windows write their Chrome traces (a model chain's is tens of MB)
+         lambda checked, windows: probe_dispatch.probe(dev, reps=reps, checked=checked, windows=windows,
+                                                       trace=trace_dir),
+         lambda r: {"flash_fwd": len(probe_dispatch.SHAPES) * (2 + reps + 3 * probe_dispatch.REPS)},
+         LaunchChecker(),
+         lambda r: {"chained_le_per_dispatch": all(x["chained_ms"] <= x["per_dispatch_ms"] for x in r),
+                    "outputs_finite": all(x["finite"] for x in r)})
+
+    # ---- scripts/bench_kernel.py: forward and forward + backward, bf16 and fp32 (K1, K5, K6)
+    reps = MEASURE_CUTS["bench_kernel"]["reps"][1]
+    n_cases = 2 * len(bench_kernel.CASES)
+    tool("bench_kernel",
+         lambda checked, windows: [x for dt in (torch.bfloat16, torch.float32)
+                                   for x in bench_kernel.bench(dev, dt, reps, checked=checked)],
+         # a case: checked forward 1 + forward and backward 1; graphs of 2 warm + 1 captured call each
+         lambda r: {"flash_fwd": 8 * n_cases, "flash_bwd_dq": 4 * n_cases, "flash_bwd_dkv": 4 * n_cases},
+         LaunchChecker(backward=True),
+         lambda r: {"outputs_finite": all(x["finite"] for x in r),
+                    "bounds_below_times": all(x["fwd_bound_ms"] <= x["fwd_ms"] + 0.005
+                                              and x["fwd_bwd_bound_ms"] <= x["fwd_bwd_ms"] + 0.005 for x in r)})
+
+    # ---- scripts/bench_packed_kernel.py: K7 (+ band) per tile against bucketed K1/K2
+    reps = MEASURE_CUTS["bench_packed_kernel"]["reps"][1]
+    counts = bench_packed_kernel.event_counts()
+    nb, nbk = len(pack_events(counts, S=5120, rows_per_batch=12)), len(bench_packed_kernel.buckets(counts))
+    k7 = 1 + 3 * (1 + nb + reps * nb) + nb  # checked; default leg + 2 forced tiles; the profiled pass
+    k1 = 2 + (reps + 2) * nbk  # checked, a warm pass, then the timed passes' first call, warm pass, reps
+    tool("bench_packed_kernel",
+         lambda checked, windows: bench_packed_kernel.bench(dev, reps=reps, checked=checked, windows=windows,
+                                                            trace=trace_dir),
+         lambda r: {"packed_fwd": k7, "packed_fwd_nomax": k7, "packed_band": 2 * k7, "flash_fwd": k1,
+                    "flash_fwd_nomax": k1},
+         LaunchChecker(),
+         lambda r: {"outputs_finite": all(x.get("finite", True) for x in r),
+                    "jax_blocks_not_run": sum(not x.get("applicable", True) for x in r)
+                    == len(bench_packed_kernel.JAX_BLOCKS)})
+
+    # the packed hold's control (outside the tools' counted windows): K7 on the
+    # tool's first packed batch with each row's last tile of cells made padding
+    S, H, D = 5120, bench_packed_kernel.H, bench_packed_kernel.D
+    seg = torch.from_numpy(bench_packed_kernel.segment_ids(pack_events(counts, S=S, rows_per_batch=12)[:1], S)[0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = [torch.randn((seg.shape[0], S, H, D), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+    with torch.no_grad(), LaunchChecker(fault=True) as bad:
+        for softmax in ("max", "nomax_clip"):
+            packed_flash_attention(*qkv, seg.to(dev), scale=D ** -0.5, softmax=softmax)
+    tally = {k: bad.tally(k) for k in ("packed_fwd", "packed_fwd_nomax", "packed_band")}
+    caught = all(tally[k]["launches"] == tally[k]["failed"] == 1 for k in ("packed_fwd", "packed_fwd_nomax"))
+    emit({"phase": "measure", "tool": "packed_hold_control", "rows": seg.shape[0], "fault_tile": FAULT_TILE,
+          "tally": tally, "caught": caught, "ok": caught})
+    if not caught:
+        fail("measure: the packed hold missed K7 run on a row's tail tile made padding")
+    del qkv
+
+    # ---- scripts/bench_packed_train.py: train steps, bucketed (K1/K5/K6) and packed (K7/K8/K9)
+    n_ev = MEASURE_CUTS["bench_packed_train"]["n_events"][1]
+
+    def train_expect(r):
+        # per leg: the checked and the profiled loss_and_grads, two warm steps a
+        # shape, one step a batch; remat: a forward and its recompute per layer
+        nb_b = 2 + 2 * r["bucketed"]["n_shapes"] + r["bucketed"]["n_batches"]
+        nb_p = 2 + 2 * r["packed"]["n_shapes"] + r["packed"]["n_batches"]
+        return {"flash_fwd": 2 * L * nb_b, "flash_bwd_dq": L * nb_b, "flash_bwd_dkv": L * nb_b,
+                "packed_fwd": 2 * L * nb_p, "packed_bwd_dq": L * nb_p, "packed_bwd_dkv": L * nb_p,
+                "packed_band": 4 * L * nb_p}
+
+    tool("bench_packed_train",
+         lambda checked, windows: bench_packed_train.bench(dev, n_events=n_ev, checked=checked, windows=windows),
+         train_expect, LaunchChecker(backward=True),
+         lambda r: {"losses_finite": r["losses_finite"], "events_trained_once": r["events_trained_once"]})
+
+    # ---- scripts/measure_serving_latency.py: SRServer at the production settings (K1-K4)
+    reps, conc = (MEASURE_CUTS["measure_serving_latency"][k][1] for k in ("reps", "concurrency"))
+
+    def serve_expect(r):
+        per_call = L * 24  # ab2e at 25 points: 24 evaluations
+        calls = r["warmup_sampler_calls"] + r["sampler_calls"]
+        return {"flash_fwd": L, "flash_fwd_nomax": per_call * calls + L,  # + the first request's self-check
+                "fused_qkv": per_call * calls + L, "fused_mlp": per_call * calls + L}
+
+    tool("measure_serving_latency",
+         lambda checked, windows: measure_serving_latency.measure(measure_serving_latency.make_server(dev), reps,
+                                                                  conc, checked=checked),
+         serve_expect, LaunchChecker(),
+         lambda r: {"selfcheck_passed": r["first_request"]["selfcheck_passed"] is True,
+                    "p50_le_p95": all(b["p50_ms"] <= b["p95_ms"] for b in [*r["buckets"].values(), r["concurrent"],
+                                                                          r["concurrent_small"]]),
+                    "outputs_finite": all(b["finite"] for b in r["buckets"].values())})
+
+    # ---- scripts/probe_layout_copies.py: the production sampler call, default and pre-laid weights (K2-K4)
+    reps, n_ens = (MEASURE_CUTS["probe_layout_copies"][k][1] for k in ("reps", "n_ensemble"))
+    per_shape = 2 * L + 2 * (reps + 3) * probe_layout_copies.N_STEPS * L  # checked + watched evals; 2 variants
+    n_shapes = len(probe_layout_copies.SHAPES)
+    tool("probe_layout_copies",
+         lambda checked, windows: probe_layout_copies.probe(dev, reps=reps, n_ensemble=n_ens, checked=checked,
+                                                            windows=windows),
+         lambda r: {k: n_shapes * per_shape for k in ("flash_fwd_nomax", "fused_qkv", "fused_mlp")},
+         LaunchChecker(),
+         lambda r: {"outputs_equal": all(sh["outputs_equal"] for sh in r["shapes"].values()),
+                    "outputs_finite": all(sh["finite"] for sh in r["shapes"].values())})
+
+    shutil.rmtree(trace_dir)
+    emit({"phase": "measure", "tool": "all", "seconds": round(time.time() - t_phase, 2),
+          "launches": {k: v for k, v in totals.items() if v}})
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true")
@@ -4317,6 +4596,7 @@ def main():
     by_phase["parallel"] = parallel_phase()
     by_phase["parallel_pf"] = parallel_pf_phase()
     by_phase["closure"] = closure_phase(closure)
+    by_phase["measure"] = measure_phase()
 
     # one entry per kernel: the main paths' shape class (bf16; L=2048 with
     # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9, the
