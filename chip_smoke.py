@@ -95,6 +95,17 @@ and the JAX package's measuring tools as the port ships them (always run):
     kernel paths under the checker (K7-K9 too), which must hold every launch
     made in that call, and K7 run on a row's tail tile made padding must be
     caught by it;
+and the JAX package's bench as the port ships it (always run):
+  * bench: ``scripts/bench.py`` and ``scripts/measure_train_bench.py`` through
+    their run functions at full model width with fewer events and
+    repetitions (``BENCH_CUTS``): the bucketed headline (K2/K3/K4 behind the
+    K1 self-check) with its secondaries (the TPU golden on ``closure_sr``, PF
+    inference at (64, 2048), the PF and SR train steps), the packed headline
+    (K7 no-max, K3/K4, the band table) with its timed pass profiled, and the
+    six SR train legs (fused and no-remat) with the PF step; each run in its
+    own counted window with its launches worked out from the code, one call
+    of each kernel path held by the checker, no figure with an error, no MFU
+    or share of a peak above 1, every event counted once;
 and checks from the launch counters, reset just before each path and read
 just after, that they really went through the kernels.  Weights are random
 (seeded) but for the trained phase; events are synthetic (seeded).
@@ -110,7 +121,7 @@ where single-TF32 products would miss the fp32 bounds; launched twice,
 equal bit for bit), the scripts' own
 lines and ``probes``, ``serve``, ``packed_inference``, ``train``, ``dopri5_ensemble``, ``packed_train``,
 ``pf_inference``, ``pf_train``, ``trained``, ``normformer``, ``parallel``, ``parallel_pf``, ``closure``, a ``measure``
-line per tool), then the card's name and power
+line per tool, a ``bench`` line per run), then the card's name and power
 limit as nvidia-smi gives them,
 then ``{"kernels": [...]}`` (one entry per kernel, K1-K11: its time on the
 card, the plain version's, the bound, the launches on the main paths; the
@@ -121,7 +132,7 @@ prints no ``ok`` line.  Without a CUDA device it exits 2.
 Options (for development; the default run does everything):
     --skip-serve      no serve, packed and pf inference, trained and normformer phases (exits 1 by design)
     --skip-train      no train, dopri5 ensemble, packed and pf train phases (exits 1 by design)
-                      (the parallel, parallel_pf, closure and measure phases run under both)
+                      (the parallel, parallel_pf, closure, measure and bench phases run under both)
     --ptxas           print nvcc's per-kernel register/shared-memory report
     --reps N          timed launches per kernel case (default 20)
     --closure-variants  after the build, only the SR closure's noise seeds, samplers and
@@ -1306,7 +1317,9 @@ def _grads_agree(ga, gb, tol):
 def profile_steps(step, n):
     """Device time of ``n`` calls of ``step`` by ``torch.profiler`` (CUPTI,
     ``tools/trace_summary.py``): the wall time, the summed kernel time, the
-    busy share and the kernels that take the most time."""
+    busy share, the kernels that take the most time, and ``complete`` (the
+    window's pads recorded on both sides of its events: the profiler lost
+    none of them; each phase requires it)."""
     from superresolutionhep_tpu_torch.tools.trace_summary import ProfiledWindow
 
     with ProfiledWindow(torch.device("cuda"), host_ops=True) as w:
@@ -1314,7 +1327,8 @@ def profile_steps(step, n):
             step()
     s, wall_us = w.summary, w.wall_ms * 1e3
     busy = s["kernel_us"]
-    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3, "device_ms_per_step": busy / n / 1e3,
+    return {"steps": n, "complete": w.complete, "wall_ms_per_step": wall_us / n / 1e3,
+            "device_ms_per_step": busy / n / 1e3,
             "busy_share": busy / wall_us, "kernels_per_step": s["events"] / n,
             "top": [{"name": t["name"][:90], "ms_per_step": t["us"] / n / 1e3, "share_of_device": t["us"] / max(busy, 1e-9)}
                     for t in s["top"][:10]]}
@@ -1466,6 +1480,7 @@ def train_phase(reps):
                       "profile": profile_steps(lambda: trs.train_step(b, lr=1e-3), 3)})
         del trs, b
     checks["step_times_finite"] = all(s["finite"] for s in steps)
+    checks["profiles_complete"] = all(s["profile"]["complete"] for s in steps)
     line["train_step_ms"] = steps
     line["checks"], line["ok"] = checks, all(checks.values())
     emit(line)
@@ -1537,6 +1552,7 @@ def packed_inference_phase():
     line["profile_sampler_call"] = profile_steps(
         lambda: inf._gen(b0, gen, n_ensemble=10, n_steps=inf.n_steps, method="ab2e", fast=True), 1)
     line["profile_sampler_call"]["valid_cells"] = int(b0["q_mask"].sum())
+    checks["profile_complete"] = line["profile_sampler_call"]["complete"]
     del b0
 
     robust_inf = SRInference(serve_inference_config(cfg_mv, fast_softmax=False, **packing), params=params,
@@ -1824,6 +1840,7 @@ def packed_train_phase(reps):
             "profile": profile_steps(lambda: trs.train_step(b, lr=1e-3), 3)}
     del trs, b
     checks["step_time_finite"] = step["finite"]
+    checks["profile_complete"] = step["profile"]["complete"]
     line["train_step_ms"] = step
     line["checks"], line["ok"] = checks, all(checks.values())
     emit(line)
@@ -2587,18 +2604,16 @@ def _sha256(path):
         return hashlib.sha256(fp.read()).digest()
 
 
-def _golden_inputs(name, x0s):
+def _golden_inputs(name):
     """A frozen SR golden's batch on the card, its expected samples, its
-    valid mask and the fixture's x0 (the JAX sampler's draw); the golden's
-    bytes must be those the fixture was made from."""
-    path = os.path.join(ROOT, "tests", "golden", f"{name}.npz")
-    if _sha256(path) != bytes(x0s[f"golden_sha256::{name}"]):
-        fail(f"trained: {path} is not the file the x0 fixture was made from")
-    z = np.load(path)
-    batch = {k: torch.from_numpy(z[f"batch::{k}"]).cuda() for k in
-             ("eta", "cosphi", "sinphi", "layer", "e_proxy", "q_mask")}
-    x0 = torch.from_numpy(x0s[f"x0::{name}"]).cuda()
-    return z, batch, x0, z["batch::q_mask"].astype(bool)
+    valid mask and the fixture's x0 (``scripts/bench.py::golden_inputs``);
+    the golden's bytes must be those the fixture was made from."""
+    from superresolutionhep_tpu_torch.scripts.bench import golden_inputs
+
+    try:
+        return golden_inputs(torch.device("cuda"), name)
+    except ValueError as e:
+        fail(f"trained: {e}")
 
 
 class GoldenEvents:
@@ -2678,7 +2693,6 @@ def trained_phase(trees, reps):
     from superresolutionhep_tpu_torch.ops import kernels
 
     sr_blob = os.path.join(ROOT, CLOSURE_SR_DIR, "params.msgpack")
-    x0s = np.load(os.path.join(ROOT, "tests", "golden_torch", "sr_golden_x0.npz"))
     n_layers = int(CLOSURE_SR_CONFIG_MV["flow_model"]["transformer"]["num_transformer_layers"])
     zero = {k: 0 for k in kernels.LAUNCHES}
     total = dict(zero)
@@ -2688,7 +2702,7 @@ def trained_phase(trees, reps):
     inf32 = SRInference({"model": {"config_mv": CLOSURE_SR_CONFIG_MV, "config_t": CLOSURE_SR_CONFIG_T,
                                    "checkpoint_path": sr_blob, "n_steps": 25}}, device="cuda")
     line["load_s"] = round(time.time() - t0, 3)
-    z, batch, x0, mask = _golden_inputs("sr_trained_golden", x0s)
+    z, batch, x0, mask = _golden_inputs("sr_trained_golden")
     checks["params_are_the_goldens"] = _sha256(sr_blob) == bytes(z["params_sha256"])
 
     def counted(model):
@@ -2724,7 +2738,7 @@ def trained_phase(trees, reps):
 
     # ---- bf16 production: SRInference.predict with the serving settings on
     # sr_tpu_golden's four events, the fixture's x0 through the noise hook
-    ztpu, batch, x0, mask = _golden_inputs("sr_tpu_golden", x0s)
+    ztpu, batch, x0, mask = _golden_inputs("sr_tpu_golden")
     method, n_steps = bytes(ztpu["method"]).decode(), int(ztpu["n_steps"])
     evals = n_steps - 1  # ab2e: one model evaluation per grid interval
     prod = SRInference(serve_inference_config(CLOSURE_SR_CONFIG_MV, CLOSURE_SR_CONFIG_T, checkpoint_path=sr_blob,
@@ -2796,23 +2810,23 @@ def trained_phase(trees, reps):
     # ---- the path the gate rejects on this checkpoint, run for its kernels:
     # the no-max fused bf16 model (K2/K3/K4 on trained weights) through the
     # same sampler, against sr_tpu_golden, frozen from that function on a TPU
+    # (the core of the bench's TPU-golden report, scripts/bench.py)
+    from superresolutionhep_tpu_torch.scripts.bench import tpu_golden_diffs
+
     if prod.model_fast is None:
         fail("trained: the serving settings built no fast model")
     kernels.reset_launches()
     with LaunchChecker() as chk:
-        out = generate_samples(prod.model_fast, batch, n_steps=n_steps, method=method, x0=x0)
+        d_tpu = tpu_golden_diffs(prod.model_fast, torch.device("cuda"))
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     per = n_layers * evals
     checks["nomax_launch_counts"] = counts == dict(zero, flash_fwd_nomax=per, fused_qkv=per, fused_mlp=per)
     checks["nomax_vs_plain"] = chk.ok()
-    got = out[..., 0].float().cpu().numpy()[mask]
-    d_tpu = np.abs(got - ztpu["expected"][..., 0][mask])
     with LaunchChecker(fault=True) as bad:
-        out_bad = generate_samples(prod.model_fast, batch, n_steps=n_steps, method=method, x0=x0)
-    d_bad = np.abs(out_bad[..., 0].float().cpu().numpy()[mask] - ztpu["expected"][..., 0][mask])
+        d_bad = tpu_golden_diffs(prod.model_fast, torch.device("cuda"))
     p99, p99_bad = float(np.percentile(d_tpu, 99)), float(np.percentile(d_bad, 99))
-    checks["nomax_finite"] = bool(np.isfinite(got).all())
+    checks["nomax_finite"] = bool(np.isfinite(d_tpu).all())
     checks["nomax_golden_p99"] = p99 <= NOMAX_GOLDEN_P99_LIMIT
     checks["nomax_control_caught"] = bad.caught() and p99_bad > NOMAX_GOLDEN_P99_LIMIT
     line.update(gate_rejected_nomax={
@@ -3101,6 +3115,8 @@ def pf_train_phase(trees, reps):
         evs = budget_sized_pf_events(ds, [pad_n - int(x) for x in rng.integers(0, 128, bsz)], rng)
         line["train_step_ms_budget"].append(dict(step_times(collate_pf(evs, pad_n, 4)),
                                                  cost=bsz * pad_n * pad_n, cost_budget=budget))
+    checks["profiles_complete"] = all(st["profile"]["complete"]
+                                      for st in [line["train_step_ms"], *line["train_step_ms_budget"]])
     del trs
     line["checks"], line["ok"] = checks, all(checks.values())
     emit(line)
@@ -4341,6 +4357,55 @@ def _window_checks(w):
     return rec
 
 
+def counted_tool(phase, name, cuts, run, expect, checker, checks, totals):
+    """``run(checked, windows)`` in a counted window (every count to 0 just
+    before, read just after); ``expect(result)`` the launches worked out from
+    the code; ``checks(result)`` the tool's own checks.  ``checked()`` enters
+    ``checker`` and counts the launches made inside it: the checker must
+    have held every one.  Every profiled window of ``windows`` passes
+    ``_window_checks``; every figure is finite.  Emits the window's line,
+    fails on any check, adds the counts to ``totals``; returns the result."""
+    from superresolutionhep_tpu_torch.ops import kernels
+
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    windows = []
+    in_checked = dict(zero)
+
+    @contextlib.contextmanager
+    def checked():
+        before = dict(kernels.LAUNCHES)
+        with checker:
+            yield checker
+        for k, v in kernels.LAUNCHES.items():
+            in_checked[k] += v - before[k]
+
+    kernels.reset_launches()
+    t0 = time.time()
+    result = run(checked, windows)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    seconds = time.time() - t0
+    want = dict(zero, **expect(result))
+    wins = [_window_checks(w) for w in windows]
+    own = dict(checks(result))
+    own.update(launch_counts=counts == want, checker_ok=checker.ok(), windows_ok=all(w["ok"] for w in wins),
+               checker_held_every_launch=any(in_checked.values()) and all(
+                   checker.calls.get(n, 0) == v for k, v in in_checked.items() for n in HELD_AS.get(k, (k,))),
+               figures_finite=all(np.isfinite(_numbers(result))))
+    line = {"phase": phase, "tool": name, "seconds": round(seconds, 2), "cuts": cuts,
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_expected": {k: v for k, v in want.items() if v},
+            "launches_in_checked": {k: v for k, v in in_checked.items() if v},
+            "checker": checker.summary(), "windows": wins, "result": result, "checks": own,
+            "ok": all(own.values())}
+    emit(line)
+    if not line["ok"]:
+        fail(f"{phase}/{name} checks failed: " + ", ".join(k for k, v in own.items() if not v))
+    for k, v in counts.items():
+        totals[k] += v
+    return result
+
+
 def measure_phase():
     """The JAX package's measuring tools as the port ships them
     (``superresolutionhep_tpu_torch/{tools,scripts}``), each tool's own run
@@ -4372,46 +4437,7 @@ def measure_phase():
     trace_dir = tempfile.mkdtemp(prefix="srhep_measure_trace_")
 
     def tool(name, run, expect, checker, checks):
-        """``run(checked, windows)`` in a counted window; ``expect(result)``
-        the launches worked out from the code; ``checks(result)`` the tool's
-        own sanity checks.  ``checked()`` enters ``checker`` and counts the
-        launches made inside it: the checker must have held every one."""
-        windows = []
-        in_checked = dict(zero)
-
-        @contextlib.contextmanager
-        def checked():
-            before = dict(kernels.LAUNCHES)
-            with checker:
-                yield checker
-            for k, v in kernels.LAUNCHES.items():
-                in_checked[k] += v - before[k]
-
-        kernels.reset_launches()
-        t0 = time.time()
-        result = run(checked, windows)
-        torch.cuda.synchronize()
-        counts = dict(kernels.LAUNCHES)
-        seconds = time.time() - t0
-        want = dict(zero, **expect(result))
-        wins = [_window_checks(w) for w in windows]
-        own = dict(checks(result))
-        own.update(launch_counts=counts == want, checker_ok=checker.ok(), windows_ok=all(w["ok"] for w in wins),
-                   checker_held_every_launch=any(in_checked.values()) and all(
-                       checker.calls.get(n, 0) == v for k, v in in_checked.items() for n in HELD_AS.get(k, (k,))),
-                   figures_finite=all(np.isfinite(_numbers(result))))
-        line = {"phase": "measure", "tool": name, "seconds": round(seconds, 2), "cuts": MEASURE_CUTS[name],
-                "launches": {k: v for k, v in counts.items() if v},
-                "launches_expected": {k: v for k, v in want.items() if v},
-                "launches_in_checked": {k: v for k, v in in_checked.items() if v},
-                "checker": checker.summary(), "windows": wins, "result": result, "checks": own,
-                "ok": all(own.values())}
-        emit(line)
-        if not line["ok"]:
-            fail(f"measure/{name} checks failed: " + ", ".join(k for k, v in own.items() if not v))
-        for k, v in counts.items():
-            totals[k] += v
-        return result
+        return counted_tool("measure", name, MEASURE_CUTS[name], run, expect, checker, checks, totals)
 
     # ---- tools/profile_inference.py: N chained evaluations, robust (K1) and no-max (K2)
     R, N = MEASURE_CUTS["profile_inference"]["reps"][1], profile_inference.N_EVAL_CHAIN
@@ -4533,6 +4559,170 @@ def measure_phase():
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase: bench (the JAX package's bench.py and measure_train_bench.py, ported)
+# ---------------------------------------------------------------------------
+
+# the bench's cuts from its defaults in this phase (the models stay at full width)
+BENCH_CUTS = {
+    "events": [256, 32],
+    "reps": [3, 1],
+    "train_n_rep": [8, 2],  # the SR and PF train steps' block length
+    "pf_n_rep": [10, 3],
+    # the bucketed run's tails keep their filler rows (pow2), which the event count must leave out
+    "tail": ["exact", "pow2"],
+    # the secondaries (TPU golden, PF inference and train, SR train legs) run after the bucketed run only
+    "secondaries": ["every run", "bucketed run"],
+}
+
+
+def _errors(obj, path=""):
+    """Where a nested result records an error."""
+    if isinstance(obj, dict):
+        return [f"{path}/{k}" for k in obj if k == "error"] + [
+            e for k, v in obj.items() for e in _errors(v, f"{path}/{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [e for i, v in enumerate(obj) for e in _errors(v, f"{path}/{i}")]
+    return []
+
+
+def _shares(obj):
+    """Every MFU and share of a peak in a nested result (None left out)."""
+    if isinstance(obj, dict):
+        return [float(v) for k, v in obj.items() if ("mfu" in k or k.endswith("_vs_published_peak"))
+                and isinstance(v, (int, float)) and not isinstance(v, bool)] + [
+            x for v in obj.values() for x in _shares(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _shares(v)]
+    return []
+
+
+def bench_phase():
+    """The port's ``scripts/bench.py`` and ``scripts/measure_train_bench.py``
+    through their own run functions at full model width, with the cuts of
+    ``BENCH_CUTS``, each run in its own counted window with the launches
+    worked out from the code:
+      * bench, bucketed (no-max K2 and K3/K4 behind the robust K1 self-check,
+        its tails with filler rows), then the secondaries: the TPU golden on
+        ``closure_sr`` (K2/K3/K4), PF inference at (64, 2048) (K1 fp32 at
+        D = 16; at h 64 the fused prologue's gate takes the unfused layer:
+        no K3/K4), the PF train step at (25, 2048) (K1/K5/K6 fp32) and the SR
+        train steps at (8, 2048) and (6, 3584) (K1/K5/K6 bf16, remat);
+      * bench, packed (K7 no-max with the band table and K3/K4 on
+        per-segment rows behind the robust K7 self-check), its timed pass in
+        a profiled window (``BENCH_PROFILE``);
+      * measure_train_bench: the six SR legs (fused K3/K4 forward in three,
+        no remat in two) and the PF step.
+    In each window: every launch the self-check and the secondaries make in
+    their ``checked()`` call held by ``LaunchChecker(backward=True)``; the
+    profiled window complete and its hand kernels equal to the counters; no
+    figure records an error; no MFU or share of a peak above 1; every event
+    counted once (the filler rows of the bucketed run's tails left out)."""
+    import shutil
+    import tempfile
+
+    from superresolutionhep_tpu_torch.configs import CLOSURE_SR_CONFIG_MV, MULTIPART_CONFIG_MV, PF_CONFIG_MV
+    from superresolutionhep_tpu_torch.ops import kernels
+    from superresolutionhep_tpu_torch.scripts import bench, measure_train_bench
+
+    dev = torch.device("cuda")
+    L = int(MULTIPART_CONFIG_MV["flow_model"]["transformer"]["num_transformer_layers"])
+    L_golden = int(CLOSURE_SR_CONFIG_MV["flow_model"]["transformer"]["num_transformer_layers"])
+    n_enc = int(PF_CONFIG_MV["pf_model"]["encoder"]["transformer"]["num_transformer_layers"])
+    n_ev, reps, tr_rep, pf_rep = (BENCH_CUTS[k][1] for k in ("events", "reps", "train_n_rep", "pf_n_rep"))
+    evals = bench.N_STEPS - 1  # ab2e: one model evaluation per grid interval
+    steps = 2 + 3 * tr_rep + 1  # a train leg: 2 warm steps, 3 timed blocks, the checked loss_and_grads
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    t_phase = time.time()
+    trace_dir = tempfile.mkdtemp(prefix="srhep_bench_trace_")
+
+    def infer_expect(d, packed):
+        # warm-up: 2 sampler calls a shape; the timed pass: reps calls a batch;
+        # the self-check: one evaluation of each model.  A failed self-check
+        # re-warms and times the robust model instead.
+        timed = 2 * d["n_shapes"] + reps * len(d["per_batch"])
+        fast_calls, robust_calls = (timed, 0) if d["fast_softmax"] else (2 * d["n_shapes"], timed)
+        fast, robust = L * (evals * fast_calls + 1), L * (evals * robust_calls + 1)
+        if packed:
+            return {"packed_fwd_nomax": fast, "fused_qkv": fast, "fused_mlp": fast, "packed_fwd": robust,
+                    "packed_band": fast + robust}
+        return {"flash_fwd_nomax": fast, "fused_qkv": fast, "fused_mlp": fast, "flash_fwd": robust}
+
+    def add(a, b):
+        return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+    def sr_leg(leg):  # K1 twice a layer under remat (the forward and its recompute), K3/K4 likewise when fused
+        fwd = (2 if leg.get("remat", True) else 1) * L * steps
+        out = {"flash_fwd": fwd, "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
+        return add(out, {"fused_qkv": fwd, "fused_mlp": fwd}) if leg.get("fused", False) else out
+
+    pf_train = {"flash_fwd": n_enc * steps, "flash_bwd_dq": n_enc * steps, "flash_bwd_dkv": n_enc * steps}
+
+    def common_checks(r):
+        d = r["detail"]
+        return {"events_counted_once": d["n_events"] == n_ev and sum(b[1] for b in d["per_batch"]) == n_ev,
+                "selfcheck_ran": d["nomax_selfcheck_ok"] is not None,
+                "no_errors": not _errors(r), "shares_at_most_1": all(x <= 1.0 for x in _shares(r)),
+                "metric_line": sorted(r["line"]) == ["metric", "unit", "value", "vs_baseline"]
+                and r["line"]["value"] > 0}
+
+    # ---- bench.py, bucketed, with the secondaries
+    s = bench.settings({"reps": reps, "tail": BENCH_CUTS["tail"][1]}, environ={})
+
+    def bucketed_run(checked, windows):
+        line, detail = bench.bench(dev, s, n_events=n_ev, train_n_rep=tr_rep, pf_n_rep=pf_rep, checked=checked,
+                                   windows=windows)
+        return {"line": line, "detail": detail}
+
+    def bucketed_expect(r):
+        out = infer_expect(r["detail"], packed=False)
+        out = add(out, {k: L_golden * evals for k in ("flash_fwd_nomax", "fused_qkv", "fused_mlp")})  # golden
+        out = add(out, {"flash_fwd": n_enc * (pf_rep + 2)})  # PF inference: a warm call, the checked one, the reps
+        out = add(out, pf_train)
+        for leg in bench.SR_TRAIN_LEGS:
+            out = add(out, sr_leg(leg))
+        return out
+
+    def bucketed_checks(r):
+        d = r["detail"]
+        return dict(common_checks(r), filler_rows_present=any(b[1] < b[0][0] for b in d["per_batch"]),
+                    tpu_golden_reported=all(k in (d["tpu_golden"] or {}) for k in ("ok", "max_diff", "p99_diff", "tol")),
+                    pf_inference_reported=isinstance(d["pf_inference_events_per_sec"], float),
+                    train_legs=len(d["sr_train"]) == len(bench.SR_TRAIN_LEGS))
+
+    counted_tool("bench", "bench_bucketed", BENCH_CUTS, bucketed_run, bucketed_expect, LaunchChecker(backward=True),
+                 bucketed_checks, totals)
+
+    # ---- bench.py, packed, the timed pass profiled
+    s = bench.settings({"reps": reps, "packed": 1, "profile": trace_dir}, environ={})
+
+    def packed_run(checked, windows):
+        line, detail = bench.bench(dev, s, n_events=n_ev, secondaries=False, checked=checked, windows=windows)
+        return {"line": line, "detail": detail}
+
+    counted_tool("bench", "bench_packed", BENCH_CUTS, packed_run, lambda r: infer_expect(r["detail"], packed=True),
+                 LaunchChecker(), lambda r: dict(common_checks(r), profiled=r["detail"]["profile"] is not None),
+                 totals)
+
+    # ---- measure_train_bench.py: six SR legs, the PF step
+    def train_expect(r):
+        out = dict(pf_train)
+        for leg in measure_train_bench.LEGS:
+            out = add(out, sr_leg(leg))
+        return out
+
+    counted_tool("bench", "measure_train_bench", BENCH_CUTS,
+                 lambda checked, windows: measure_train_bench.measure(dev, n_rep=tr_rep, checked=checked),
+                 train_expect, LaunchChecker(backward=True),
+                 lambda r: {"legs": len(r["sr_train"]) == len(measure_train_bench.LEGS), "no_errors": not _errors(r),
+                            "shares_at_most_1": all(x <= 1.0 for x in _shares(r))}, totals)
+
+    shutil.rmtree(trace_dir)
+    emit({"phase": "bench", "tool": "all", "seconds": round(time.time() - t_phase, 2),
+          "launches": {k: v for k, v in totals.items() if v}})
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true")
@@ -4597,6 +4787,7 @@ def main():
     by_phase["parallel_pf"] = parallel_pf_phase()
     by_phase["closure"] = closure_phase(closure)
     by_phase["measure"] = measure_phase()
+    by_phase["bench"] = bench_phase()
 
     # one entry per kernel: the main paths' shape class (bf16; L=2048 with
     # per-batch rows for K1-K6, the (8, 5120) packed batch for K7-K9, the

@@ -166,7 +166,7 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="train with the fused DiT layer kernels (plain recompute backward)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default=os.path.join(RUNS_DIR, "train_bench.json"))
+    ap.add_argument("--out", default=os.path.join(RUNS_DIR, "packed_train_bench.json"))
     args = ap.parse_args(argv)
     from ..utils.hostmem import ensure_tuned
 

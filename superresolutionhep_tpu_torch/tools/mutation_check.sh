@@ -16,7 +16,8 @@
 # results sees a mutation whose build the gate already refuses
 # (CASES=parallel_phase runs the parallel phase alone, CASES=parallel_pf_phase
 # the stage-2 parallel and split-validation phase, CASES=closure_phase the two
-# shipped closures).  With TESTS set to CPU test files, those run instead of
+# shipped closures, CASES=bench_phase the port's bench and
+# measure_train_bench).  With TESTS set to CPU test files, those run instead of
 # the card, in the copy with the JAX package, its scripts and configs beside
 # it (e.g. TESTS=tests/test_torch_port_closure.py; any machine, no card); a
 # mutation given test files of its own (a fourth argument) always runs them:
@@ -29,7 +30,7 @@ SELECTED="$*"
 run() {  # name, sed expression, file[, CPU test files that must see it]
   if [ -n "$SELECTED" ] && [[ " $SELECTED " != *" $1 "* ]]; then return; fi
   tests="${4:-$TESTS}"
-  rm -rf "$WORK/mut" && mkdir -p "$WORK/mut/tests" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$ROOT/saved_checkpoints" "$WORK/mut/" && cp -r "$ROOT/tests/golden_torch" "$WORK/mut/tests/" && cd "$WORK/mut" || exit 9
+  rm -rf "$WORK/mut" && mkdir -p "$WORK/mut/tests" && cp -r "$ROOT/chip_smoke.py" "$ROOT/superresolutionhep_tpu_torch" "$ROOT/saved_checkpoints" "$WORK/mut/" && cp -r "$ROOT/tests/golden_torch" "$ROOT/tests/golden" "$WORK/mut/tests/" && cd "$WORK/mut" || exit 9
   if [ -n "$tests" ]; then
     cp -r "$ROOT/tests" "$ROOT/superresolutionhep_tpu" "$ROOT/scripts" "$ROOT/configs" "$ROOT/pytest.ini" "$WORK/mut/" || exit 9
   fi
@@ -115,4 +116,12 @@ run val_noise_per_rank 's/            x0 = self._val_x0(batch\["e_proxy"\]) if g
 run closure_naive_split_by_rf 's/    rf2 = rf \* rf$/    rf2 = rf/' superresolutionhep_tpu_torch/scripts/closure_suite.py
 run pf_perf_idx_not_remapped 's/            remap = np.argsort(idx)  # row order -> event order/            remap = np.arange(idx.size)/' superresolutionhep_tpu_torch/analysis/performance.py tests/test_torch_port_pf_analysis.py
 run flops_packed_band_off_by_one 's/    kcnt = band\[..., 1\].numpy()/    kcnt = band[..., 1].numpy() + 1/' superresolutionhep_tpu_torch/tools/flops.py tests/test_torch_port_pf_analysis.py
+# the port's bench (chip_smoke.py's bench phase, CASES=bench_phase): a tail
+# batch's filler rows counted as events (the phase's bucketed run keeps pow2
+# tails, so its batches carry filler rows), and the fused prologue's width
+# gates skipped (the bench's PF inference asks for the fused prologue at the
+# PF model's h 64, which must take the unfused layer; opening fused_qkv_ok
+# alone is not enough: the fp32 capacity gate also wants F % 128)
+run bench_counts_tail_fillers 's/out.append((hb, int((idxs >= 0).sum()), /out.append((hb, len(idxs), /' superresolutionhep_tpu_torch/scripts/bench.py
+run pf_bench_fused_at_h64 's/        if self._use_flash(x) and fused_qkv_ok(L, F) and fused_qkv_capacity_ok(F, dt) and kernel_ok:/        if self._use_flash(x) and kernel_ok:/' superresolutionhep_tpu_torch/models/attention.py
 exit $status

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``train/metrics.py``: a local JSONL stream
 of scalars (``metrics.jsonl``), a provenance record
 (``run_metadata.json``) and a source snapshot (the package's sources plus
-the resolved configs as JSON), and profiler hooks on ``torch.profiler``.
+the resolved configs as JSON), and a profiled window (``tools/trace_summary.py::
+ProfiledWindow``) over one epoch.
 No external logger.
 """
 
@@ -80,23 +81,35 @@ class MetricsLogger:
         fig.savefig(path)
         return path
 
-    def start_profile(self):
-        """Trace CPU and (where present) CUDA activity until ``stop_profile``;
-        the Chrome trace goes to ``<run_dir>/profile/trace.json``."""
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self._profiler = torch.profiler.profile(activities=acts)
+    def start_profile(self, device=None):
+        """Profile the device's activity and the host's operators until
+        ``stop_profile``, in a ``tools/trace_summary.py::ProfiledWindow``: on
+        the card its pad kernels around the block, so that ``complete`` says
+        whether the profiler lost any of the block's first records.  The
+        Chrome trace is written to ``<run_dir>/profile/trace.json`` at the
+        window's end.  ``device``: the trainer's (default the card where
+        there is one)."""
+        from ..tools.trace_summary import ProfiledWindow
+
+        dev = torch.device(device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._profiler = ProfiledWindow(dev, "train profile epoch",
+                                        trace_path=os.path.join(self.run_dir, "profile", "trace.json"), host_ops=True)
         self._profiler.__enter__()
 
-    def stop_profile(self):
+    def stop_profile(self) -> Optional[dict]:
+        """Close the window; its record (wall and device time by class, busy
+        share, ``complete``, the hand kernels' launches) goes to
+        ``<run_dir>/profile/summary.json`` and is returned."""
         if self._profiler is None:
-            return
-        prof, self._profiler = self._profiler, None
-        prof.__exit__(None, None, None)
-        out = os.path.join(self.run_dir, "profile")
-        os.makedirs(out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+            return None
+        window, self._profiler = self._profiler, None
+        window.__exit__(None, None, None)
+        record = window.record()
+        with open(os.path.join(self.run_dir, "profile", "summary.json"), "w") as fp:
+            json.dump(record, fp, indent=1)
+        return record
 
 
 class NullMetrics:
@@ -112,8 +125,8 @@ class NullMetrics:
     def log_figure(self, fig, name: str):
         return None
 
-    def start_profile(self):
+    def start_profile(self, device=None):
         pass
 
     def stop_profile(self):
-        pass
+        return None

@@ -256,7 +256,7 @@ class PFTrainer:
             sums: Dict[str, torch.Tensor] = {}
             n_b = 0
             if epoch == profile_epoch:
-                self.metrics.start_profile()
+                self.metrics.start_profile(self.device)
             for hb in BatchPrefetcher(self._batcher(train_ds, "train", seed=epoch), prepare,
                                       num_workers=int(ct.get("num_workers", 2))):
                 logs = self.train_step(pf_batch_to_device(hb, self.device), lr=lr)

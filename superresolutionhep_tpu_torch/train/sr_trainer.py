@@ -436,7 +436,7 @@ class SRTrainer:
             ep_stats: Dict[str, torch.Tensor] = {}
             n_batches, last_hb = 0, None
             if epoch == profile_epoch:
-                self.metrics.start_profile()
+                self.metrics.start_profile(self.device)
             if packed:
                 order = np.random.default_rng(epoch).permutation(len(pack_layouts))
                 batches = BatchPrefetcher([pack_layouts[i] for i in order], prepare_packed, num_workers=num_workers)

@@ -101,3 +101,21 @@ def test_entry_points_refuse_what_is_not_there(tmp_path):
     # the live plots are ported (tests/test_torch_port_live.py draws them)
     tr = SRTrainer(config_mv, dict(config_t, n_event_displays=2), run_dir=str(tmp_path / "c"), device="cpu")
     assert tr.config_t["n_event_displays"] == 2
+
+
+def test_profile_epoch_is_a_profiled_window(tmp_path):
+    """``profile: true`` profiles the first epoch of ``fit`` in a
+    ``tools/trace_summary.py::ProfiledWindow``: its record (with
+    ``complete``) in ``profile/summary.json``, the Chrome trace exported at
+    the window's end, readable, with the host's operators of the epoch."""
+    config_mv, config_t = make_configs(num_epochs=1)
+    run = str(tmp_path / "run")
+    tr = SRTrainer(config_mv, dict(config_t, profile=True), run_dir=run, seed=0, device="cpu")
+    tr.fit(make_dataset(config_mv, 4, 1), None)
+    summary = json.load(open(os.path.join(run, "profile", "summary.json")))
+    assert summary["label"] == "train profile epoch" and summary["complete"] is True
+    assert summary["wall_ms"] > 0 and summary["launches"] == {}  # no hand kernel launches on the CPU
+    trace = json.load(open(os.path.join(run, "profile", "trace.json")))
+    ops = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"]
+    assert ops and all(e["dur"] >= 0 for e in ops) and any(e["name"].startswith("aten::") for e in ops)
+    assert tr.metrics._profiler is None and tr.metrics.stop_profile() is None
